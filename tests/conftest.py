@@ -100,6 +100,11 @@ def reference():
     return articulatory
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with CUDA; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
