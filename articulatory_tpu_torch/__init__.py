@@ -1,11 +1,13 @@
 """articulatory_tpu_torch: the PyTorch/CUDA port of articulatory_tpu.
 
 It carries the E2W HiFi-CAR decode path (``inference.load_model`` ->
-``inference.ar_loop`` / ``ar_loop_batched``, ``bin/decode.py``) on an NVIDIA
-H100, with its residual pairs in a hand-written CUDA kernel
-(``csrc/resblock_pair.cu``). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; without a card they raise. The package imports
-nothing of ``articulatory_tpu`` and no JAX.
+``inference.ar_loop`` / ``ar_loop_batched``, ``bin/decode.py``) and the GAN
+training step (``bin/train.py`` -> ``train/trainer.py`` ->
+``train/gan.py``) on an NVIDIA H100, with the generator's residual pairs
+and the scale discriminator's first two layers in hand-written CUDA kernels
+(``csrc/resblock_pair.cu``, ``csrc/scale_disc_head.cu``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; without a card they
+raise. The package imports nothing of ``articulatory_tpu`` and no JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,210 @@
+#!/usr/bin/env python3
+"""Train a GAN vocoder on the GPU (port of ``articulatory_tpu/bin/train.py``
+for the a2w path: ``SpeechDataset`` + ``SpeechCollater`` random windows, the
+HiFi-GAN generator and discriminators, ``train/gan.py``'s step).
+
+    python -m articulatory_tpu_torch.bin.train --device cuda \\
+        --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
+        --outdir exp/x --config conf/e2w_hifigan_car.yaml --data-root data
+
+``train(config, ...)`` takes the config as a dict (``main`` reads the YAML),
+writes ``<outdir>/config.yml`` and the checkpoints, and returns the
+``Trainer`` after its run. Distributed training, tensor parallelism, batch
+samplers, the device-resident cache and the native loader are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import numpy as np
+
+from articulatory_tpu_torch.data.collate import SpeechCollater
+from articulatory_tpu_torch.data.datasets import SpeechDataset
+from articulatory_tpu_torch.data.loader import DataLoader
+from articulatory_tpu_torch.models import build_model
+from articulatory_tpu_torch.train.gan import (
+    GANCriterion,
+    GANTrainState,
+    make_eval_step,
+    make_train_step,
+)
+from articulatory_tpu_torch.train.optimizers import build_optimizer
+from articulatory_tpu_torch.train.schedulers import build_scheduler
+from articulatory_tpu_torch.train.trainer import Trainer
+from articulatory_tpu_torch.utils.checkpoint import load_checkpoint, restore_state
+from articulatory_tpu_torch.utils.device import resolve_device
+from articulatory_tpu_torch.utils.io import read_hdf5
+
+_NOT_PORTED_CONFIG = ("use_device_cache", "use_native_loader", "transform",
+                      "input_transform", "output_transform")
+
+
+def _check_config(config: dict) -> None:
+    asked = [k for k in _NOT_PORTED_CONFIG if config.get(k)]
+    if config.get("batch_sampler_type", "None") != "None":
+        asked.append("batch_sampler_type")
+    if int(config.get("tensor_parallel", 1)) > 1:
+        asked.append("tensor_parallel")
+    if config.get("remove_short_samples", False):
+        asked.append("remove_short_samples")
+    if asked:
+        raise NotImplementedError(f"config keys not ported yet: {asked}")
+
+
+def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
+                   data_root: str):
+    """Train/dev ``SpeechDataset``s and their collaters."""
+    if config["format"] == "hdf5":
+        kwargs = dict(audio_query="*.h5", mel_query="*.h5",
+                      audio_load_fn=lambda p: read_hdf5(p, "wave"))
+    elif config["format"] == "npy":
+        kwargs = dict(audio_query="*-wave.npy", mel_query="*-feats.npy",
+                      audio_load_fn=np.load)
+    else:
+        raise ValueError("support only hdf5 or npy format.")
+    datasets = [SpeechDataset(root_dir=d, data_root=data_root,
+                              allow_cache=config.get("allow_cache", False),
+                              **kwargs)
+                for d in (train_dumpdir, dev_dumpdir)]
+    rng = np.random.default_rng(config.get("seed", 0))
+    gp = config["generator_params"]
+
+    def collater():
+        return SpeechCollater(
+            batch_max_steps=config["batch_max_steps"],
+            hop_size=config["hop_size"],
+            aux_context_window=gp.get("aux_context_window", 0),
+            dataset_mode=config.get("dataset_mode", "default"),
+            config=config, rng=rng)
+
+    return datasets[0], datasets[1], collater(), collater()
+
+
+def dump_config(config: dict, outdir: str) -> None:
+    import yaml
+
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "config.yml"), "w") as f:
+        yaml.dump(config, f, Dumper=yaml.Dumper)
+
+
+def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
+          data_root: str = "data", pretrain: str = "", resume: str = "",
+          seed: int = 0, device=None) -> Trainer:
+    """Train from ``config`` on ``device`` (default cuda; raises without a
+    card) until ``train_max_steps``."""
+    dev = resolve_device(device)
+    _check_config(config)
+    config = dict(config, train_dumpdir=train_dumpdir, dev_dumpdir=dev_dumpdir,
+                  outdir=outdir, data_root=data_root, pretrain=pretrain,
+                  resume=resume, seed=seed, version="0.1.0-torch")
+    dump_config(config, outdir)
+
+    train_set, dev_set, train_collater, dev_collater = build_datasets(
+        config, train_dumpdir, dev_dumpdir, data_root)
+    logging.info(f"The number of training files = {len(train_set)}.")
+    logging.info(f"The number of development files = {len(dev_set)}.")
+    workers = config.get("num_workers", 0)
+    data_loader = {
+        "train": DataLoader(train_set, batch_size=config["batch_size"],
+                            shuffle=True, collate_fn=train_collater,
+                            drop_last=True, num_workers=workers, seed=seed),
+        "dev": DataLoader(dev_set, batch_size=min(config["batch_size"],
+                                                  max(1, len(dev_set))),
+                          shuffle=True, collate_fn=dev_collater,
+                          drop_last=True, num_workers=workers, seed=seed),
+    }
+
+    criterion = GANCriterion(config)
+    generator = build_model(config["generator_type"],
+                            config["generator_params"], seed=seed).to(dev)
+    discriminator = build_model(config["discriminator_type"],
+                                config.get("discriminator_params", {}),
+                                seed=seed + 1).to(dev)
+    logging.info(f"generator params: "
+                 f"{sum(p.numel() for p in generator.parameters()):,}")
+    logging.info(f"discriminator params: "
+                 f"{sum(p.numel() for p in discriminator.parameters()):,}")
+    opts, schedulers = {}, {}
+    for name, model in (("generator", generator),
+                        ("discriminator", discriminator)):
+        opt_params = config.get(f"{name}_optimizer_params", {})
+        opts[name] = build_optimizer(
+            config.get(f"{name}_optimizer_type", "RAdam"), opt_params,
+            config.get(f"{name}_grad_norm", -1), model.parameters())
+        schedulers[name] = build_scheduler(
+            config.get(f"{name}_scheduler_type", "StepLR"),
+            opt_params.get("lr", 1e-3),
+            config.get(f"{name}_scheduler_params", {}))
+    state = GANTrainState(generator=generator, discriminator=discriminator,
+                          opt_g=opts["generator"], opt_d=opts["discriminator"])
+    epochs = 0
+    if pretrain:
+        restore_state(state, load_checkpoint(pretrain), config,
+                      load_only_params=True)
+        logging.info(f"Successfully loaded parameters from {pretrain}.")
+    if resume:
+        epochs = restore_state(state, load_checkpoint(resume), config,
+                               schedulers=schedulers)
+        logging.info(f"Successfully resumed from {resume}.")
+
+    trainer = Trainer(config=config, state=state,
+                      train_step=make_train_step(criterion, config),
+                      eval_step=make_eval_step(criterion, config),
+                      schedulers=schedulers, data_loader=data_loader,
+                      outdir=outdir, device=dev, epochs=epochs)
+    trainer.data_loader["train"].set_epoch(epochs)
+    trainer.run()
+    return trainer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Train an articulatory GAN vocoder on the GPU.")
+    parser.add_argument("--train-dumpdir", required=True, type=str)
+    parser.add_argument("--dev-dumpdir", required=True, type=str)
+    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--data-root", default="data", type=str,
+                        help="root holding <stage>/feats.scp maps")
+    parser.add_argument("--pretrain", default="", type=str, nargs="?")
+    parser.add_argument("--resume", default="", type=str, nargs="?")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--verbose", type=int, default=1)
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="cuda (default; raises without a card) or cpu")
+    for flag, kind in (("--coordinator-address", str),
+                       ("--num-processes", int), ("--process-id", int),
+                       ("--tensor-parallel", int)):
+        parser.add_argument(flag, default=None, type=kind,
+                            help="not ported yet (raises)")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose > 1 else
+        logging.INFO if args.verbose > 0 else logging.WARN,
+        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s")
+    asked = [f for f in ("coordinator_address", "num_processes", "process_id",
+                         "tensor_parallel") if getattr(args, f) is not None]
+    if asked:
+        parser.error(", ".join("--" + f.replace("_", "-") for f in asked)
+                     + " is not yet ported to articulatory_tpu_torch")
+
+    from articulatory_tpu_torch.config import load_config
+
+    train(load_config(args.config), train_dumpdir=args.train_dumpdir,
+          dev_dumpdir=args.dev_dumpdir, outdir=args.outdir,
+          data_root=args.data_root, pretrain=args.pretrain,
+          resume=args.resume, seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
-"""Feature datasets for decoding (port of the decode-side datasets of
-``articulatory_tpu/data/datasets.py``): ``ArtDataset`` over a dump directory
-or a feats.scp of .npy paths, and ``MelSCPDataset`` / ``ArtSCPDataset`` over
-a feats.scp of hdf5 or npy values. They return numpy arrays."""
+"""Feature datasets (port of ``articulatory_tpu/data/datasets.py``):
+``SpeechDataset`` for training (audio from a dump directory, articulatory
+features through ``<data_root>/<stage>/feats.scp``); for decoding
+``ArtDataset`` over a dump directory or a feats.scp of .npy paths, and
+``MelSCPDataset`` / ``ArtSCPDataset`` over a feats.scp of hdf5 or npy
+values. They return numpy arrays."""
 
 from __future__ import annotations
 
@@ -15,7 +17,73 @@ from articulatory_tpu_torch.utils.io import (
     NpyScpLoader,
     find_files,
     load_scp,
+    read_hdf5,
 )
+
+
+def _stage_from_root(root_dir: str) -> str:
+    """The data-stage name of a dump dir: the component after a 'dump'
+    directory, else the 2nd component of a relative path, else the
+    basename (the reference hard-codes ``root_dir.split('/')[1]``)."""
+    parts = [p for p in os.path.normpath(root_dir).split(os.sep) if p]
+    if "dump" in parts:
+        i = parts.index("dump")
+        if i + 1 < len(parts):
+            return parts[i + 1]
+    if not os.path.isabs(root_dir) and len(parts) > 1:
+        return parts[1]
+    return parts[-1]
+
+
+def _read_wave(path: str) -> np.ndarray:
+    return read_hdf5(path, "wave")
+
+
+class SpeechDataset:
+    """Training pairs ``{"art", "audio"}``: audio from the dump directory
+    (``audio_query`` files through ``audio_load_fn``; the ``mel_query``
+    files must pair with them one to one), articulatory features (.npy)
+    through ``<data_root>/<stage>/feats.scp``. The a2w path only: speaker
+    ids, phonemes, mel streams and transforms are not ported."""
+
+    def __init__(self, root_dir: str, audio_query: str = "*.h5",
+                 mel_query: str = "*.h5", audio_load_fn=_read_wave,
+                 allow_cache: bool = False, data_root: str = "data"):
+        audio_files = sorted(find_files(root_dir, audio_query))
+        mel_files = sorted(find_files(root_dir, mel_query))
+        if not audio_files:
+            raise FileNotFoundError(f"Not found any audio files in {root_dir}.")
+        if len(audio_files) != len(mel_files):
+            raise ValueError(f"{root_dir}: {len(audio_files)} audio files but "
+                             f"{len(mel_files)} feature files")
+        self.audio_files = audio_files
+        self.audio_load_fn = audio_load_fn
+        if ".npy" in audio_query:
+            self.utt_ids = [os.path.basename(f).replace("-wave.npy", "")
+                            for f in audio_files]
+        else:
+            self.utt_ids = [os.path.splitext(os.path.basename(f))[0]
+                            for f in audio_files]
+        feats_path = os.path.join(data_root, _stage_from_root(root_dir),
+                                  "feats.scp")
+        if not os.path.exists(feats_path):
+            raise FileNotFoundError(f"missing {feats_path}")
+        fid_to_artp = load_scp(feats_path)
+        self.art_files = [fid_to_artp[fid] for fid in self.utt_ids]
+        self.allow_cache = allow_cache
+        self.caches: dict[int, dict] = {}
+
+    def __getitem__(self, idx: int) -> dict:
+        if self.allow_cache and idx in self.caches:
+            return self.caches[idx]
+        items = {"art": np.load(self.art_files[idx]),  # (T', C)
+                 "audio": self.audio_load_fn(self.audio_files[idx])}
+        if self.allow_cache:
+            self.caches[idx] = items
+        return items
+
+    def __len__(self) -> int:
+        return len(self.audio_files)
 
 
 class ArtDataset:

@@ -1,4 +1,5 @@
-"""Conv1d, ConvTranspose1d and Dense with the reference's torch parameters.
+"""Conv1d, ConvTranspose1d, Conv2d and Dense with the reference's torch
+parameters.
 
 Parameters carry torch's names and layouts, so ``state_dict()`` has the keys
 ``articulatory_tpu/utils/torch_export.py`` produces and reference torch
@@ -9,6 +10,8 @@ pickles load straight in:
 - ConvTranspose1d: ``weight`` or ``weight_g`` (C_in, 1, 1) / ``weight_v``
   (C_in, C_out, K), and ``bias``; torch's weight-norm dim 0 is the *input*
   channel here;
+- Conv2d (NHWC input): ``weight`` or ``weight_g`` (C_out, 1, 1, 1) /
+  ``weight_v`` (C_out, C_in // groups, Kh, Kw), and ``bias``;
 - Dense: ``weight`` (out, in), ``bias`` (out,).
 
 Weight norm is ``w = g * v / ||v||`` over every axis but 0. The forward
@@ -67,8 +70,8 @@ class _Conv(nn.Module):
         w = _kernel_init(shape, fan_in, kernel_init, generator)
         if use_weight_norm:
             self.weight_v = nn.Parameter(w)
-            self.weight_g = nn.Parameter(
-                w.square().sum(dim=(1, 2), keepdim=True).sqrt())
+            self.weight_g = nn.Parameter(w.square().sum(
+                dim=tuple(range(1, w.dim())), keepdim=True).sqrt())
         else:
             self.weight = nn.Parameter(w)
         self.bias = (_uniform((out_channels,), 1.0 / math.sqrt(fan_in), generator)
@@ -167,6 +170,42 @@ class ConvTranspose1d(_Conv):
         return conv_ops.conv_transpose1d(
             x.to(dtype), w, b, stride=self.stride, padding=self.padding,
             output_padding=self.output_padding, dilation=self.dilation)
+
+
+class Conv2d(_Conv):
+    """PyTorch-semantics Conv2d over NHWC input, optional weight norm (per
+    output channel). Spectral norm is not ported: the period discriminators
+    of the repo's configs run weight norm, and the scale stack applies no
+    norm at all."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: tuple[int, int], stride: tuple[int, int] = (1, 1),
+                 padding: tuple[int, int] = (0, 0),
+                 dilation: tuple[int, int] = (1, 1), groups: int = 1,
+                 bias: bool = True, use_weight_norm: bool = False,
+                 use_spectral_norm: bool = False,
+                 kernel_init: str = "torch_default",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if use_spectral_norm:
+            raise NotImplementedError("spectral norm is not ported yet")
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.dilation, self.groups = tuple(dilation), groups
+        shape = (out_channels, in_channels // groups, *kernel_size)
+        self._make_params(shape, shape[1] * kernel_size[0] * kernel_size[1],
+                          out_channels, bias, use_weight_norm, kernel_init,
+                          generator)
+
+    def _ops_kernel(self, w: torch.Tensor) -> torch.Tensor:
+        return w.permute(2, 3, 1, 0)  # -> (Kh, Kw, C_in, C_out)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None
+                ) -> torch.Tensor:
+        dtype = dtype or x.dtype
+        w, b = self.kernel(dtype)
+        return conv_ops.conv2d(x.to(dtype), w, b, stride=self.stride,
+                               padding=self.padding, dilation=self.dilation,
+                               groups=self.groups)
 
 
 class Dense(nn.Module):

@@ -1,16 +1,20 @@
 """Model registry: YAML class names -> the port's modules.
 
-This slice ports ``HiFiGANGenerator`` only; other names raise
-``NotImplementedError``.
+Ported: ``HiFiGANGenerator`` and the HiFi-GAN discriminators; other names
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from articulatory_tpu_torch.models.hifigan import HiFiGANGenerator
+from articulatory_tpu_torch.models import hifigan
 
-_REGISTRY = {"HiFiGANGenerator": HiFiGANGenerator}
+_REGISTRY = {name: getattr(hifigan, name) for name in (
+    "HiFiGANGenerator", "HiFiGANPeriodDiscriminator",
+    "HiFiGANMultiPeriodDiscriminator", "HiFiGANScaleDiscriminator",
+    "HiFiGANMultiScaleDiscriminator",
+    "HiFiGANMultiScaleMultiPeriodDiscriminator")}
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "fp32": torch.float32,
            "float32": torch.float32}

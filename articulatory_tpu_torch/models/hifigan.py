@@ -1,4 +1,5 @@
-"""HiFi-GAN generator (port of ``articulatory_tpu/models/hifigan.py``).
+"""HiFi-GAN generator and discriminators (port of
+``articulatory_tpu/models/hifigan.py``).
 
 Input conv -> per stage (LeakyReLU, ConvTranspose1d upsample, MRF of
 residual blocks) -> LeakyReLU(0.01) -> output conv -> tanh, over NLC
@@ -16,6 +17,24 @@ residual blocks) -> LeakyReLU(0.01) -> output conv -> tanh, over NLC
 Module names follow the reference's state-dict keys: ``input_conv``,
 ``upsamples.{i}.1``, ``blocks.{i*n+j}``, ``output_conv.1``, ``ar_model``.
 ``time_packing``, ``final_scale`` and ``extra_art`` are accepted and ignored.
+
+The discriminators return lists of feature maps, each cast back to f32 when
+``compute_dtype`` is bf16 (the last entry of each list is the logits):
+
+- ``HiFiGANPeriodDiscriminator``: reflect-pad time to a multiple of the
+  period, view as ``(B, T/P, P, C)`` and run a Conv2d stack (weight norm);
+  its keys are ``convs.{i}.0`` and ``output_conv``;
+- ``HiFiGANScaleDiscriminator``: a grouped Conv1d stack with no weight or
+  spectral norm (the reference's norm is a no-op there); keys
+  ``layers.{i}.0`` and, for the last, ``layers.{n-1}``. Layers 0-1 run as
+  one ``ops/scale_disc_head`` call (the CUDA kernel on a card) whenever
+  their shape is the head's: 1 input channel, kernels (15, 41), 128
+  channels, LeakyReLU. That holds for every config in the repo; other
+  shapes run the plain Conv1d layers;
+- ``HiFiGANMultiScaleDiscriminator`` (AvgPool1d between scales, whatever
+  ``downsample_pooling`` names, as the JAX package),
+  ``HiFiGANMultiPeriodDiscriminator`` and
+  ``HiFiGANMultiScaleMultiPeriodDiscriminator`` (keys ``msd.``/``mpd.``).
 """
 
 from __future__ import annotations
@@ -23,13 +42,15 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.activations import get_activation
-from articulatory_tpu_torch.layers.conv import Conv1d, ConvTranspose1d
+from articulatory_tpu_torch.layers.conv import Conv1d, Conv2d, ConvTranspose1d
 from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 from articulatory_tpu_torch.layers.residual import HiFiGANResidualBlock
-from articulatory_tpu_torch.ops.conv import leaky_relu
+from articulatory_tpu_torch.ops.conv import avg_pool1d, leaky_relu
+from articulatory_tpu_torch.ops.scale_disc_head import scale_disc_head
 
 
 class HiFiGANGenerator(nn.Module):
@@ -153,3 +174,217 @@ class HiFiGANGenerator(nn.Module):
         for m in self.modules():
             if isinstance(m, (Conv1d, ConvTranspose1d)):
                 m.remove_weight_norm()
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """A feature map in at least f32 (the JAX package's
+    ``promote_types(dtype, float32)``)."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def _generator(generator: torch.Generator | None, seed: int) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(seed)
+
+
+class HiFiGANPeriodDiscriminator(nn.Module):
+    """x ``(B, T, C)`` -> feature maps ``(B, H_i, P, C_i)`` and flattened
+    logits ``(B, -1)``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 period: int = 3, kernel_sizes: Sequence[int] = (5, 3),
+                 channels: int = 32,
+                 downsample_scales: Sequence[int] = (3, 3, 3, 3, 1),
+                 max_downsample_channels: int = 1024, bias: bool = True,
+                 nonlinear_activation: str = "LeakyReLU",
+                 nonlinear_activation_params: dict | None = None,
+                 use_weight_norm: bool = True, use_spectral_norm: bool = False,
+                 compute_dtype: torch.dtype | None = None, seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if len(kernel_sizes) != 2 or any(k % 2 != 1 for k in kernel_sizes):
+            raise ValueError("kernel_sizes must be two odd sizes")
+        if use_weight_norm and use_spectral_norm:
+            raise ValueError("Either use use_weight_norm or use_spectral_norm.")
+        generator = _generator(generator, seed)
+        self.period = period
+        self.compute_dtype = compute_dtype
+        self.act = get_activation(nonlinear_activation,
+                                  nonlinear_activation_params
+                                  or {"negative_slope": 0.1})
+        norms = dict(use_weight_norm=use_weight_norm,
+                     use_spectral_norm=use_spectral_norm, generator=generator)
+        k0, k1 = kernel_sizes
+        self.convs = nn.ModuleList()
+        in_chs, out_chs = in_channels, channels
+        for scale in downsample_scales:
+            self.convs.append(nn.Sequential(
+                Conv2d(in_chs, out_chs, (k0, 1), stride=(scale, 1),
+                       padding=((k0 - 1) // 2, 0), bias=bias, **norms),
+                nn.LeakyReLU()))
+            in_chs = out_chs
+            out_chs = min(out_chs * 4, max_downsample_channels)
+        self.output_conv = Conv2d(in_chs, out_channels, (k1 - 1, 1),
+                                  padding=((k1 - 1) // 2, 0), **norms)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        b, t, c = x.shape
+        if t % self.period:
+            n_pad = self.period - t % self.period
+            x = F.pad(x.transpose(1, 2), (0, n_pad), mode="reflect"
+                      ).transpose(1, 2)
+            t += n_pad
+        dtype = self.compute_dtype or x.dtype
+        x = x.reshape(b, t // self.period, self.period, c).to(dtype)
+        outs = []
+        for conv in self.convs:
+            x = self.act(conv[0](x, dtype))
+            outs.append(_f32(x))
+        x = self.output_conv(x, dtype)
+        outs.append(_f32(x.reshape(b, -1)))
+        return outs
+
+
+class HiFiGANMultiPeriodDiscriminator(nn.Module):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 discriminator_params: dict | None = None,
+                 compute_dtype: torch.dtype | None = None, seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        generator = _generator(generator, seed)
+        params = dict(discriminator_params or {})
+        params.setdefault("compute_dtype", compute_dtype)
+        self.discriminators = nn.ModuleList([
+            HiFiGANPeriodDiscriminator(**dict(params, period=p),
+                                       generator=generator)
+            for p in periods])
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        return [d(x) for d in self.discriminators]
+
+
+class HiFiGANScaleDiscriminator(nn.Module):
+    """x ``(B, T, C)`` -> feature maps ``(B, T_i, C_i)``, the last the
+    logits ``(B, T_n, out_channels)``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 kernel_sizes: Sequence[int] = (15, 41, 5, 3),
+                 channels: int = 128, max_downsample_channels: int = 1024,
+                 max_groups: int = 16, bias: bool = True,
+                 downsample_scales: Sequence[int] = (2, 2, 4, 4, 1),
+                 nonlinear_activation: str = "LeakyReLU",
+                 nonlinear_activation_params: dict | None = None,
+                 use_weight_norm: bool = True, use_spectral_norm: bool = False,
+                 compute_dtype: torch.dtype | None = None, seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        del use_weight_norm, use_spectral_norm  # no-ops here, as in JAX
+        if len(kernel_sizes) != 4 or any(k % 2 != 1 for k in kernel_sizes):
+            raise ValueError("kernel_sizes must be four odd sizes")
+        generator = _generator(generator, seed)
+        act_params = nonlinear_activation_params or {"negative_slope": 0.1}
+        self.act = get_activation(nonlinear_activation, act_params)
+        self.compute_dtype = compute_dtype
+        self.downsample_scales = tuple(downsample_scales)
+        k0, k1, k2, k3 = kernel_sizes
+
+        def layer(c_in, c_out, k, stride=1, groups=1, last=False):
+            conv = Conv1d(c_in, c_out, k, stride=stride,
+                          padding=(k - 1) // 2, groups=groups, bias=bias,
+                          generator=generator)
+            return conv if last else nn.Sequential(conv, nn.LeakyReLU())
+
+        layers = [layer(in_channels, channels, k0)]
+        in_chs = out_chs = channels
+        groups = 4
+        for scale in downsample_scales:
+            layers.append(layer(in_chs, out_chs, k1, stride=scale,
+                                groups=groups))
+            in_chs = out_chs
+            out_chs = min(in_chs * 2, max_downsample_channels)
+            groups = min(groups * 4, max_groups)
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        layers.append(layer(in_chs, out_chs, k2))
+        layers.append(layer(out_chs, out_channels, k3, last=True))
+        self.layers = nn.ModuleList(layers)
+        # layers 0-1 in the head's shape go through the fused head
+        self.head_slope = (act_params.get("negative_slope", 0.01)
+                           if nonlinear_activation == "LeakyReLU" else None)
+        self.use_head = (in_channels == 1 and (k0, k1) == (15, 41)
+                         and channels == 128 and len(downsample_scales) > 0
+                         and self.head_slope is not None)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        dtype = self.compute_dtype or x.dtype
+        x = x.to(dtype)
+        outs = []
+        body = self.layers[:-1]
+        if self.use_head:
+            w0, b0 = self.layers[0][0].kernel(dtype)
+            wg, b1 = self.layers[1][0].kernel(dtype)
+            h0, x = scale_disc_head(x.contiguous(), w0, b0, wg, b1,
+                                    stride=self.downsample_scales[0],
+                                    negative_slope=self.head_slope)
+            outs += [_f32(h0), _f32(x)]
+            body = body[2:]
+        for layer in body:
+            x = self.act(layer[0](x, dtype))
+            outs.append(_f32(x))
+        outs.append(_f32(self.layers[-1](x, dtype)))
+        return outs
+
+
+class HiFiGANMultiScaleDiscriminator(nn.Module):
+    def __init__(self, scales: int = 3, downsample_pooling: str = "AvgPool1d",
+                 downsample_pooling_params: dict | None = None,
+                 discriminator_params: dict | None = None,
+                 follow_official_norm: bool = False,
+                 compute_dtype: torch.dtype | None = None, seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        # follow_official_norm toggles norms that are no-ops in the scale
+        # stack; the pooling is AvgPool1d whatever its name, as in JAX
+        del downsample_pooling, follow_official_norm
+        generator = _generator(generator, seed)
+        self.pool = downsample_pooling_params or {
+            "kernel_size": 4, "stride": 2, "padding": 2}
+        params = dict(discriminator_params or {})
+        params.setdefault("compute_dtype", compute_dtype)
+        self.discriminators = nn.ModuleList([
+            HiFiGANScaleDiscriminator(**params, generator=generator)
+            for _ in range(scales)])
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        outs = []
+        for d in self.discriminators:
+            outs.append(d(x))
+            x = avg_pool1d(x, self.pool["kernel_size"], self.pool["stride"],
+                           self.pool["padding"])
+        return outs
+
+
+class HiFiGANMultiScaleMultiPeriodDiscriminator(nn.Module):
+    """MSD outputs then MPD outputs, one list of feature maps per
+    sub-discriminator."""
+
+    def __init__(self, scales: int = 3,
+                 scale_downsample_pooling: str = "AvgPool1d",
+                 scale_downsample_pooling_params: dict | None = None,
+                 scale_discriminator_params: dict | None = None,
+                 follow_official_norm: bool = True,
+                 periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 period_discriminator_params: dict | None = None,
+                 compute_dtype: torch.dtype | None = None, seed: int = 0):
+        super().__init__()
+        generator = torch.Generator().manual_seed(seed)
+        self.msd = HiFiGANMultiScaleDiscriminator(
+            scales=scales, downsample_pooling=scale_downsample_pooling,
+            downsample_pooling_params=scale_downsample_pooling_params,
+            discriminator_params=scale_discriminator_params,
+            follow_official_norm=follow_official_norm,
+            compute_dtype=compute_dtype, generator=generator)
+        self.mpd = HiFiGANMultiPeriodDiscriminator(
+            periods=periods, discriminator_params=period_discriminator_params,
+            compute_dtype=compute_dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        return self.msd(x) + self.mpd(x)

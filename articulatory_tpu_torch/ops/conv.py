@@ -5,9 +5,14 @@ both packages the same arrays:
 
 - ``conv1d`` weight: ``(K, C_in // groups, C_out)``;
 - ``conv_transpose1d`` weight: ``(K, C_in, C_out)``, time-flipped relative to
-  torch's ``(C_in, C_out, K)`` (``w[k, i, o] = w_torch[i, o, K-1-k]``).
+  torch's ``(C_in, C_out, K)`` (``w[k, i, o] = w_torch[i, o, K-1-k]``);
+- ``conv2d`` over NHWC ``(B, H, W, C)``, weight ``(Kh, Kw, C_in // groups,
+  C_out)``.
 
-They run on ``F.conv1d`` / ``F.conv_transpose1d``. The JAX package's MXU
+``avg_pool1d`` is ``torch.nn.AvgPool1d`` over the time axis of NLC input
+(port of ``articulatory_tpu/models/melgan.py::avg_pool1d``).
+
+They run on ``F.conv1d`` / ``F.conv_transpose1d`` / ``F.conv2d``. The JAX package's MXU
 rewrites (tap-stacked matmuls, densified grouped kernels) are exact
 equivalences of a plain convolution and are not carried over.
 """
@@ -61,6 +66,28 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     y = F.conv_transpose1d(x.transpose(1, 2), w.permute(1, 2, 0).flip(-1), b,
                            stride=stride, padding=padding,
                            output_padding=output_padding, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+           stride: tuple[int, int] = (1, 1),
+           padding: tuple[int, int] = (0, 0),
+           dilation: tuple[int, int] = (1, 1), groups: int = 1) -> torch.Tensor:
+    """x ``(B, H, W, C_in)``, w ``(Kh, Kw, C_in // groups, C_out)``, b
+    ``(C_out,)``; symmetric padding per axis. Returns ``(B, H_out, W_out,
+    C_out)``."""
+    # a contiguous weight: the CPU backward refuses a strided one
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(), b,
+                 stride=tuple(stride), padding=tuple(padding),
+                 dilation=tuple(dilation), groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool1d(x: torch.Tensor, kernel_size: int, stride: int, padding: int,
+               count_include_pad: bool = True) -> torch.Tensor:
+    """``torch.nn.AvgPool1d`` over the time axis of x ``(B, T, C)``."""
+    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
+                     count_include_pad=count_include_pad)
     return y.transpose(1, 2)
 
 

@@ -11,6 +11,14 @@ source for the design). bf16 tensor cores are a later redesign.
 ``resblock_pair`` dispatches on the tensor's device: a CPU tensor goes to
 ``resblock_pair_plain``, the same function in plain PyTorch; a CUDA tensor
 launches the kernel or raises. ``resblock_pair.launches`` counts launches.
+
+Gradients: the JAX package has no backward for this kernel (its models
+differentiate through XLA convs). On a CUDA tensor the pair runs inside
+``ResblockPairFunction``: forward launches the kernel through ``_launch``
+and saves x, w1, b1, w2, b2; backward recomputes ``resblock_pair_plain``
+under autograd and differentiates it (``ops/_recompute.py``), one extra
+plain forward and no intermediate activation kept. ``_launch`` is a module
+function, so a test can stand the plain version in for the kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from articulatory_tpu_torch.ops import _build
+from articulatory_tpu_torch.ops._recompute import recompute_grads
 from articulatory_tpu_torch.ops.conv import conv1d
 
 
@@ -78,18 +87,8 @@ def _check(x, w1, b1, w2, b2, dilation) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def resblock_pair(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
-                  w2: torch.Tensor, b2: torch.Tensor | None, *, dilation: int,
-                  negative_slope: float = 0.1) -> torch.Tensor:
-    """Fused residual pair. x ``(B, T, C)`` contiguous, float32 or bfloat16;
-    w1 ``(K1, C, C)``, w2 ``(K2, C, C)`` folded, (in, out) order, K odd;
-    b ``(C,)`` or None; all of x's dtype and device."""
-    if x.device.type == "cpu":
-        return resblock_pair_plain(x, w1, b1, w2, b2, dilation=dilation,
-                                   negative_slope=negative_slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"resblock_pair runs on cpu or cuda, not {x.device}")
-    _check(x, w1, b1, w2, b2, dilation)
+def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
+    """Launch the kernel on CUDA tensors that passed ``_check``."""
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -110,6 +109,43 @@ def resblock_pair(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
                            f"{rc} ({msg.decode()})")
     resblock_pair.launches += 1
     return y
+
+
+class ResblockPairFunction(torch.autograd.Function):
+    """Forward: ``_launch`` (the kernel). Backward: the plain pair
+    recomputed under autograd, differentiated with respect to every input
+    that needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, dilation, negative_slope):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.dilation, ctx.negative_slope = dilation, negative_slope
+        return _launch(x, w1, b1, w2, b2, dilation, negative_slope)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (*recompute_grads(resblock_pair_plain, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:5], gy,
+                                 dilation=ctx.dilation,
+                                 negative_slope=ctx.negative_slope),
+                None, None)
+
+
+def resblock_pair(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
+                  w2: torch.Tensor, b2: torch.Tensor | None, *, dilation: int,
+                  negative_slope: float = 0.1) -> torch.Tensor:
+    """Fused residual pair. x ``(B, T, C)`` contiguous, float32 or bfloat16;
+    w1 ``(K1, C, C)``, w2 ``(K2, C, C)`` folded, (in, out) order, K odd;
+    b ``(C,)`` or None; all of x's dtype and device. Differentiable in
+    every tensor input."""
+    if x.device.type == "cpu":
+        return resblock_pair_plain(x, w1, b1, w2, b2, dilation=dilation,
+                                   negative_slope=negative_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"resblock_pair runs on cpu or cuda, not {x.device}")
+    _check(x, w1, b1, w2, b2, dilation)
+    return ResblockPairFunction.apply(x, w1, b1, w2, b2, dilation,
+                                      negative_slope)
 
 
 resblock_pair.launches = 0

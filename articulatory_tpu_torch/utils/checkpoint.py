@@ -10,8 +10,13 @@
   is told from the first bytes, not the name: the JAX package writes msgpack
   under ``.pkl`` names too.
 
-``generator_state_dict`` turns either payload's generator entry into the
-port's state dict. Orbax checkpoint directories are not read by the port.
+``generator_state_dict`` / ``discriminator_state_dict`` turn either
+payload's model entries into the port's state dicts. ``save_checkpoint``
+writes a training state as a torch pickle in the reference's layout,
+``{"model": {"generator", "discriminator"}, "optimizer": {...},
+"scheduler": {...}, "steps", "epochs"}``, which ``load_model`` decodes from
+and ``restore_state`` resumes from. Orbax checkpoint directories are not
+read by the port.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from articulatory_tpu_torch.utils.weights import jax_params_to_state_dict
+from articulatory_tpu_torch.utils.weights import (
+    jax_msmpd_to_state_dict,
+    jax_params_to_state_dict,
+)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -98,6 +106,83 @@ def generator_state_dict(payload: dict, generator_key: str,
     sd: Any = payload["model"][generator_key]
     if isinstance(sd, tuple):  # reference generator2 save quirk (train.py:165)
         sd = sd[0]
-    if any(isinstance(v, dict) for v in sd.values()):
+    if _is_jax_tree(sd):
         return jax_params_to_state_dict(sd, generator_params)
     return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def _is_jax_tree(sd: dict) -> bool:
+    return any(isinstance(v, dict) for v in sd.values())
+
+
+def discriminator_state_dict(payload: dict, discriminator_type: str,
+                             discriminator_params: dict
+                             ) -> dict[str, torch.Tensor]:
+    """The port's state dict for ``payload["model"]["discriminator"]``: a
+    JAX MSMPD param tree is converted, a torch state dict used as it is."""
+    sd: Any = payload["model"]["discriminator"]
+    if not _is_jax_tree(sd):
+        return {k: torch.as_tensor(v) for k, v in sd.items()}
+    if discriminator_type != "HiFiGANMultiScaleMultiPeriodDiscriminator":
+        raise NotImplementedError(f"carrying a JAX {discriminator_type} is "
+                                  "not ported yet")
+    return jax_msmpd_to_state_dict(sd, discriminator_params)
+
+
+def _cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def save_checkpoint(path: str, state, schedulers: dict | None = None,
+                    epochs: int = 0) -> None:
+    """Write a ``train/gan.py::GANTrainState`` (and the host schedulers) as
+    one torch pickle, atomically."""
+    payload = _cpu({
+        "model": {"generator": state.generator.state_dict(),
+                  "discriminator": state.discriminator.state_dict()},
+        "optimizer": {"generator": state.opt_g.state_dict(),
+                      "discriminator": state.opt_d.state_dict()},
+        "scheduler": {k: v.state_dict() for k, v in (schedulers or {}).items()},
+        "steps": int(state.steps),
+        "epochs": int(epochs),
+    })
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def restore_state(state, payload: dict, config: dict,
+                  schedulers: dict | None = None,
+                  load_only_params: bool = False) -> int:
+    """Load a checkpoint payload into ``state`` in place; returns epochs.
+
+    ``load_only_params`` is ``--pretrain`` (the models' weights only, from a
+    torch pickle or a JAX msgpack file); otherwise ``--resume`` (weights,
+    optimizers, steps and schedulers, from a checkpoint the port wrote)."""
+    state.generator.load_state_dict(generator_state_dict(
+        payload, "generator", config["generator_params"]))
+    state.discriminator.load_state_dict(discriminator_state_dict(
+        payload, config["discriminator_type"],
+        config.get("discriminator_params", {})))
+    if load_only_params:
+        return 0
+    if _is_jax_tree(payload["model"]["generator"]):
+        raise NotImplementedError("resuming a JAX checkpoint is not ported "
+                                  "(its optax state does not carry over); "
+                                  "use --pretrain for its weights")
+    state.opt_g.load_state_dict(payload["optimizer"]["generator"])
+    state.opt_d.load_state_dict(payload["optimizer"]["discriminator"])
+    state.steps = int(payload.get("steps", 0))
+    for k, v in payload.get("scheduler", {}).items():
+        if schedulers and k in schedulers and v:
+            schedulers[k].load_state_dict(dict(v))
+    return int(payload.get("epochs", 0))

@@ -1,10 +1,13 @@
 """Weights carried across from the JAX package's parameter trees.
 
 ``jax_params_to_state_dict`` turns the JAX ``HiFiGANGenerator`` param tree
-(nested dicts of numpy arrays) into the port's ``state_dict``, which has the
+(nested dicts of numpy arrays) into the port's ``state_dict``, and
+``jax_msmpd_to_state_dict`` the JAX
+``HiFiGANMultiScaleMultiPeriodDiscriminator`` tree; both have the
 reference's torch keys and layouts:
 
 - Conv1d (K, C_in, C_out) -> (C_out, C_in, K);
+- Conv2d (Kh, Kw, C_in, C_out) -> (C_out, C_in, Kh, Kw);
 - ConvTranspose1d (K, C_in, C_out), time-flipped -> (C_in, C_out, K),
   un-flipped;
 - Dense (in, out) -> (out, in);
@@ -49,6 +52,14 @@ def _conv_transpose1d(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
         sd[f"{prefix}.bias"] = _tensor(p["b"])
 
 
+def _conv2d(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
+    for src, dst in (("v", "weight_v"), ("g", "weight_g"), ("w", "weight")):
+        if src in p:
+            sd[f"{prefix}.{dst}"] = _tensor(np.transpose(p[src], (3, 2, 0, 1)))
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _tensor(p["b"])
+
+
 def _linear(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
     sd[f"{prefix}.weight"] = _tensor(np.transpose(p["w"], (1, 0)))
     if "b" in p:
@@ -83,6 +94,35 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     if generator_params.get("use_ar", False):
         for li, ti in enumerate([0, 2, 4, 6, 8]):
             _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+    return sd
+
+
+def jax_msmpd_to_state_dict(params: Mapping[str, Any],
+                            discriminator_params: Mapping[str, Any]
+                            ) -> dict[str, torch.Tensor]:
+    """JAX ``HiFiGANMultiScaleMultiPeriodDiscriminator`` params -> the
+    port's state dict (the keys of the JAX package's
+    ``utils/torch_export.py::export_hifigan_msmpd``). Scale discriminators
+    carry plain weights; period discriminators weight norm."""
+    sd: dict[str, torch.Tensor] = {}
+    scale_params = discriminator_params.get("scale_discriminator_params", {})
+    period_params = discriminator_params.get("period_discriminator_params", {})
+    n_scale_layers = len(scale_params.get("downsample_scales",
+                                          (2, 2, 4, 4, 1))) + 3
+    n_period_convs = len(period_params.get("downsample_scales",
+                                           (3, 3, 3, 3, 1)))
+    for i in range(discriminator_params.get("scales", 3)):
+        disc = params["msd"][f"disc_{i}"]
+        for k in range(n_scale_layers):
+            # Sequential(conv, act) but for the last layer, a bare conv
+            last = k == n_scale_layers - 1
+            _conv1d(sd, f"msd.discriminators.{i}.layers.{k}"
+                    + ("" if last else ".0"), disc[f"layer_{k}"])
+    for i in range(len(discriminator_params.get("periods", (2, 3, 5, 7, 11)))):
+        disc = params["mpd"][f"disc_{i}"]
+        for k in range(n_period_convs):
+            _conv2d(sd, f"mpd.discriminators.{i}.convs.{k}.0", disc[f"conv_{k}"])
+        _conv2d(sd, f"mpd.discriminators.{i}.output_conv", disc["output_conv"])
     return sd
 
 

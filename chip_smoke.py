@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of articulatory_tpu_torch on one NVIDIA GPU.
 
-Drives the port's main path, E2W HiFi-CAR chunked-autoregressive synthesis at
-the full width of ``egs/ema/voc1/conf/e2w_hifigan_car.yaml`` (141 input
-channels incl. 128 AR features, channels 512, upsample (5, 4, 2, 2), MRF
-kernels (3, 7, 11) x dilations (1, 3, 5), AR 512) with 100-frame chunks,
-through its entry points (``load_model`` -> ``ar_loop_batched``, and the
-``bin/decode.py`` loop). Weights are random, drawn from ``--seed``, in the
-JAX package's layout and carried across by ``jax_params_to_state_dict``.
+Drives the port's two paths at the full width of
+``egs/ema/voc1/conf/e2w_hifigan_car.yaml`` (141 input channels incl. 128 AR
+features, channels 512, upsample (5, 4, 2, 2), MRF kernels (3, 7, 11) x
+dilations (1, 3, 5), AR 512) through their entry points:
+
+- E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
+  (``load_model`` -> ``ar_loop_batched``, and the ``bin/decode.py`` loop),
+  weights random from ``--seed`` in the JAX package's layout, carried
+  across by ``jax_params_to_state_dict``;
+- the GAN training step (``bin/train.py::train``) with the config's MSMPD
+  discriminator (3 scales, downsample (4, 4, 4, 4, 1); periods 2-11),
+  losses, Adam optimisers and batch (64 x 2000 samples), on a synthetic npy
+  corpus drawn from ``--seed``.
 
 Phases, each raising on failure:
 
@@ -25,7 +31,23 @@ Phases, each raising on failure:
    error <= 1e-6, hybrid <= 5e-3, on tanh outputs), one chunk forward
    timed with the kernel, with plain pairs and with no pairs in turns
    (median and range of ROUNDS), and the decode loop run on a 2-utterance
-   .npy dump.
+   .npy dump;
+5. head kernel: ``scale_disc_head`` against ``scale_disc_head_plain`` at
+   the training path's three scales (B 64, T 2512/1257/629, stride 4) and
+   the Pallas kernel's shape (B 32, T 8512, stride 2), each also at T + 3,
+   in f32 (<= 1e-4 of max |h|) and bf16 (<= 2e-2), timed in turns; and
+   ``resblock_pair`` at the training path's 36 shapes (B 64, 25 frames);
+6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
+   utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
+   every loss finite, (b) every generator and discriminator parameter
+   moved from its initial value, (c) 72 ``resblock_pair`` and 12
+   ``scale_disc_head`` launches per step, (d) on one batch the generator's
+   and discriminator's gradients with both kernels against both plain
+   versions (relative L2 per model <= GRAD_TOL[0], per tensor <=
+   GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
+   through ``inference.load_model``; then times full steps (median of
+   STEP_ROUNDS) and the generator fwd+bwd, regeneration and discriminator
+   fwd+bwd apart.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -81,6 +103,67 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # chunk against plain pairs, max abs on tanh outputs: about 40x and 25x the
 # readings on an H100 (2.4e-8 f32, 2.0e-4 hybrid)
 CHUNK_TOL = {"f32": 1e-6, "hybrid_bf16": 5e-3}
+
+# egs/ema/voc1/conf/e2w_hifigan_car.yaml, the rest of the training config
+# (format npy: the card's machine has no h5py; no evaluation or interval
+# checkpoint inside the run, so its launches are the steps' own)
+TRAIN_CONFIG = dict(
+    CONFIG, format="npy", batch_size=64, batch_max_steps=2000,
+    num_workers=2, allow_cache=True,
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params={
+        "scales": 3, "scale_downsample_pooling": "AvgPool1d",
+        "scale_downsample_pooling_params": {"kernel_size": 4, "stride": 2,
+                                            "padding": 2},
+        "scale_discriminator_params": {
+            "in_channels": 1, "out_channels": 1,
+            "kernel_sizes": [15, 41, 5, 3], "channels": 128,
+            "max_downsample_channels": 1024, "max_groups": 16, "bias": True,
+            "downsample_scales": [4, 4, 4, 4, 1],
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1}},
+        "follow_official_norm": True, "periods": [2, 3, 5, 7, 11],
+        "period_discriminator_params": {
+            "in_channels": 1, "out_channels": 1, "kernel_sizes": [5, 3],
+            "channels": 32, "downsample_scales": [3, 3, 3, 3, 1],
+            "max_downsample_channels": 1024, "bias": True,
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+            "use_weight_norm": True, "use_spectral_norm": False}},
+    use_stft_loss=False, use_mel_loss=True,
+    mel_loss_params={"fs": 16000, "fft_size": 1024, "hop_size": 256,
+                     "win_length": None, "window": "hann", "num_mels": 80,
+                     "fmin": 0, "fmax": 11025, "log_base": None},
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    use_feat_match_loss=True,
+    feat_match_loss_params={"average_by_discriminators": False,
+                            "average_by_layers": False,
+                            "include_final_outputs": False},
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0,
+    **{f"{m}_{key}": value for m in ("generator", "discriminator")
+       for key, value in (
+           ("optimizer_type", "Adam"),
+           ("optimizer_params", {"lr": 1e-4, "betas": [0.5, 0.9],
+                                 "weight_decay": 0.0}),
+           ("scheduler_type", "MultiStepLR"),
+           ("scheduler_params", {"gamma": 0.5,
+                                 "milestones": [40000, 80000, 120000,
+                                                160000]}),
+           ("grad_norm", -1))},
+    generator_train_start_steps=1, discriminator_train_start_steps=0,
+    train_max_steps=6, save_interval_steps=200000,
+    eval_interval_steps=200000, log_interval_steps=100)
+TRAIN_STEPS = TRAIN_CONFIG["train_max_steps"]
+TRAIN_UTTS, TRAIN_SECONDS = 64, 3  # one batch of 64 an epoch
+STEP_ROUNDS = 5
+# kernel vs plain gradients, relative L2: pooled over each model's tensors,
+# and per tensor (a tensor whose gradient cancels to a small fraction of
+# its terms, as a scale discriminator's first layer, reads larger)
+GRAD_TOL = (1e-3, 5e-2)
+# (B, T, stride): the training path's three MSD scales, and the Pallas
+# kernel's own shape
+HEAD_SHAPES = [(64, 2512, 4), (64, 1257, 4), (64, 629, 4), (32, 8512, 2)]
 
 
 def log(msg: str) -> None:
@@ -188,13 +271,13 @@ def host_us_per_launch(kernel, n: int = 2000) -> float:
 
 
 def phase_kernel(resblock_pair, resblock_pair_plain, seed: int,
-                 batch: int) -> list[dict]:
+                 batch: int, frames: int) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     scales = GENERATOR_PARAMS["upsample_scales"]
     rows = []
     for stage in range(len(scales)):
         c = GENERATOR_PARAMS["channels"] // 2 ** (stage + 1)
-        t = CHUNK_FRAMES * int(np.prod(scales[: stage + 1]))
+        t = frames * int(np.prod(scales[: stage + 1]))
         for k in GENERATOR_PARAMS["resblock_kernel_sizes"]:
             for d in GENERATOR_PARAMS["resblock_dilations"][0]:
                 for dtype in (torch.float32, torch.bfloat16):
@@ -246,16 +329,92 @@ def _kernel_case(kernel, plain, gen, batch, stage, t, c, k, d, dtype) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def kernel_sums(rows: list[dict]) -> dict:
+    """Per dtype: kernel, plain and bound ms summed over the rows, and the
+    largest errors."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        sel = [r for r in rows if r["dtype"] == dtype]
+        out[dtype] = {key: sum(r[key] for r in sel) for key in
+                      ("kernel_ms", "plain_ms", "bound_ms", "ops_ms",
+                       "bytes_ms")}
+        out[dtype]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+        out[dtype]["max_rel_err"] = max(r["max_rel_err"] for r in sel)
+    return out
+
+
+def head_times_ms(b, t, stride, dtype) -> tuple[float, float]:
+    """Least time for one head call by operations (2*B*T*128*15 +
+    2*B*T1*128*32*41 flops over the dtype's peak) and by bytes (x in, h0 and
+    h1 out, weights and biases once, over HBM bandwidth)."""
+    t1 = (t - 1) // stride + 1
+    flops = 2.0 * b * t * 128 * 15 + 2.0 * b * t1 * 128 * 32 * 41
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (b * t + b * t * 128 + b * t1 * 128 + 15 * 128 + 41 * 32 * 128
+              + 2 * 128) * size
+    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_head_kernel(head, head_plain, seed: int) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [_head_case(head, head_plain, gen, b, t, stride, dtype)
+            for b, t, stride in HEAD_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _head_case(kernel, plain, gen, b, t, stride, dtype) -> dict:
+    def inputs(length):
+        x = torch.randn(b, length, 1, device="cuda", generator=gen) * 0.3
+        w0 = torch.randn(15, 1, 128, device="cuda", generator=gen) / 15 ** 0.5
+        b0 = torch.randn(128, device="cuda", generator=gen) * 0.1
+        wg = torch.randn(41, 32, 128, device="cuda", generator=gen) / (
+            41 * 32) ** 0.5
+        b1 = torch.randn(128, device="cuda", generator=gen) * 0.1
+        return [a.to(dtype) for a in (x, w0, b0, wg, b1)]
+
+    rel_err = abs_err = 0.0
+    for length in (t, t + 3):  # the path's T, and a ragged one
+        args = inputs(length)
+        outs = kernel(*args, stride=stride)
+        refs = plain(*args, stride=stride)
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"scale_disc_head B{b} T{length} "
+                                     f"s{stride} {dtype}: bad output")
+            diff = (out.float() - ref.float()).abs().max().item()
+            abs_err = max(abs_err, diff)
+            rel_err = max(rel_err, diff / ref.float().abs().max().item())
+    if rel_err > KERNEL_TOL[dtype]:
+        raise AssertionError(f"scale_disc_head B{b} T{t} s{stride} {dtype}: "
+                             f"error {rel_err:.3e} of max |h| > "
+                             f"{KERNEL_TOL[dtype]}")
+    args = inputs(t)
+    n = 10
+    # in turns: plain, kernel, kernel, plain
+    p1 = time_ms(lambda: plain(*args, stride=stride), n)
+    k1 = time_ms(lambda: kernel(*args, stride=stride), n)
+    k2 = time_ms(lambda: kernel(*args, stride=stride), n)
+    p2 = time_ms(lambda: plain(*args, stride=stride), n)
+    ops_ms, bytes_ms = head_times_ms(b, t, stride, dtype)
+    return {"B": b, "T": t, "stride": stride,
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 @contextlib.contextmanager
-def plain_pairs(residual, pair_fn):
-    """Run the generator's residual pairs through ``pair_fn`` (the plain
-    version) instead of the kernel."""
-    saved = residual.resblock_pair
-    residual.resblock_pair = pair_fn
+def swapped(module, name: str, fn):
+    """Run ``module.name`` as ``fn`` (a kernel's plain version) inside."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        residual.resblock_pair = saved
+        setattr(module, name, saved)
 
 
 def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
@@ -345,7 +504,7 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
         cin = feats[:, ci * CHUNK_FRAMES:(ci + 1) * CHUNK_FRAMES]
         prev = (torch.zeros(len(xs), ar_input, 1, device="cuda") if ci == 0
                 else wav[:, ci * chunk_len - ar_input: ci * chunk_len])
-        with plain_pairs(residual, plain):
+        with swapped(residual, "resblock_pair", plain):
             ref = model(cin, ar=prev)
         got = wav[:, ci * chunk_len:(ci + 1) * chunk_len]
         err = (got - ref).abs().max().item()
@@ -359,13 +518,177 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
     times = {key: [] for key in pairs}
     for _ in range(ROUNDS):
         for key, pair_fn in pairs.items():
-            with plain_pairs(residual, pair_fn):
+            with swapped(residual, "resblock_pair", pair_fn):
                 times[key].append(time_ms(lambda: model(cin, ar=prev), 5))
     out = {"chunk_max_abs_err": worst}
     for key, values in times.items():
         out[key] = float(np.median(values))
         out[key + "_range"] = [min(values), max(values)]
     return out
+
+
+def _write_corpus(root: str, seed: int) -> None:
+    """``dump/<set>/norm/<utt>-{wave,feats}.npy`` and ``data/<set>/feats.scp``
+    under root: TRAIN_UTTS training and 8 dev utterances of TRAIN_SECONDS s,
+    random waveforms and 13 features at 200 Hz, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    hop = TRAIN_CONFIG["hop_size"]
+    frames = TRAIN_SECONDS * TRAIN_CONFIG["sampling_rate"] // hop
+    for stage, n in (("tr", TRAIN_UTTS), ("dev", 8)):
+        dump = os.path.join(root, "dump", stage, "norm")
+        data = os.path.join(root, "data", stage)
+        os.makedirs(dump)
+        os.makedirs(data)
+        lines = []
+        for i in range(n):
+            wave = 0.3 * rng.standard_normal(frames * hop)
+            art = rng.standard_normal((frames, N_FEATS)).astype(np.float32)
+            np.save(os.path.join(dump, f"u{i}-wave.npy"), wave.astype(np.float32))
+            np.save(os.path.join(dump, f"u{i}-feats.npy"), art)
+            np.save(os.path.join(data, f"u{i}.npy"), art)
+            lines.append(f"u{i} {os.path.join(data, f'u{i}.npy')}\n")
+        with open(os.path.join(data, "feats.scp"), "w") as f:
+            f.writelines(lines)
+
+
+def _grads(loss, params) -> list[torch.Tensor]:
+    return list(torch.autograd.grad(loss, params))
+
+
+def _grad_gaps(got, want) -> tuple[float, float]:
+    """(pooled, worst per tensor) relative L2 gap of two gradient lists."""
+    gaps = [(g - w).norm().item() for g, w in zip(got, want)]
+    norms = [w.norm().item() for w in want]
+    per = max(gap / norm for gap, norm in zip(gaps, norms) if norm > 0)
+    return float(np.linalg.norm(gaps) / np.linalg.norm(norms)), per
+
+
+def phase_train(port: dict, seed: int, tmp: str) -> dict:
+    train_cli, gan, inference = port["train"], port["gan"], port["inference"]
+    pair, head = port["resblock_pair"], port["scale_disc_head"]
+    config = TRAIN_CONFIG
+    _write_corpus(tmp, seed)
+    outdir = os.path.join(tmp, "exp")
+    pair.launches = head.launches = 0
+    start = time.perf_counter()
+    trainer = train_cli.train(
+        config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
+        dev_dumpdir=os.path.join(tmp, "dump/dev/norm"), outdir=outdir,
+        data_root=os.path.join(tmp, "data"), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - start
+    launches = {"resblock_pair": pair.launches,
+                "scale_disc_head": head.launches}
+    # (c) every step ran both generator forwards and all four discriminator
+    # passes through the kernels
+    expected = {"resblock_pair": 72 * TRAIN_STEPS,
+                "scale_disc_head": 12 * TRAIN_STEPS}
+    if launches != expected:
+        raise AssertionError(f"train: launches {launches}, expected {expected}")
+    # (a) the metrics summed over the run's steps
+    losses = {k: float(v) / TRAIN_STEPS
+              for k, v in trainer.total_train_loss.items()}
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"train: losses not finite: {losses}")
+    # (b) the models built from the same seeds are the initial weights
+    state = trainer.state
+    for model, name, model_seed in (
+            (state.generator, "generator", seed),
+            (state.discriminator, "discriminator", seed + 1)):
+        initial = port["build_model"](config[f"{name}_type"],
+                                      config[f"{name}_params"],
+                                      seed=model_seed).state_dict()
+        still = [k for k, p in model.named_parameters()
+                 if torch.equal(p.detach().cpu(), initial[k])]
+        if still:
+            raise AssertionError(f"train: {name} parameters never moved: "
+                                 f"{still[:5]}")
+    log(f"[train] {TRAIN_STEPS} steps at B {config['batch_size']} x "
+        f"{config['batch_max_steps']} in {run_seconds:.3f} s (build and "
+        f"warm-up included); launches {launches}; mean losses "
+        + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items()))
+
+    # (d) one batch's gradients, kernels against plain versions
+    criterion = gan.GANCriterion(trainer.config)
+    batch = port["to_device"](next(iter(trainer.data_loader["train"])),
+                              trainer.device)
+    gen_params = list(state.generator.parameters())
+    disc_params = list(state.discriminator.parameters())
+    with torch.no_grad():
+        fake = gan.generate(state.generator, batch)
+
+    def both_grads():
+        gen_loss, _ = gan.generator_loss(state, criterion, config, batch)
+        dis_loss, _ = gan.discriminator_loss(state, criterion, config, batch,
+                                             fake)
+        return _grads(gen_loss, gen_params), _grads(dis_loss, disc_params)
+
+    kernel_grads = both_grads()
+    with swapped(port["residual"], "resblock_pair", port["resblock_pair_plain"]), \
+            swapped(port["hifigan"], "scale_disc_head",
+                    port["scale_disc_head_plain"]):
+        plain_grads = both_grads()
+    grad_gaps = {}
+    for name, got, want in zip(("generator", "discriminator"), kernel_grads,
+                               plain_grads):
+        pooled, per = _grad_gaps(got, want)
+        grad_gaps[name] = {"pooled_rel_l2": pooled, "worst_tensor_rel_l2": per}
+        if pooled > GRAD_TOL[0] or per > GRAD_TOL[1]:
+            raise AssertionError(f"train: {name} gradients with the kernels "
+                                 f"differ from plain by {pooled:.3e} pooled, "
+                                 f"{per:.3e} worst tensor > {GRAD_TOL}")
+    log(f"[train] kernel vs plain gradients, relative L2 pooled / worst "
+        f"tensor: " + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} / "
+                                f"{v['worst_tensor_rel_l2']:.3e}"
+                                for k, v in grad_gaps.items())
+        + f" (limits {GRAD_TOL})")
+
+    # step time, and its parts apart
+    lr = config["generator_optimizer_params"]["lr"]
+    step_s = []
+    for _ in range(STEP_ROUNDS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        trainer.train_step(state, batch, lr, lr)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+    parts = {
+        "generator_fwd_bwd_ms": lambda: _grads(gan.generator_loss(
+            state, criterion, config, batch)[0], gen_params),
+        "regeneration_ms": lambda: gan.generate(state.generator, batch),
+        "discriminator_fwd_bwd_ms": lambda: _grads(gan.discriminator_loss(
+            state, criterion, config, batch, fake)[0], disc_params)}
+    part_ms = {}
+    for key, fn in parts.items():
+        with torch.set_grad_enabled(key != "regeneration_ms"):
+            part_ms[key] = time_ms(fn, 3)
+    log(f"[train] step median {1e3 * float(np.median(step_s)):.3f} ms [range "
+        f"{1e3 * min(step_s):.3f}, {1e3 * max(step_s):.3f}] over "
+        f"{STEP_ROUNDS}; " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      part_ms.items()))
+
+    # (e) decode one chunk from the written checkpoint
+    ckpt = os.path.join(outdir, f"checkpoint-{TRAIN_STEPS}steps.ckpt")
+    model = inference.load_model(ckpt, config, device="cuda")
+    chunk = config["batch_max_steps"] // config["hop_size"]
+    feats = [np.load(os.path.join(tmp, "data", "dev", f"u{i}.npy"))[:chunk]
+             for i in range(4)]
+    outs = inference.ar_loop_batched(model, feats, config)
+    for out in outs:
+        if out.shape != (config["batch_max_steps"],) or not np.isfinite(
+                out).all():
+            raise AssertionError(f"train: decode from {ckpt} gave "
+                                 f"{out.shape}, not finite or not "
+                                 f"({config['batch_max_steps']},)")
+    log(f"[train] decoded one chunk of 4 utterances from "
+        f"{os.path.basename(ckpt)}")
+    return {"run_seconds": run_seconds, "launches": launches,
+            "launches_per_step": {k: v // TRAIN_STEPS
+                                  for k, v in launches.items()},
+            "mean_losses": losses, "grad_gaps": grad_gaps,
+            "step_ms_median": 1e3 * float(np.median(step_s)),
+            "step_ms_range": [1e3 * min(step_s), 1e3 * max(step_s)],
+            **part_ms}
 
 
 def main() -> int:
@@ -377,44 +700,75 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from articulatory_tpu_torch import inference
     from articulatory_tpu_torch.bin import decode
+    from articulatory_tpu_torch.bin import train as train_cli
     from articulatory_tpu_torch.layers import residual
+    from articulatory_tpu_torch.models import build_model, hifigan
     from articulatory_tpu_torch.ops import _build
     from articulatory_tpu_torch.ops.resblock_pair import (
         resblock_pair,
         resblock_pair_plain,
     )
+    from articulatory_tpu_torch.ops.scale_disc_head import (
+        scale_disc_head,
+        scale_disc_head_plain,
+    )
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
     from articulatory_tpu_torch.utils.device import set_float32_parity
 
     set_float32_parity()
     build_seconds = phase_build(_build)
-    rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed, UTTS)
+    rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed, UTTS,
+                        CHUNK_FRAMES)
     host_us = host_us_per_launch(resblock_pair)
     log(f"[kernel] host time per launch: {host_us:.2f} us")
-    by_dtype = {}
-    for dtype in ("float32", "bfloat16"):
-        sel = [r for r in rows if r["dtype"] == dtype]
-        by_dtype[dtype] = {key: sum(r[key] for r in sel) for key in
-                           ("kernel_ms", "plain_ms", "bound_ms", "ops_ms",
-                            "bytes_ms")}
-        by_dtype[dtype]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
-        by_dtype[dtype]["max_rel_err"] = max(r["max_rel_err"] for r in sel)
+    by_dtype = kernel_sums(rows)
+    for dtype, sums in by_dtype.items():
         log(f"[kernel] {dtype}: 36 main-path shapes at B={UTTS}: "
-            f"kernel {by_dtype[dtype]['kernel_ms']:.3f} ms, plain "
-            f"{by_dtype[dtype]['plain_ms']:.3f} ms, bound "
-            f"{by_dtype[dtype]['bound_ms']:.3f} ms, max rel err "
-            f"{by_dtype[dtype]['max_rel_err']:.2e}")
+            f"kernel {sums['kernel_ms']:.3f} ms, plain "
+            f"{sums['plain_ms']:.3f} ms, bound "
+            f"{sums['bound_ms']:.3f} ms, max rel err "
+            f"{sums['max_rel_err']:.2e}")
+    head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
+                                  args.seed)
+    for r in head_rows:
+        log(f"[head] B{r['B']} T{r['T']} s{r['stride']} {r['dtype']}: kernel "
+            f"{r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max rel err "
+            f"{r['max_rel_err']:.2e}")
+    batch = TRAIN_CONFIG["batch_size"]
+    train_frames = TRAIN_CONFIG["batch_max_steps"] // CONFIG["hop_size"]
+    train_rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed,
+                              batch, train_frames)
+    train_sums = kernel_sums(train_rows)
+    for dtype, sums in train_sums.items():
+        log(f"[kernel] {dtype}: 36 training shapes at B={batch}: kernel "
+            f"{sums['kernel_ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, "
+            f"bound {sums['bound_ms']:.3f} ms, max rel err "
+            f"{sums['max_rel_err']:.2e}")
     with tempfile.TemporaryDirectory() as tmp:
         slice_results = phase_slice(
             (inference, residual, resblock_pair, resblock_pair_plain, weights,
              decode), args.seed, device_name, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_results = phase_train(dict(
+            train=train_cli, gan=gan, inference=inference, residual=residual,
+            hifigan=hifigan, build_model=build_model, to_device=to_device,
+            resblock_pair=resblock_pair,
+            resblock_pair_plain=resblock_pair_plain,
+            scale_disc_head=scale_disc_head,
+            scale_disc_head_plain=scale_disc_head_plain), args.seed, tmp)
 
     f32 = by_dtype["float32"]
-    entry = {
+    pair_entry = {
         "name": "resblock_pair", "route": "cuda",
         "source": "articulatory_tpu_torch/csrc/resblock_pair.cu",
         "replaces": "articulatory_tpu/ops/pallas/resblock.py:98",
+        # the decode path's run (2 modes x 20 chunks); the training path's
+        # launches beside it
         "launches": slice_results["launches_total"],
+        "launches_train": train_results["launches"]["resblock_pair"],
         # the 36 main-path shapes of one chunk forward, float32
         "max_abs_err": f32["max_abs_err"], "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -425,14 +779,47 @@ def main() -> int:
         "bf16_plain_ms": by_dtype["bfloat16"]["plain_ms"],
         "bf16_bound_ms": by_dtype["bfloat16"]["bound_ms"],
         "bf16_max_abs_err": by_dtype["bfloat16"]["max_abs_err"],
+        "train_shapes_ms": train_sums["float32"]["kernel_ms"],
+        "train_shapes_plain_ms": train_sums["float32"]["plain_ms"],
+        "train_shapes_bound_ms": train_sums["float32"]["bound_ms"],
         "host_us_per_launch": host_us,
     }
+    main_head = [r for r in head_rows if r["stride"] == 4]
+    head_f32 = [r for r in main_head if r["dtype"] == "float32"]
+    head_bf16 = [r for r in main_head if r["dtype"] == "bfloat16"]
+    pallas = {r["dtype"]: r for r in head_rows if r["stride"] == 2}
+    head_entry = {
+        "name": "scale_disc_head", "route": "cuda",
+        "source": "articulatory_tpu_torch/csrc/scale_disc_head.cu",
+        "replaces": "articulatory_tpu/ops/pallas/scale_disc_head.py:150",
+        "launches": train_results["launches"]["scale_disc_head"],
+        # the training path's three scales (one MSMPD pass), float32
+        "max_abs_err": max(r["max_abs_err"] for r in head_f32),
+        "ms": sum(r["kernel_ms"] for r in head_f32),
+        "plain_ms": sum(r["plain_ms"] for r in head_f32),
+        "bound_ms": sum(r["bound_ms"] for r in head_f32),
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in head_f32)
+                     >= sum(r["bytes_ms"] for r in head_f32) else "bytes"),
+        # no single PyTorch call computes both layers with the mask
+        "library_ms": None,
+        "bf16_ms": sum(r["kernel_ms"] for r in head_bf16),
+        "bf16_plain_ms": sum(r["plain_ms"] for r in head_bf16),
+        "bf16_bound_ms": sum(r["bound_ms"] for r in head_bf16),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in head_bf16),
+        "pallas_shape_ms": {d: r["kernel_ms"] for d, r in pallas.items()},
+        "pallas_shape_plain_ms": {d: r["plain_ms"] for d, r in pallas.items()},
+        "pallas_shape_bound_ms": {d: r["bound_ms"] for d, r in pallas.items()},
+    }
+    kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": build_seconds,
                    "kernel_shapes": rows, "kernel_totals": by_dtype,
-                   "slice": slice_results, "kernels": [entry]}, f, indent=1)
-    log(json.dumps({"kernels": [entry]}))
+                   "kernel_train_shapes": train_rows,
+                   "kernel_train_totals": train_sums,
+                   "head_shapes": head_rows, "slice": slice_results,
+                   "train": train_results, "kernels": kernels}, f, indent=1)
+    log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

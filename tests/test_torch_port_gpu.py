@@ -1,5 +1,7 @@
-"""The CUDA kernel against its plain version on the card, and the generator
-on the card against the same generator on the CPU. Marked ``gpu``: without a
+"""The CUDA kernels against their plain versions on the card, their
+``autograd.Function``s' gradients against plain autograd, and the generator
+and discriminator on the card against the same modules on the CPU. Marked
+``gpu``: without a
 CUDA device each test skips. This file imports no JAX, so on a machine with
 a card and no JAX it runs as
 
@@ -13,6 +15,10 @@ from articulatory_tpu_torch.models import build_model
 from articulatory_tpu_torch.ops.resblock_pair import (
     resblock_pair,
     resblock_pair_plain,
+)
+from articulatory_tpu_torch.ops.scale_disc_head import (
+    scale_disc_head,
+    scale_disc_head_plain,
 )
 from articulatory_tpu_torch.utils.device import set_float32_parity
 
@@ -90,3 +96,82 @@ def test_generator_on_card_matches_cpu(cuda):
         out = model.to(cuda)(c.to(cuda), ar.to(cuda)).cpu()
     assert resblock_pair.launches == before + 4 * 2 * 2
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+def _head_args(device, b, t, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, 1, generator=gen) * 0.3
+    w0 = torch.randn(15, 1, 128, generator=gen) / 15 ** 0.5
+    b0 = torch.randn(128, generator=gen) * 0.1
+    wg = torch.randn(41, 32, 128, generator=gen) / (41 * 32) ** 0.5
+    b1 = torch.randn(128, generator=gen) * 0.1
+    return [a.to(device=device, dtype=dtype) for a in (x, w0, b0, wg, b1)]
+
+
+@pytest.mark.parametrize("b,t,stride", [
+    (4, 2512, 4),   # the configs' first scale at B 4
+    (3, 901, 2),    # ragged T at the Pallas kernel's stride
+    (2, 37, 4),     # one short tile
+    (1, 1, 2),      # T = 1
+    (2, 300, 64),   # a stride whose owned rows reach past the taps
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_scale_disc_head_matches_plain(cuda, b, t, stride, dtype, tol):
+    """Error relative to max |h|: f32 sums in another order (1e-4); bf16
+    rounds h0 and h1 where cuDNN's bf16 convs do, over other sums (2e-2)."""
+    args = _head_args(cuda, b, t, dtype)
+    before = scale_disc_head.launches
+    h0, h1 = scale_disc_head(*args, stride=stride)
+    assert scale_disc_head.launches == before + 1
+    r0, r1 = scale_disc_head_plain(*args, stride=stride)
+    torch.cuda.synchronize()
+    for got, ref in ((h0, r0), (h1, r1)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err <= tol
+
+
+def _grads(fn, args, **kwargs):
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = fn(*leaves, **kwargs)
+    outs = out if isinstance(out, tuple) else (out,)
+    gen = torch.Generator(device=args[0].device).manual_seed(1)
+    sum(torch.sum(o * torch.randn(o.shape, device=o.device, generator=gen))
+        for o in outs).backward()
+    return outs, [a.grad for a in leaves]
+
+
+@pytest.mark.parametrize("which", ["resblock_pair", "scale_disc_head"])
+def test_functions_grads_match_plain_autograd(cuda, which):
+    """On a CUDA tensor the kernels' outputs carry their Function's grad_fn
+    and its recompute backward matches plain autograd (relative L2 1e-5:
+    the same plain backward, from a forward summed in another order)."""
+    if which == "resblock_pair":
+        args = _pair_args(cuda, 2, 301, 64, 7, torch.float32)
+        fns, kwargs = (resblock_pair, resblock_pair_plain), dict(dilation=3)
+    else:
+        args = _head_args(cuda, 2, 1001, torch.float32)
+        fns, kwargs = (scale_disc_head, scale_disc_head_plain), dict(stride=4)
+    (outs, got), (_, want) = (_grads(f, args, **kwargs) for f in fns)
+    assert all(type(o.grad_fn).__name__.endswith("FunctionBackward")
+               for o in outs)
+    for g, w in zip(got, want):
+        assert (g - w).norm() <= 1e-5 * w.norm()
+
+
+def test_discriminator_on_card_matches_cpu(cuda):
+    dp = dict(scales=2, scale_discriminator_params=dict(
+        max_downsample_channels=256, downsample_scales=[4, 4, 1]),
+        periods=[2, 3], period_discriminator_params=dict(
+            channels=8, max_downsample_channels=32))
+    disc = build_model("HiFiGANMultiScaleMultiPeriodDiscriminator", dp)
+    x = 0.3 * torch.randn(2, 2512, 1, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = disc(x)
+        before = scale_disc_head.launches
+        out = disc.to(cuda)(x.to(cuda))
+    assert scale_disc_head.launches == before + 2
+    for got_maps, ref_maps in zip(out, ref):
+        for got, want in zip(got_maps, ref_maps):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

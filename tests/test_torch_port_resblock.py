@@ -5,7 +5,11 @@ on the card) is held against ``resblock_pair_reference`` and the Pallas
 kernel in interpret mode at rtol/atol 1e-4, test_pallas_resblock.py's own
 tolerance. The port's ``HiFiGANResidualBlock`` is held against the JAX block
 on the same weights: with ``use_additional_convs`` each dilation is one pair,
-which shows the pair decomposition is exact (f32, rtol/atol 1e-5)."""
+which shows the pair decomposition is exact (f32, rtol/atol 1e-5). The
+pair's gradients are held against ``jax.grad`` of the reference in float64
+(1e-10), and the ``autograd.Function`` the card runs, driven with the plain
+version standing in for the kernel, against plain autograd: before it the
+kernel's output had no ``grad_fn`` and training stopped at the MRF."""
 
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from articulatory_tpu.ops.pallas.resblock import (
 )
 from articulatory_tpu.utils.torch_export import _Flat
 from articulatory_tpu_torch.layers.residual import HiFiGANResidualBlock
+from articulatory_tpu_torch.ops import resblock_pair as port
 from articulatory_tpu_torch.ops.resblock_pair import (
     resblock_pair,
     resblock_pair_plain,
@@ -116,3 +121,67 @@ def test_residual_block_bf16_matches_jax():
         out = block(torch.from_numpy(x), torch.bfloat16)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=6e-2)
+
+
+@pytest.mark.parametrize("k,dilation", [(3, 1), (11, 5)])
+def test_plain_grads_match_jax_grad_f64(k, dilation):
+    args = [a.astype(np.float64) for a in
+            _pair_inputs(np.random.default_rng(k), 37, 8, k)]
+    cot = np.random.default_rng(1).standard_normal((2, 37, 8))
+    with jax.enable_x64(True):
+        want = jax.grad(lambda *a: jnp.sum(resblock_pair_reference(
+            *a, dilation=dilation) * cot), argnums=tuple(range(5)))(
+            *map(jnp.asarray, args))
+        want = [np.asarray(w) for w in want]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    torch.sum(resblock_pair_plain(*leaves, dilation=dilation)
+              * torch.from_numpy(cot)).backward()
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_function_backward_matches_plain_autograd(monkeypatch, with_bias):
+    monkeypatch.setattr(port, "_launch", lambda x, w1, b1, w2, b2, d, sl: (
+        resblock_pair_plain(x, w1, b1, w2, b2, dilation=d,
+                            negative_slope=sl).detach()))
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).double() for a in
+                         _pair_inputs(np.random.default_rng(3), 29, 6, 7))
+    if not with_bias:
+        b1 = b2 = None
+    cot = torch.randn(2, 29, 6, dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(0))
+    grads = []
+    for fn in (lambda *a: port.ResblockPairFunction.apply(*a, 3, 0.1),
+               lambda *a: resblock_pair_plain(*a, dilation=3)):
+        leaves = [None if a is None else a.clone().requires_grad_(True)
+                  for a in (x, w1, b1, w2, b2)]
+        y = fn(*leaves)
+        assert (type(y.grad_fn).__name__ == "ResblockPairFunctionBackward"
+                ) == (not grads)
+        torch.sum(torch.tanh(y) * cot).backward()
+        grads.append([None if a is None else a.grad for a in leaves])
+    for got, want in zip(*grads):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_function_reaches_every_generator_weight(monkeypatch):
+    """Through the Function every convs1/convs2 weight of a residual block
+    gets a gradient, and the block's input too."""
+    monkeypatch.setattr(port, "_launch", lambda x, w1, b1, w2, b2, d, sl: (
+        resblock_pair_plain(x, w1, b1, w2, b2, dilation=d,
+                            negative_slope=sl).detach()))
+    monkeypatch.setattr("articulatory_tpu_torch.layers.residual.resblock_pair",
+                        lambda *a, dilation, negative_slope: (
+                            port.ResblockPairFunction.apply(
+                                *a, dilation, negative_slope)))
+    _, _, block, x = _jax_block_and_port(3, (1, 3), True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    block(xt).square().sum().backward()
+    assert xt.grad is not None and xt.grad.abs().sum() > 0
+    for name, p in block.named_parameters():
+        assert p.grad is not None and p.grad.abs().sum() > 0, name
