@@ -23,15 +23,19 @@ Phases, each raising on failure:
    TF32 off) at all 36 main-path (C, K, d) shapes, with the main path's
    batch (UTTS) and each stage's T per chunk, plus a ragged T,
    in f32 (max error <= 1e-4 of max |y|) and bf16 (<= 2e-2 of max |y|),
-   with both timed by CUDA events; and the host's time per launch;
+   with both timed by CUDA events over a CUDA-graph replay (device time,
+   no host time) and summed per stage; and the host's
+   time per launch, under ``inference_mode`` and with inputs that require
+   grad (through the ``autograd.Function``);
 4. slice: ``ar_loop_batched`` over UTTS utterances of SECONDS s
    in f32 and hybrid bf16, with the kernel's launch count held to
    36 x chunks per run, finite outputs of the right length, each of three
    chunks held against the plain pair under the shared carry (f32 max abs
    error <= 1e-6, hybrid <= 5e-3, on tanh outputs), one chunk forward
    timed with the kernel, with plain pairs and with no pairs in turns
-   (median and range of ROUNDS), and the decode loop run on a 2-utterance
-   .npy dump;
+   (median and range of ROUNDS), one ``torch.profiler`` window over
+   PROFILE_CHUNKS hybrid chunk forwards (the device's busy share and its
+   top ops by time), and the decode loop run on a 2-utterance .npy dump;
 5. head kernel: ``scale_disc_head`` against ``scale_disc_head_plain`` at
    the training path's three scales (B 64, T 2512/1257/629, stride 4) and
    the Pallas kernel's shape (B 32, T 8512, stride 2), each also at T + 3,
@@ -95,6 +99,7 @@ N_FEATS = 141 - 128
 CHUNK_FRAMES = 100
 UTTS, SECONDS = 16, 10  # the decode's batch, and each utterance's length
 ROUNDS = 5  # chunk-forward timings taken in turns, for median and range
+PROFILE_CHUNKS = 5  # hybrid chunk forwards in the profiler window
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
 # tensor cores, bf16 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -218,6 +223,26 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def device_time_ms(fn, n: int) -> float:
+    """Mean device time of ``fn`` over n calls captured in one CUDA graph
+    and replayed, by CUDA events: the host's time per call (Python, the
+    wrapper, the launch) is out of it. One warm-up call and one warm-up
+    replay first."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def pair_times_ms(b, t, c, k, dtype) -> tuple[float, float]:
     """Least time for one pair by operations (flops over the dtype's peak)
     and by bytes (x in, y out, both kernels and biases once, over HBM
@@ -247,26 +272,38 @@ def phase_build(build) -> float:
     seconds = time.perf_counter() - start
     log(f"[build] {sorted(libs)} in {seconds:.1f} s")
     for name in libs:
+        advisories = {}  # ptxas's (Cxxxx) notes, counted by code
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+            line = line.strip()
+            if line.startswith("ptxas info    : Used") or "spill" in line:
+                log(f"[build]   {name}: {line}")
+            elif "ptxas info    : (C" in line:
+                code = line.split("(", 1)[1].split(")", 1)[0]
+                advisories[code] = advisories.get(code, 0) + 1
+        if advisories:
+            log(f"[build]   {name}: ptxas advisories {advisories}")
     return seconds
 
 
-def host_us_per_launch(kernel, n: int = 2000) -> float:
+def host_us_per_launch(kernel, requires_grad: bool, n: int = 2000) -> float:
     """Host time of one wrapper call that launches the kernel, at a shape
     so small that the card keeps up with the host: wall time of n calls over
-    n."""
+    n. Under ``inference_mode`` (the decode's bare launch), or with inputs
+    that require grad (through the ``autograd.Function``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, w1, w2 = (torch.randn(shape, device="cuda", generator=gen)
+    x, w1, w2 = (torch.randn(shape, device="cuda", generator=gen
+                             ).requires_grad_(requires_grad)
                  for shape in ((1, 8, 32), (3, 32, 32), (3, 32, 32)))
-    for _ in range(10):
-        kernel(x, w1, None, w2, None, dilation=1)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(n):
-        kernel(x, w1, None, w2, None, dilation=1)
-    torch.cuda.synchronize()
+    mode = (contextlib.nullcontext() if requires_grad
+            else torch.inference_mode())
+    with mode:
+        for _ in range(10):
+            kernel(x, w1, None, w2, None, dilation=1)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(n):
+            kernel(x, w1, None, w2, None, dilation=1)
+        torch.cuda.synchronize()
     return (time.perf_counter() - start) / n * 1e6
 
 
@@ -315,10 +352,10 @@ def _kernel_case(kernel, plain, gen, batch, stage, t, c, k, d, dtype) -> dict:
     args = inputs(t)
     n = 10
     # in turns: plain, kernel, kernel, plain
-    p1 = time_ms(lambda: plain(*args, dilation=d), n)
-    k1 = time_ms(lambda: kernel(*args, dilation=d), n)
-    k2 = time_ms(lambda: kernel(*args, dilation=d), n)
-    p2 = time_ms(lambda: plain(*args, dilation=d), n)
+    p1 = device_time_ms(lambda: plain(*args, dilation=d), n)
+    k1 = device_time_ms(lambda: kernel(*args, dilation=d), n)
+    k2 = device_time_ms(lambda: kernel(*args, dilation=d), n)
+    p2 = device_time_ms(lambda: plain(*args, dilation=d), n)
     ops_ms, bytes_ms = pair_times_ms(batch, t, c, k, dtype)
     return {"stage": stage, "B": batch, "T": t, "C": c, "K": k,
             "dilation": d, "dtype": str(dtype).replace("torch.", ""),
@@ -341,6 +378,34 @@ def kernel_sums(rows: list[dict]) -> dict:
         out[dtype]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
         out[dtype]["max_rel_err"] = max(r["max_rel_err"] for r in sel)
     return out
+
+
+def stage_sums(rows: list[dict]) -> dict:
+    """Per dtype, per stage: kernel, plain and bound ms summed over the
+    stage's 9 (K, d) shapes, and the kernel's share of the bound."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out[dtype] = []
+        for stage in sorted({r["stage"] for r in rows}):
+            sel = [r for r in rows if r["dtype"] == dtype and r["stage"] == stage]
+            sums = {key: sum(r[key] for r in sel) for key in
+                    ("kernel_ms", "plain_ms", "bound_ms")}
+            out[dtype].append(dict(
+                stage=stage, C=sel[0]["C"], T=sel[0]["T"], **sums,
+                bound_share=sums["bound_ms"] / sums["kernel_ms"],
+                bound_by=("operations" if sum(r["ops_ms"] for r in sel)
+                          >= sum(r["bytes_ms"] for r in sel) else "bytes")))
+    return out
+
+
+def log_stage_sums(sums: dict, batch: int) -> None:
+    for dtype, stages in sums.items():
+        for st in stages:
+            log(f"[kernel]   {dtype} stage {st['stage']} (C {st['C']}, T "
+                f"{st['T']}, B {batch}): kernel {st['kernel_ms']:.4f} ms, "
+                f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+                f"({st['bound_by']}), {100 * st['bound_share']:.1f} % of "
+                f"the bound")
 
 
 def head_times_ms(b, t, stride, dtype) -> tuple[float, float]:
@@ -392,10 +457,10 @@ def _head_case(kernel, plain, gen, b, t, stride, dtype) -> dict:
     args = inputs(t)
     n = 10
     # in turns: plain, kernel, kernel, plain
-    p1 = time_ms(lambda: plain(*args, stride=stride), n)
-    k1 = time_ms(lambda: kernel(*args, stride=stride), n)
-    k2 = time_ms(lambda: kernel(*args, stride=stride), n)
-    p2 = time_ms(lambda: plain(*args, stride=stride), n)
+    p1 = device_time_ms(lambda: plain(*args, stride=stride), n)
+    k1 = device_time_ms(lambda: kernel(*args, stride=stride), n)
+    k2 = device_time_ms(lambda: kernel(*args, stride=stride), n)
+    p2 = device_time_ms(lambda: plain(*args, stride=stride), n)
     ops_ms, bytes_ms = head_times_ms(b, t, stride, dtype)
     return {"B": b, "T": t, "stride": stride,
             "dtype": str(dtype).replace("torch.", ""),
@@ -477,6 +542,20 @@ def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
             f"{CHUNK_TOL[mode]}); chunk forward, median [range] of {ROUNDS}: "
             f"{spans}")
 
+    feats = torch.from_numpy(np.stack([x[:CHUNK_FRAMES] for x in xs])).cuda()
+    prev = torch.from_numpy(np.stack(wavs["hybrid_bf16"]))[
+        :, chunk_len - GENERATOR_PARAMS["ar_input"]:chunk_len, None].cuda()
+    prof = profile_window(models["hybrid_bf16"], feats, prev)
+    results["hybrid_bf16"]["profile"] = prof
+    if prof["busy_share"] is None:
+        log("[slice] profiler: no device activity recorded (not measured)")
+    else:
+        log(f"[slice] profiler, {PROFILE_CHUNKS} hybrid chunk forwards: "
+            f"device busy {prof['busy_ms']:.3f} of {prof['span_ms']:.3f} ms "
+            f"= {100 * prof['busy_share']:.1f} %; top device ops: "
+            + "; ".join(f"{o['name'][:60]} x{o['calls']} {o['ms']:.3f} ms"
+                        for o in prof["top_ops"]))
+
     dump, outdir = os.path.join(tmp, "dump"), os.path.join(tmp, "out")
     os.makedirs(dump)
     for n in range(2):
@@ -525,6 +604,40 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
         out[key] = float(np.median(values))
         out[key + "_range"] = [min(values), max(values)]
     return out
+
+
+def profile_window(model, cin, prev) -> dict:
+    """One ``torch.profiler`` window over PROFILE_CHUNKS chunk forwards: the
+    device's busy share (the union of its activity intervals over the span
+    from the first start to the last end) and its top ops by self device
+    time. None where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    model(cin, ar=prev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_CHUNKS):
+            model(cin, ar=prev)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"busy_share": None, "span_ms": None, "top_ops": []}
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    span = max(end for _, end in spans) - spans[0][0]
+    ops = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    return {"busy_share": busy / span, "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "chunks": PROFILE_CHUNKS,
+            "top_ops": [{"name": e.key[:120], "calls": e.count,
+                         "ms": e.self_device_time_total / 1e3}
+                        for e in ops[:8]]}
 
 
 def _write_corpus(root: str, seed: int) -> None:
@@ -721,15 +834,20 @@ def main() -> int:
     build_seconds = phase_build(_build)
     rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed, UTTS,
                         CHUNK_FRAMES)
-    host_us = host_us_per_launch(resblock_pair)
-    log(f"[kernel] host time per launch: {host_us:.2f} us")
+    host_us = {"inference_mode": host_us_per_launch(resblock_pair, False),
+               "requires_grad": host_us_per_launch(resblock_pair, True)}
+    log(f"[kernel] host time per launch: {host_us['inference_mode']:.2f} us "
+        f"under inference_mode, {host_us['requires_grad']:.2f} us with "
+        f"inputs that require grad")
     by_dtype = kernel_sums(rows)
+    by_stage = stage_sums(rows)
     for dtype, sums in by_dtype.items():
         log(f"[kernel] {dtype}: 36 main-path shapes at B={UTTS}: "
             f"kernel {sums['kernel_ms']:.3f} ms, plain "
             f"{sums['plain_ms']:.3f} ms, bound "
             f"{sums['bound_ms']:.3f} ms, max rel err "
             f"{sums['max_rel_err']:.2e}")
+    log_stage_sums(by_stage, UTTS)
     head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
                                   args.seed)
     for r in head_rows:
@@ -742,11 +860,13 @@ def main() -> int:
     train_rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed,
                               batch, train_frames)
     train_sums = kernel_sums(train_rows)
+    train_stages = stage_sums(train_rows)
     for dtype, sums in train_sums.items():
         log(f"[kernel] {dtype}: 36 training shapes at B={batch}: kernel "
             f"{sums['kernel_ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, "
             f"bound {sums['bound_ms']:.3f} ms, max rel err "
             f"{sums['max_rel_err']:.2e}")
+    log_stage_sums(train_stages, batch)
     with tempfile.TemporaryDirectory() as tmp:
         slice_results = phase_slice(
             (inference, residual, resblock_pair, resblock_pair_plain, weights,
@@ -779,9 +899,18 @@ def main() -> int:
         "bf16_plain_ms": by_dtype["bfloat16"]["plain_ms"],
         "bf16_bound_ms": by_dtype["bfloat16"]["bound_ms"],
         "bf16_max_abs_err": by_dtype["bfloat16"]["max_abs_err"],
+        # per generator stage (C 256, 128, 64, 32), the decode's shapes
+        "bf16_stage_ms": [st["kernel_ms"] for st in by_stage["bfloat16"]],
+        "bf16_stage_plain_ms": [st["plain_ms"]
+                                for st in by_stage["bfloat16"]],
+        "bf16_stage_bound_ms": [st["bound_ms"]
+                                for st in by_stage["bfloat16"]],
         "train_shapes_ms": train_sums["float32"]["kernel_ms"],
         "train_shapes_plain_ms": train_sums["float32"]["plain_ms"],
         "train_shapes_bound_ms": train_sums["float32"]["bound_ms"],
+        "train_shapes_bf16_ms": train_sums["bfloat16"]["kernel_ms"],
+        "train_shapes_bf16_plain_ms": train_sums["bfloat16"]["plain_ms"],
+        "train_shapes_bf16_bound_ms": train_sums["bfloat16"]["bound_ms"],
         "host_us_per_launch": host_us,
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
@@ -815,8 +944,10 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": build_seconds,
                    "kernel_shapes": rows, "kernel_totals": by_dtype,
+                   "kernel_stages": by_stage,
                    "kernel_train_shapes": train_rows,
                    "kernel_train_totals": train_sums,
+                   "kernel_train_stages": train_stages,
                    "head_shapes": head_rows, "slice": slice_results,
                    "train": train_results, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))

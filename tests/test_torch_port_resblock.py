@@ -9,7 +9,11 @@ which shows the pair decomposition is exact (f32, rtol/atol 1e-5). The
 pair's gradients are held against ``jax.grad`` of the reference in float64
 (1e-10), and the ``autograd.Function`` the card runs, driven with the plain
 version standing in for the kernel, against plain autograd: before it the
-kernel's output had no ``grad_fn`` and training stopped at the MRF."""
+kernel's output had no ``grad_fn`` and training stopped at the MRF.
+The bf16 kernel's channel padding (``pad_channels``) is held exactly against
+the unpadded pair and against the JAX reference, and ``_forward`` is shown
+to take the bare launch where no gradient is wanted (the decode) and the
+Function where one is."""
 
 import numpy as np
 import pytest
@@ -185,3 +189,68 @@ def test_function_reaches_every_generator_weight(monkeypatch):
     assert xt.grad is not None and xt.grad.abs().sum() > 0
     for name, p in block.named_parameters():
         assert p.grad is not None and p.grad.abs().sum() > 0, name
+
+
+@pytest.mark.parametrize("c,k,dilation", [(30, 7, 3), (12, 3, 1)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 6e-2)])
+def test_padded_pair_is_exact(c, k, dilation, dtype, atol):
+    """The bf16 kernel takes C a multiple of 16, so the wrapper zero-pads
+    other C and slices the result: the padded pair, sliced, equals the
+    unpadded one bit for bit, and its padded channels are zero. Against the
+    JAX reference in f32 on the same (rounded) inputs: rtol/atol 1e-4 in
+    f32; in bf16 the port rounds h and y where the f32 reference does not,
+    a few bf16 ulps of |y| <~ 4 (atol 6e-2, as the bf16 block test)."""
+    args = [torch.from_numpy(a).to(dtype) for a in
+            _pair_inputs(np.random.default_rng(c + k), 41, c, k)]
+    padded = port.pad_channels(*args, port.BF16_CHANNEL_MULTIPLE)
+    assert padded[0].shape[2] % port.BF16_CHANNEL_MULTIPLE == 0
+    assert padded[0].shape[2] - c < port.BF16_CHANNEL_MULTIPLE
+    y = resblock_pair_plain(*args, dilation=dilation)
+    yp = resblock_pair_plain(*padded, dilation=dilation)
+    torch.testing.assert_close(yp[..., :c], y, rtol=0, atol=0)
+    assert not yp[..., c:].any()
+    ref = np.asarray(resblock_pair_reference(
+        *(jnp.asarray(a.float().numpy()) for a in args), dilation=dilation))
+    np.testing.assert_allclose(yp[..., :c].float().numpy(), ref,
+                               rtol=1e-4 if dtype == torch.float32 else 0,
+                               atol=atol)
+
+
+def test_pad_channels_leaves_a_multiple_alone():
+    args = [torch.from_numpy(a) for a in
+            _pair_inputs(np.random.default_rng(5), 9, 32, 3)]
+    assert all(p is a for p, a in zip(port.pad_channels(*args, 16), args))
+
+
+def _plain_launch_counted(x, w1, b1, w2, b2, d, sl):
+    resblock_pair.launches += 1
+    return resblock_pair_plain(x, w1, b1, w2, b2, dilation=d,
+                               negative_slope=sl).detach()
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode",
+                                  "no_input_requires_grad", "grad"])
+def test_forward_takes_function_only_for_grad(monkeypatch, mode):
+    """Without grad mode, or with no input requiring a gradient, the pair is
+    one bare launch (no grad_fn, no Function's host time); in grad mode with
+    an input that requires one it goes through the Function. Either way one
+    launch is counted."""
+    monkeypatch.setattr(port, "_launch", _plain_launch_counted)
+    args = [torch.from_numpy(a) for a in
+            _pair_inputs(np.random.default_rng(7), 23, 8, 3)]
+    leaves = [a.clone().requires_grad_(mode != "no_input_requires_grad")
+              for a in args]
+    context = {"no_grad": torch.no_grad,
+               "inference_mode": torch.inference_mode}.get(
+                   mode, torch.enable_grad)
+    before = resblock_pair.launches
+    with context():
+        y = port._forward(*leaves, 3, 0.1)
+    assert resblock_pair.launches == before + 1
+    if mode == "grad":
+        assert type(y.grad_fn).__name__ == "ResblockPairFunctionBackward"
+    else:
+        assert y.grad_fn is None
+    torch.testing.assert_close(
+        y.detach(), resblock_pair_plain(*args, dilation=3), rtol=0, atol=0)
