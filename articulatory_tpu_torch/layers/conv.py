@@ -94,7 +94,10 @@ class _Conv(nn.Module):
         w = self._ops_kernel(self.torch_weight()).to(dtype).contiguous()
         b = None if self.bias is None else self.bias.to(dtype)
         if self._cache is not None:
+            # every call returns the same tensors, so what a kernel keeps
+            # with them (resblock_pair's f32 weight split) is made once
             self._cache[dtype] = (w.detach(), None if b is None else b.detach())
+            return self._cache[dtype]
         return w, b
 
     def remove_weight_norm(self) -> None:

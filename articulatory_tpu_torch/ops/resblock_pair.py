@@ -1,17 +1,26 @@
 """Fused HiFi-GAN residual pair: ``y = x + conv2(lrelu(conv1(lrelu(x), d)))``.
 
 Replaces ``articulatory_tpu/ops/pallas/resblock.py::resblock_pair_pallas``
-(the TPU kernel) with ``csrc/resblock_pair.cu``, CUDA C++ kernels for Hopper
-(``sm_90a``) bound through ctypes. Both keep the intermediate ``h`` in shared
-memory. float32 (the parity mode) runs the two convolutions as fp32 FMAs;
-bfloat16 runs them on the tensor cores (wgmma, weight tiles fed by TMA), with
-f32 accumulation (see the source for the design). The bf16 kernel takes C a
-multiple of 16 up to 256: ``_launch`` zero-pads other C (``pad_channels``,
-exact) and slices the result; a wider bf16 C raises.
+(the TPU kernel) with ``csrc/resblock_pair.cu``, one tensor-core (wgmma)
+kernel template for Hopper (``sm_90a``) bound through ctypes, which keeps the
+intermediate ``h`` in shared memory and sums in f32 (see the source for the
+design). bfloat16 runs wgmma on bf16 operands. float32 (the parity mode) runs
+3xTF32: each operand is split into two tf32 values (``a = a_hi + a_lo``) and
+each product is ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, close to f32 accuracy.
+wgmma reads 32-bit weights only K-major, so the f32 weights go through a
+prep kernel first (``split_tf32``: (tap, in, out) into (2, tap, out, in), hi
+then lo); ``split_tf32_plain`` is the same split in PyTorch. The split is
+cached on inference tensors (the decode's kernels, folded once under
+``torch.inference_mode`` after ``remove_weight_norm`` and never changed after)
+and made in every call otherwise (training refolds its weights each forward).
+The kernel takes C up to 256, a multiple of 16 in bf16 and of 8 in f32:
+``_launch`` zero-pads other C (``pad_channels``, exact) and slices the
+result; a wider C raises.
 
 ``resblock_pair`` dispatches on the tensor's device: a CPU tensor goes to
 ``resblock_pair_plain``, the same function in plain PyTorch; a CUDA tensor
-launches the kernel or raises. ``resblock_pair.launches`` counts launches.
+launches the kernel or raises. ``resblock_pair.launches`` counts the pair's
+launches, ``split_tf32.launches`` the prep kernel's.
 
 Gradients: the JAX package has no backward for this kernel (its models
 differentiate through XLA convs). On a CUDA tensor that needs a gradient the
@@ -50,9 +59,29 @@ def resblock_pair_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
     return x + y
 
 
-# widest C the bf16 kernel takes, and the multiple it takes C in
-BF16_MAX_CHANNELS = 256
+# widest C the kernel takes, and the multiple it takes C in per dtype
+MAX_CHANNELS = 256
 BF16_CHANNEL_MULTIPLE = 16
+F32_CHANNEL_MULTIPLE = 8
+_CHANNEL_MULTIPLE = {torch.bfloat16: BF16_CHANNEL_MULTIPLE,
+                     torch.float32: F32_CHANNEL_MULTIPLE}
+
+
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 to the nearest tf32 value (10 mantissa bits, ties away from
+    zero, as ``cvt.rna.tf32.f32``), kept in float32: the low 13 bits of the
+    pattern cleared after adding half of their range to the magnitude."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_plain(w: torch.Tensor) -> torch.Tensor:
+    """The prep kernel's function in PyTorch: w ``(K, C_in, C_out)`` float32
+    into ``(2, K, C_out, C_in)``, [0] ``hi = tf32(w)``, [1]
+    ``lo = tf32(w - hi)``, each transposed to (tap, out, in)."""
+    wt = w.transpose(1, 2)
+    hi = round_tf32(wt)
+    return torch.stack((hi, round_tf32(wt - hi)))
 
 
 def pad_channels(x, w1, b1, w2, b2, multiple: int):
@@ -69,7 +98,8 @@ def pad_channels(x, w1, b1, w2, b2, multiple: int):
 
 
 @functools.cache
-def _kernels() -> dict[torch.dtype, ctypes._CFuncPtr]:
+def _kernels() -> dict[torch.dtype | str, ctypes._CFuncPtr]:
+    """The pair's entry per dtype, and the prep kernel's ("split_tf32")."""
     lib = _build.library("resblock_pair")
     out = {}
     for dtype, name in ((torch.float32, "resblock_pair_f32"),
@@ -79,9 +109,70 @@ def _kernels() -> dict[torch.dtype, ctypes._CFuncPtr]:
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out[dtype] = fn
+    split = lib.resblock_pair_split_tf32
+    split.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    split.restype = ctypes.c_int
+    out["split_tf32"] = split
     lib.resblock_pair_error_string.argtypes = [ctypes.c_int]
     lib.resblock_pair_error_string.restype = ctypes.c_char_p
     return out
+
+
+def _launch_error(rc: int, what: str) -> RuntimeError:
+    msg = _build.library("resblock_pair").resblock_pair_error_string(rc)
+    return RuntimeError(f"{what} did not launch: CUDA error {rc} "
+                        f"({msg.decode()})")
+
+
+def split_tf32(w1: torch.Tensor, w2: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``split_tf32_plain`` of w1 ``(K1, C, C)`` and w2 ``(K2, C, C)``,
+    float32: on CUDA tensors one launch of the prep kernel, on CPU tensors
+    the plain version."""
+    if w1.device.type == "cpu":
+        return split_tf32_plain(w1), split_tf32_plain(w2)
+    c = w1.shape[1]
+    for name, w in (("w1", w1), ("w2", w2)):
+        if (w.dtype != torch.float32 or w.device != w1.device or w.dim() != 3
+                or w.shape[1:] != (c, c) or not w.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 (K, {c}, "
+                             f"{c}) on {w1.device}, got {w.dtype} "
+                             f"{tuple(w.shape)} on {w.device}")
+    return _split(w1, w2)
+
+
+def _split(w1, w2):
+    """The prep kernel's launch on weights already checked."""
+    c = w1.shape[1]
+    s1 = torch.empty((2, *w1.shape), dtype=torch.float32, device=w1.device)
+    s2 = torch.empty((2, *w2.shape), dtype=torch.float32, device=w1.device)
+    stream = torch._C._cuda_getCurrentRawStream(w1.device.index)
+    rc = _kernels()["split_tf32"](w1.data_ptr(), w2.data_ptr(), s1.data_ptr(),
+                                  s2.data_ptr(), c, w1.shape[0], w2.shape[0],
+                                  stream)
+    if rc != 0:
+        raise _launch_error(rc, f"split_tf32 for w1 {tuple(w1.shape)}, w2 "
+                                f"{tuple(w2.shape)}")
+    split_tf32.launches += 1
+    return s1, s2
+
+
+split_tf32.launches = 0
+
+
+def _weight_splits(w1, w2):
+    """The tf32 splits of w1 and w2: cached on each weight that is an
+    inference tensor (which cannot change outside inference mode, and which
+    the decode never changes in it), made by the prep kernel otherwise."""
+    cached = [getattr(w, "_tf32_split", None) for w in (w1, w2)]
+    if cached[0] is not None and cached[1] is not None:
+        return cached
+    splits = _split(w1, w2)
+    for w, s in zip((w1, w2), splits):
+        if w.is_inference():
+            w._tf32_split = s
+    return splits
 
 
 def _check(x, w1, b1, w2, b2, dilation) -> None:
@@ -99,9 +190,9 @@ def _check(x, w1, b1, w2, b2, dilation) -> None:
             raise ValueError(f"{name} must be ({c},), got {tuple(b.shape)}")
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
-    if x.dtype == torch.bfloat16 and c > BF16_MAX_CHANNELS:
-        raise ValueError(f"the bf16 kernel takes at most {BF16_MAX_CHANNELS} "
-                         f"channels, got {c}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the kernel takes at most {MAX_CHANNELS} channels, "
+                         f"got {c}")
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t is None:
             continue
@@ -115,8 +206,9 @@ def _check(x, w1, b1, w2, b2, dilation) -> None:
 def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
     """Launch the kernel on CUDA tensors that passed ``_check``."""
     c = x.shape[2]
-    if x.dtype == torch.bfloat16 and c % BF16_CHANNEL_MULTIPLE:
-        padded = pad_channels(x, w1, b1, w2, b2, BF16_CHANNEL_MULTIPLE)
+    multiple = _CHANNEL_MULTIPLE[x.dtype]
+    if c % multiple:
+        padded = pad_channels(x, w1, b1, w2, b2, multiple)
         return _launch(*padded, dilation,
                        negative_slope)[..., :c].contiguous()
     if x.device.index != torch.cuda.current_device():
@@ -126,6 +218,9 @@ def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    k1, k2 = w1.shape[0], w2.shape[0]
+    if x.dtype == torch.float32:
+        w1, w2 = _weight_splits(w1, w2)
     fn = _kernels()[x.dtype]
     bsz, t, c = x.shape
     # the raw handle: torch.cuda.current_stream() builds a Stream object on
@@ -134,14 +229,11 @@ def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
     rc = fn(x.data_ptr(), w1.data_ptr(),
             None if b1 is None else b1.data_ptr(), w2.data_ptr(),
             None if b2 is None else b2.data_ptr(), y.data_ptr(),
-            bsz, t, c, w1.shape[0], w2.shape[0], dilation,
-            negative_slope, stream)
+            bsz, t, c, k1, k2, dilation, negative_slope, stream)
     if rc != 0:
-        msg = _build.library("resblock_pair").resblock_pair_error_string(rc)
-        raise RuntimeError(f"resblock_pair kernel did not launch for x "
-                           f"{tuple(x.shape)} {x.dtype}, K ({w1.shape[0]}, "
-                           f"{w2.shape[0]}), dilation {dilation}: CUDA error "
-                           f"{rc} ({msg.decode()})")
+        raise _launch_error(rc, f"resblock_pair kernel for x {tuple(x.shape)} "
+                                f"{x.dtype}, K ({k1}, {k2}), dilation "
+                                f"{dilation}")
     resblock_pair.launches += 1
     return y
 

@@ -22,14 +22,20 @@ Phases, each raising on failure:
 3. kernel: ``resblock_pair`` against ``resblock_pair_plain`` (cuDNN convs,
    TF32 off) at all 36 main-path (C, K, d) shapes, with the main path's
    batch (UTTS) and each stage's T per chunk, plus a ragged T,
-   in f32 (max error <= 1e-4 of max |y|) and bf16 (<= 2e-2 of max |y|),
-   with both timed by CUDA events over a CUDA-graph replay (device time,
-   no host time) and summed per stage; and the host's
+   in f32 (max error <= 1e-4 of max |y|, and <= F64_TOL = 1e-5 against
+   the plain pair in float64 on the card, printed beside cuDNN f32's own
+   error against it) and bf16 (<= 2e-2 of max |y|), with both timed by
+   CUDA events over a CUDA-graph replay (device time, no host time; the f32
+   kernel's time includes its weight split, ``split_tf32``, held bit for
+   bit against ``split_tf32_plain`` and timed alone beside it) and summed
+   per stage; and the host's
    time per launch, under ``inference_mode`` and with inputs that require
    grad (through the ``autograd.Function``);
 4. slice: ``ar_loop_batched`` over UTTS utterances of SECONDS s
    in f32 and hybrid bf16, with the kernel's launch count held to
-   36 x chunks per run, finite outputs of the right length, each of three
+   36 x chunks per run, the weight split run 45 times in the warm-up (each
+   f32 pair's first chunk) and none in the run (cached on the frozen
+   kernels), finite outputs of the right length, each of three
    chunks held against the plain pair under the shared carry (f32 max abs
    error <= 1e-6, hybrid <= 5e-3, on tanh outputs), one chunk forward
    timed with the kernel, with plain pairs and with no pairs in turns
@@ -44,11 +50,11 @@ Phases, each raising on failure:
 6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
    utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
    every loss finite, (b) every generator and discriminator parameter
-   moved from its initial value, (c) 72 ``resblock_pair`` and 12
-   ``scale_disc_head`` launches per step, (d) on one batch the generator's
-   and discriminator's gradients with both kernels against both plain
-   versions (relative L2 per model <= GRAD_TOL[0], per tensor <=
-   GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
+   moved from its initial value, (c) 72 ``resblock_pair``, 72 weight-split
+   and 12 ``scale_disc_head`` launches per step, (d) on one batch the
+   generator's and discriminator's gradients with both kernels against
+   both plain versions (relative L2 per model <= GRAD_TOL[0], per tensor
+   <= GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
    through ``inference.load_model``; then times full steps (median of
    STEP_ROUNDS) and the generator fwd+bwd, regeneration and discriminator
    fwd+bwd apart.
@@ -101,10 +107,15 @@ UTTS, SECONDS = 16, 10  # the decode's batch, and each utterance's length
 ROUNDS = 5  # chunk-forward timings taken in turns, for median and range
 PROFILE_CHUNKS = 5  # hybrid chunk forwards in the profiler window
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
-# tensor cores, bf16 tensor cores, HBM3 bandwidth
+# tensor cores, bf16 tensor cores, HBM3 bandwidth; and TF32 tensor cores,
+# which the f32 pair runs at three products a multiply-add (3xTF32)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32, TF32_PRODUCTS = 495e12, 3
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the f32 pair against the plain pair in float64 on the card, of max |y|:
+# 3xTF32 keeps f32's accuracy there; one tf32 product reads about 1e-4
+F64_TOL = 1e-5
 # chunk against plain pairs, max abs on tanh outputs: about 40x and 25x the
 # readings on an H100 (2.4e-8 f32, 2.0e-4 hybrid)
 CHUNK_TOL = {"f32": 1e-6, "hybrid_bf16": 5e-3}
@@ -243,14 +254,19 @@ def device_time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def pair_times_ms(b, t, c, k, dtype) -> tuple[float, float]:
-    """Least time for one pair by operations (flops over the dtype's peak)
-    and by bytes (x in, y out, both kernels and biases once, over HBM
-    bandwidth); the bound is the larger."""
+def pair_times_ms(b, t, c, k, dtype) -> tuple[float, float, float]:
+    """Least time for one pair by operations and by bytes (x in, y out,
+    both kernels and biases once, over HBM bandwidth); the bound is the
+    larger. Operations: bf16 flops over the bf16 tensor-core peak; f32
+    three tf32 products a multiply-add over the TF32 peak. Third, the
+    operations at the fp32 FMA rate (the f32 bound of PRs 1-3)."""
     flops = 4.0 * b * t * c * c * k
     size = torch.finfo(dtype).bits // 8
     nbytes = (2.0 * b * t * c + 2.0 * k * c * c + 2.0 * c) * size
-    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    ops_ms = (TF32_PRODUCTS * flops / PEAK_TF32 * 1e3
+              if dtype == torch.float32 else flops / PEAK_FLOPS[dtype] * 1e3)
+    return ops_ms, nbytes / PEAK_BYTES * 1e3, fma_ms
 
 
 def phase_device() -> tuple[str, str]:
@@ -288,15 +304,16 @@ def phase_build(build) -> float:
 def host_us_per_launch(kernel, requires_grad: bool, n: int = 2000) -> float:
     """Host time of one wrapper call that launches the kernel, at a shape
     so small that the card keeps up with the host: wall time of n calls over
-    n. Under ``inference_mode`` (the decode's bare launch), or with inputs
-    that require grad (through the ``autograd.Function``)."""
+    n. Under ``inference_mode`` with inputs made there (the decode's bare
+    launch, its f32 weight split cached), or with inputs that require grad
+    (through the ``autograd.Function``, the split made in every call)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, w1, w2 = (torch.randn(shape, device="cuda", generator=gen
-                             ).requires_grad_(requires_grad)
-                 for shape in ((1, 8, 32), (3, 32, 32), (3, 32, 32)))
     mode = (contextlib.nullcontext() if requires_grad
             else torch.inference_mode())
     with mode:
+        x, w1, w2 = (torch.randn(shape, device="cuda", generator=gen
+                                 ).requires_grad_(requires_grad)
+                     for shape in ((1, 8, 32), (3, 32, 32), (3, 32, 32)))
         for _ in range(10):
             kernel(x, w1, None, w2, None, dilation=1)
         torch.cuda.synchronize()
@@ -307,7 +324,7 @@ def host_us_per_launch(kernel, requires_grad: bool, n: int = 2000) -> float:
     return (time.perf_counter() - start) / n * 1e6
 
 
-def phase_kernel(resblock_pair, resblock_pair_plain, seed: int,
+def phase_kernel(resblock_pair, resblock_pair_plain, splits, seed: int,
                  batch: int, frames: int) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     scales = GENERATOR_PARAMS["upsample_scales"]
@@ -319,12 +336,20 @@ def phase_kernel(resblock_pair, resblock_pair_plain, seed: int,
             for d in GENERATOR_PARAMS["resblock_dilations"][0]:
                 for dtype in (torch.float32, torch.bfloat16):
                     rows.append(_kernel_case(resblock_pair, resblock_pair_plain,
-                                             gen, batch, stage, t, c, k, d,
-                                             dtype))
+                                             splits, gen, batch, stage, t, c,
+                                             k, d, dtype))
     return rows
 
 
-def _kernel_case(kernel, plain, gen, batch, stage, t, c, k, d, dtype) -> dict:
+def _kernel_case(kernel, plain, splits, gen, batch, stage, t, c, k, d,
+                 dtype) -> dict:
+    """One shape: the kernel against the plain pair at T and T + 37 (and
+    in f32 both against the plain pair in float64, and the weight split
+    kernel bit for bit against its plain version), then both timed. The
+    f32 kernel's time includes its weight split (the inputs are no
+    inference tensors, so nothing is cached: training's path); split_ms is
+    the split alone, so kernel_ms - split_ms is the decode's cached path."""
+    split, split_plain = splits
     def inputs(length):
         scale = (1.0 / (c * k)) ** 0.5
         x = torch.randn(batch, length, c, device="cuda", generator=gen)
@@ -334,7 +359,7 @@ def _kernel_case(kernel, plain, gen, batch, stage, t, c, k, d, dtype) -> dict:
         b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
         return [a.to(dtype) for a in (x, w1, b1, w2, b2)]
 
-    rel_err = abs_err = 0.0
+    rel_err = abs_err = f64_err = plain_f64_err = 0.0
     for length in (t, t + 37):  # the main path's T, and a ragged one
         args = inputs(length)
         y = kernel(*args, dilation=d)
@@ -346,23 +371,43 @@ def _kernel_case(kernel, plain, gen, batch, stage, t, c, k, d, dtype) -> dict:
         diff = (y.float() - ref.float()).abs().max().item()
         abs_err = max(abs_err, diff)
         rel_err = max(rel_err, diff / ref.float().abs().max().item())
+        if dtype == torch.float32:
+            ref64 = plain(*(a.double() for a in args), dilation=d)
+            scale = ref64.abs().max().item()
+            f64_err = max(f64_err,
+                          (y.double() - ref64).abs().max().item() / scale)
+            plain_f64_err = max(plain_f64_err, (ref.double() - ref64).abs(
+                ).max().item() / scale)
     if rel_err > KERNEL_TOL[dtype]:
         raise AssertionError(f"resblock_pair C{c} K{k} d{d} {dtype}: error "
                              f"{rel_err:.3e} of max |y| > {KERNEL_TOL[dtype]}")
+    if f64_err > F64_TOL:
+        raise AssertionError(f"resblock_pair C{c} K{k} d{d} {dtype}: error "
+                             f"{f64_err:.3e} of max |y| against the float64 "
+                             f"pair > {F64_TOL}")
     args = inputs(t)
+    if dtype == torch.float32:
+        for got, w in zip(split(args[1], args[3]), (args[1], args[3])):
+            if not torch.equal(got, split_plain(w)):
+                raise AssertionError(f"split_tf32 C{c} K{k}: differs from "
+                                     f"split_tf32_plain")
     n = 10
     # in turns: plain, kernel, kernel, plain
     p1 = device_time_ms(lambda: plain(*args, dilation=d), n)
     k1 = device_time_ms(lambda: kernel(*args, dilation=d), n)
     k2 = device_time_ms(lambda: kernel(*args, dilation=d), n)
     p2 = device_time_ms(lambda: plain(*args, dilation=d), n)
-    ops_ms, bytes_ms = pair_times_ms(batch, t, c, k, dtype)
+    split_ms = (device_time_ms(lambda: split(args[1], args[3]), n)
+                if dtype == torch.float32 else 0.0)
+    ops_ms, bytes_ms, fma_ms = pair_times_ms(batch, t, c, k, dtype)
     return {"stage": stage, "B": batch, "T": t, "C": c, "K": k,
             "dilation": d, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "f64_rel_err": f64_err, "plain_f64_rel_err": plain_f64_err,
             "kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "split_ms": split_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
+            "fma_bound_ms": max(fma_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -373,10 +418,11 @@ def kernel_sums(rows: list[dict]) -> dict:
     for dtype in ("float32", "bfloat16"):
         sel = [r for r in rows if r["dtype"] == dtype]
         out[dtype] = {key: sum(r[key] for r in sel) for key in
-                      ("kernel_ms", "plain_ms", "bound_ms", "ops_ms",
-                       "bytes_ms")}
-        out[dtype]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
-        out[dtype]["max_rel_err"] = max(r["max_rel_err"] for r in sel)
+                      ("kernel_ms", "plain_ms", "split_ms", "bound_ms",
+                       "fma_bound_ms", "ops_ms", "bytes_ms")}
+        for key in ("max_abs_err", "max_rel_err", "f64_rel_err",
+                    "plain_f64_rel_err"):
+            out[dtype][key] = max(r[key] for r in sel)
     return out
 
 
@@ -389,9 +435,12 @@ def stage_sums(rows: list[dict]) -> dict:
         for stage in sorted({r["stage"] for r in rows}):
             sel = [r for r in rows if r["dtype"] == dtype and r["stage"] == stage]
             sums = {key: sum(r[key] for r in sel) for key in
-                    ("kernel_ms", "plain_ms", "bound_ms")}
+                    ("kernel_ms", "plain_ms", "split_ms", "bound_ms",
+                     "fma_bound_ms")}
             out[dtype].append(dict(
                 stage=stage, C=sel[0]["C"], T=sel[0]["T"], **sums,
+                f64_rel_err=max(r["f64_rel_err"] for r in sel),
+                plain_f64_rel_err=max(r["plain_f64_rel_err"] for r in sel),
                 bound_share=sums["bound_ms"] / sums["kernel_ms"],
                 bound_by=("operations" if sum(r["ops_ms"] for r in sel)
                           >= sum(r["bytes_ms"] for r in sel) else "bytes")))
@@ -401,11 +450,29 @@ def stage_sums(rows: list[dict]) -> dict:
 def log_stage_sums(sums: dict, batch: int) -> None:
     for dtype, stages in sums.items():
         for st in stages:
+            f32 = (f" (split {st['split_ms']:.4f} ms), FMA bound "
+                   f"{st['fma_bound_ms']:.4f} ms; error against float64 "
+                   f"{st['f64_rel_err']:.3e} (cuDNN f32 "
+                   f"{st['plain_f64_rel_err']:.3e})"
+                   if dtype == "float32" else "")
             log(f"[kernel]   {dtype} stage {st['stage']} (C {st['C']}, T "
                 f"{st['T']}, B {batch}): kernel {st['kernel_ms']:.4f} ms, "
                 f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
                 f"({st['bound_by']}), {100 * st['bound_share']:.1f} % of "
-                f"the bound")
+                f"the bound{f32}")
+
+
+def sum_line(dtype: str, sums: dict) -> str:
+    """One dtype's sums over 36 shapes, as the [kernel] lines print them."""
+    line = (f"kernel {sums['kernel_ms']:.3f} ms, plain {sums['plain_ms']:.3f} "
+            f"ms, bound {sums['bound_ms']:.3f} ms, max rel err "
+            f"{sums['max_rel_err']:.2e}")
+    if dtype == "float32":
+        line += (f"; weight split {sums['split_ms']:.3f} ms of it; FMA bound "
+                 f"{sums['fma_bound_ms']:.3f} ms; max error against the "
+                 f"float64 pair {sums['f64_rel_err']:.3e} of max |y| (limit "
+                 f"{F64_TOL}), cuDNN f32's {sums['plain_f64_rel_err']:.3e}")
+    return line
 
 
 def head_times_ms(b, t, stride, dtype) -> tuple[float, float]:
@@ -483,7 +550,7 @@ def swapped(module, name: str, fn):
 
 
 def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
-    inference, residual, resblock_pair, plain, weights, decode = port
+    inference, residual, resblock_pair, plain, split, weights, decode = port
     gp = GENERATOR_PARAMS
     ckpt = os.path.join(tmp, "generator.pth")
     torch.save({"model": {"generator": weights.jax_params_to_state_dict(
@@ -497,14 +564,21 @@ def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
     modes = {"f32": CONFIG, "hybrid_bf16": dict(CONFIG, generator_params=dict(
         gp, compute_dtype="bfloat16", hybrid_precision=True))}
     models = {}
+    split.launches = 0
     for mode, config in modes.items():
         models[mode] = inference.load_model(ckpt, config, device="cuda")
         models[mode].remove_weight_norm()
         inference.ar_loop_batched(models[mode], [x[:CHUNK_FRAMES] for x in xs],
                                   config)  # warm-up: cuDNN plans, allocator
+    # the first chunk splits every f32 pair's weights once: 36 pairs in f32,
+    # stage 3's 9 in hybrid; the split is cached on the frozen kernels
+    warmup_splits = split.launches
+    if warmup_splits != 36 + 9:
+        raise AssertionError(f"decode warm-up: the f32 weight split ran "
+                             f"{warmup_splits} times, expected {36 + 9}")
 
     results, wavs = {}, {}
-    resblock_pair.launches = 0
+    resblock_pair.launches = split.launches = 0
     for i, (mode, config) in enumerate(modes.items()):
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -524,7 +598,12 @@ def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
                          "samples_per_s": UTTS * n_frames * hop / seconds,
                          "chunks": n_chunks, "launches": launches - (
                              36 * n_chunks * i)}
-    launches_total = resblock_pair.launches
+    launches_total, split_launches = resblock_pair.launches, split.launches
+    # the f32 pairs' weight splits were made in the warm-up, on the cached
+    # (inference-tensor) kernels, and reused
+    if split_launches:
+        raise AssertionError(f"decode: the f32 weight split ran "
+                             f"{split_launches} times, expected 0 (cached)")
     for mode, config in modes.items():
         results[mode].update(_chunk_checks(models[mode], xs, wavs[mode],
                                            residual, plain, mode, n_chunks,
@@ -566,6 +645,8 @@ def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
             raise AssertionError(f"decode wrote no utt{n}_gen.wav")
     log("[slice] decode: wrote utt0_gen.wav, utt1_gen.wav")
     results["launches_total"] = launches_total
+    results["split_launches"] = split_launches
+    results["split_launches_warmup"] = warmup_splits
     return results
 
 
@@ -679,10 +760,11 @@ def _grad_gaps(got, want) -> tuple[float, float]:
 def phase_train(port: dict, seed: int, tmp: str) -> dict:
     train_cli, gan, inference = port["train"], port["gan"], port["inference"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
+    split = port["split_tf32"]
     config = TRAIN_CONFIG
     _write_corpus(tmp, seed)
     outdir = os.path.join(tmp, "exp")
-    pair.launches = head.launches = 0
+    pair.launches = head.launches = split.launches = 0
     start = time.perf_counter()
     trainer = train_cli.train(
         config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
@@ -691,11 +773,14 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
     torch.cuda.synchronize()
     run_seconds = time.perf_counter() - start
     launches = {"resblock_pair": pair.launches,
-                "scale_disc_head": head.launches}
+                "scale_disc_head": head.launches,
+                "split_tf32": split.launches}
     # (c) every step ran both generator forwards and all four discriminator
-    # passes through the kernels
+    # passes through the kernels; the weights are refolded every forward, so
+    # every f32 pair split its weights
     expected = {"resblock_pair": 72 * TRAIN_STEPS,
-                "scale_disc_head": 12 * TRAIN_STEPS}
+                "scale_disc_head": 12 * TRAIN_STEPS,
+                "split_tf32": 72 * TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"train: launches {launches}, expected {expected}")
     # (a) the metrics summed over the run's steps
@@ -820,6 +905,8 @@ def main() -> int:
     from articulatory_tpu_torch.ops.resblock_pair import (
         resblock_pair,
         resblock_pair_plain,
+        split_tf32,
+        split_tf32_plain,
     )
     from articulatory_tpu_torch.ops.scale_disc_head import (
         scale_disc_head,
@@ -832,8 +919,9 @@ def main() -> int:
 
     set_float32_parity()
     build_seconds = phase_build(_build)
-    rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed, UTTS,
-                        CHUNK_FRAMES)
+    splits = (split_tf32, split_tf32_plain)
+    rows = phase_kernel(resblock_pair, resblock_pair_plain, splits, args.seed,
+                        UTTS, CHUNK_FRAMES)
     host_us = {"inference_mode": host_us_per_launch(resblock_pair, False),
                "requires_grad": host_us_per_launch(resblock_pair, True)}
     log(f"[kernel] host time per launch: {host_us['inference_mode']:.2f} us "
@@ -843,10 +931,7 @@ def main() -> int:
     by_stage = stage_sums(rows)
     for dtype, sums in by_dtype.items():
         log(f"[kernel] {dtype}: 36 main-path shapes at B={UTTS}: "
-            f"kernel {sums['kernel_ms']:.3f} ms, plain "
-            f"{sums['plain_ms']:.3f} ms, bound "
-            f"{sums['bound_ms']:.3f} ms, max rel err "
-            f"{sums['max_rel_err']:.2e}")
+            f"{sum_line(dtype, sums)}")
     log_stage_sums(by_stage, UTTS)
     head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
                                   args.seed)
@@ -857,26 +942,24 @@ def main() -> int:
             f"{r['max_rel_err']:.2e}")
     batch = TRAIN_CONFIG["batch_size"]
     train_frames = TRAIN_CONFIG["batch_max_steps"] // CONFIG["hop_size"]
-    train_rows = phase_kernel(resblock_pair, resblock_pair_plain, args.seed,
-                              batch, train_frames)
+    train_rows = phase_kernel(resblock_pair, resblock_pair_plain, splits,
+                              args.seed, batch, train_frames)
     train_sums = kernel_sums(train_rows)
     train_stages = stage_sums(train_rows)
     for dtype, sums in train_sums.items():
-        log(f"[kernel] {dtype}: 36 training shapes at B={batch}: kernel "
-            f"{sums['kernel_ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, "
-            f"bound {sums['bound_ms']:.3f} ms, max rel err "
-            f"{sums['max_rel_err']:.2e}")
+        log(f"[kernel] {dtype}: 36 training shapes at B={batch}: "
+            f"{sum_line(dtype, sums)}")
     log_stage_sums(train_stages, batch)
     with tempfile.TemporaryDirectory() as tmp:
         slice_results = phase_slice(
-            (inference, residual, resblock_pair, resblock_pair_plain, weights,
-             decode), args.seed, device_name, tmp)
+            (inference, residual, resblock_pair, resblock_pair_plain,
+             split_tf32, weights, decode), args.seed, device_name, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         train_results = phase_train(dict(
             train=train_cli, gan=gan, inference=inference, residual=residual,
             hifigan=hifigan, build_model=build_model, to_device=to_device,
             resblock_pair=resblock_pair,
-            resblock_pair_plain=resblock_pair_plain,
+            resblock_pair_plain=resblock_pair_plain, split_tf32=split_tf32,
             scale_disc_head=scale_disc_head,
             scale_disc_head_plain=scale_disc_head_plain), args.seed, tmp)
 
@@ -889,12 +972,24 @@ def main() -> int:
         # launches beside it
         "launches": slice_results["launches_total"],
         "launches_train": train_results["launches"]["resblock_pair"],
-        # the 36 main-path shapes of one chunk forward, float32
+        # the 36 main-path shapes of one chunk forward, float32 (3xTF32;
+        # ms includes the weight split, split_ms alone); bound_ms at three
+        # tf32 products a multiply-add, fma_bound_ms at the fp32 FMA rate
         "max_abs_err": f32["max_abs_err"], "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": ("operations" if f32["ops_ms"] >= f32["bytes_ms"]
                      else "bytes"),
         "library_ms": None,
+        "fma_bound_ms": f32["fma_bound_ms"], "split_ms": f32["split_ms"],
+        "f64_max_rel_err": f32["f64_rel_err"],
+        "plain_f64_max_rel_err": f32["plain_f64_rel_err"],
+        "split_launches_train": train_results["launches"]["split_tf32"],
+        # the decode's splits: in the first chunk (warm-up), then cached
+        "split_launches_decode_warmup": slice_results["split_launches_warmup"],
+        "split_launches_decode": slice_results["split_launches"],
+        "stage_ms": [st["kernel_ms"] for st in by_stage["float32"]],
+        "stage_plain_ms": [st["plain_ms"] for st in by_stage["float32"]],
+        "stage_bound_ms": [st["bound_ms"] for st in by_stage["float32"]],
         "bf16_ms": by_dtype["bfloat16"]["kernel_ms"],
         "bf16_plain_ms": by_dtype["bfloat16"]["plain_ms"],
         "bf16_bound_ms": by_dtype["bfloat16"]["bound_ms"],
@@ -908,6 +1003,7 @@ def main() -> int:
         "train_shapes_ms": train_sums["float32"]["kernel_ms"],
         "train_shapes_plain_ms": train_sums["float32"]["plain_ms"],
         "train_shapes_bound_ms": train_sums["float32"]["bound_ms"],
+        "train_shapes_f64_max_rel_err": train_sums["float32"]["f64_rel_err"],
         "train_shapes_bf16_ms": train_sums["bfloat16"]["kernel_ms"],
         "train_shapes_bf16_plain_ms": train_sums["bfloat16"]["plain_ms"],
         "train_shapes_bf16_bound_ms": train_sums["bfloat16"]["bound_ms"],

@@ -15,6 +15,8 @@ from articulatory_tpu_torch.models import build_model
 from articulatory_tpu_torch.ops.resblock_pair import (
     resblock_pair,
     resblock_pair_plain,
+    split_tf32,
+    split_tf32_plain,
 )
 from articulatory_tpu_torch.ops.scale_disc_head import (
     scale_disc_head,
@@ -58,8 +60,8 @@ MAIN_PATH = [(4, t, c, k, d) for c, t in ((256, 500), (128, 2000), (64, 4000),
     (2, 1, 64, 11, 5),      # T = 1
     (2, 7, 128, 11, 5),     # T below the halo
     (64, 125, 256, 11, 5),  # the training batch
-    (2, 100, 30, 3, 3),     # C % 4 != 0: the scalar f32 path; bf16 pads to 32
-    (2, 300, 48, 7, 3),     # an odd number of 16-channel k steps
+    (2, 100, 30, 3, 3),     # C % 8 != 0: f32 and bf16 pad to 32
+    (2, 300, 48, 7, 3),     # odd 16-channel k steps; f32 N 64 > C
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -88,11 +90,57 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         resblock_pair(x.double(), w1.double(), None, w2.double(), None,
                       dilation=1)
-    wide = _pair_args(cuda, 1, 16, 512, 3, torch.bfloat16)
-    before = resblock_pair.launches
-    with pytest.raises(ValueError):  # the bf16 kernel takes C <= 256
-        resblock_pair(*wide, dilation=1)
-    assert resblock_pair.launches == before
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = _pair_args(cuda, 1, 16, 512, 3, dtype)
+        before = resblock_pair.launches, split_tf32.launches
+        with pytest.raises(ValueError):  # the kernel takes C <= 256
+            resblock_pair(*wide, dilation=1)
+        assert (resblock_pair.launches, split_tf32.launches) == before
+
+
+@pytest.mark.parametrize("b,t,c,k,d", [(2, 500, 256, 11, 5),
+                                       (2, 2000, 128, 7, 3),
+                                       (2, 4000, 64, 11, 1),
+                                       (2, 8000, 32, 3, 5)])
+def test_f32_kernel_matches_float64_pair(cuda, b, t, c, k, d):
+    """One shape per generator stage against the plain pair in float64 on
+    the card: 3xTF32 with f32 sums stays within 1e-5 of max |y| (a single
+    tf32 product reads about 1e-4 here), as chip_smoke holds all 72."""
+    args = _pair_args(cuda, b, t, c, k, torch.float32)
+    y = resblock_pair(*args, dilation=d)
+    ref = resblock_pair_plain(*(a.double() for a in args), dilation=d)
+    torch.cuda.synchronize()
+    assert (y.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k1,k2,c", [(3, 3, 256), (11, 11, 32), (7, 5, 48),
+                                     (3, 1, 8)])
+def test_split_kernel_matches_plain(cuda, k1, k2, c):
+    """The prep kernel's tf32 hi/lo split and transpose, bit for bit."""
+    gen = torch.Generator().manual_seed(k1 + c)
+    w1 = torch.randn(k1, c, c, generator=gen).to(cuda)
+    w2 = torch.randn(k2, c, c, generator=gen).to(cuda)
+    before = split_tf32.launches
+    s1, s2 = split_tf32(w1, w2)
+    assert split_tf32.launches == before + 1
+    torch.testing.assert_close(s1, split_tf32_plain(w1), rtol=0, atol=0)
+    torch.testing.assert_close(s2, split_tf32_plain(w2), rtol=0, atol=0)
+
+
+def test_split_cached_only_on_inference_tensors(cuda):
+    """The decode's kernels are inference tensors: their split is made once.
+    Weights that are not (training's, refolded every forward) are split at
+    every launch. Both give the same output."""
+    args = _pair_args(cuda, 2, 301, 64, 7, torch.float32)
+    before = split_tf32.launches
+    plain_calls = [resblock_pair(*args, dilation=3) for _ in range(2)]
+    assert split_tf32.launches == before + 2
+    with torch.inference_mode():
+        frozen = [a.clone() for a in args]
+        cached_calls = [resblock_pair(*frozen, dilation=3) for _ in range(2)]
+    assert split_tf32.launches == before + 3
+    for y in plain_calls + cached_calls:
+        torch.testing.assert_close(y, plain_calls[0], rtol=0, atol=0)
 
 
 def test_generator_on_card_matches_cpu(cuda):
