@@ -45,13 +45,18 @@ Phases, each raising on failure:
 5. head kernel: ``scale_disc_head`` against ``scale_disc_head_plain`` at
    the training path's three scales (B 64, T 2512/1257/629, stride 4) and
    the Pallas kernel's shape (B 32, T 8512, stride 2), each also at T + 3,
-   in f32 (<= 1e-4 of max |h|) and bf16 (<= 2e-2), timed in turns; and
-   ``resblock_pair`` at the training path's 36 shapes (B 64, 25 frames);
+   in f32 (<= 1e-4 of max |h|, and <= F64_TOL against the plain head in
+   float64 on the card, cuDNN f32's own error beside it) and bf16 (<= 2e-2),
+   timed in turns by CUDA-graph replay (the kernel's time includes its
+   weight split, ``split_weights``, held bit for bit against
+   ``split_weights_plain`` and timed alone beside it), with the 3xTF32 and
+   the FMA bound; the host's time per head launch; and ``resblock_pair``
+   at the training path's 36 shapes (B 64, 25 frames);
 6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
    utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
    every loss finite, (b) every generator and discriminator parameter
-   moved from its initial value, (c) 72 ``resblock_pair``, 72 weight-split
-   and 12 ``scale_disc_head`` launches per step, (d) on one batch the
+   moved from its initial value, (c) 72 ``resblock_pair``, 72 weight-split,
+   12 ``scale_disc_head`` and 12 head weight-split launches per step, (d) on one batch the
    generator's and discriminator's gradients with both kernels against
    both plain versions (relative L2 per model <= GRAD_TOL[0], per tensor
    <= GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
@@ -113,8 +118,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32, TF32_PRODUCTS = 495e12, 3
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# the f32 pair against the plain pair in float64 on the card, of max |y|:
-# 3xTF32 keeps f32's accuracy there; one tf32 product reads about 1e-4
+# the f32 pair and head against their plain versions in float64 on the
+# card, of max |y| (|h|): 3xTF32 keeps f32's accuracy there; one tf32
+# product reads about 1e-4
 F64_TOL = 1e-5
 # chunk against plain pairs, max abs on tanh outputs: about 40x and 25x the
 # readings on an H100 (2.4e-8 f32, 2.0e-4 hybrid)
@@ -475,26 +481,39 @@ def sum_line(dtype: str, sums: dict) -> str:
     return line
 
 
-def head_times_ms(b, t, stride, dtype) -> tuple[float, float]:
+def head_times_ms(b, t, stride, dtype) -> tuple[float, float, float]:
     """Least time for one head call by operations (2*B*T*128*15 +
-    2*B*T1*128*32*41 flops over the dtype's peak) and by bytes (x in, h0 and
-    h1 out, weights and biases once, over HBM bandwidth)."""
+    2*B*T1*128*32*41 flops over the tensor cores' peak: bf16's, or in f32
+    three tf32 products a multiply-add over the TF32 peak) and by bytes (x
+    in, h0 and h1 out, weights and biases once, over HBM bandwidth); the
+    bound is the larger. Third, the operations at the fp32 FMA rate (the
+    f32 bound of PRs 2-4)."""
     t1 = (t - 1) // stride + 1
     flops = 2.0 * b * t * 128 * 15 + 2.0 * b * t1 * 128 * 32 * 41
     size = torch.finfo(dtype).bits // 8
     nbytes = (b * t + b * t * 128 + b * t1 * 128 + 15 * 128 + 41 * 32 * 128
               + 2 * 128) * size
-    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    ops_ms = (TF32_PRODUCTS * flops / PEAK_TF32 * 1e3
+              if dtype == torch.float32 else flops / PEAK_FLOPS[dtype] * 1e3)
+    return ops_ms, nbytes / PEAK_BYTES * 1e3, fma_ms
 
 
-def phase_head_kernel(head, head_plain, seed: int) -> list[dict]:
+def phase_head_kernel(head, head_plain, splits, seed: int) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return [_head_case(head, head_plain, gen, b, t, stride, dtype)
+    return [_head_case(head, head_plain, splits, gen, b, t, stride, dtype)
             for b, t, stride in HEAD_SHAPES
             for dtype in (torch.float32, torch.bfloat16)]
 
 
-def _head_case(kernel, plain, gen, b, t, stride, dtype) -> dict:
+def _head_case(kernel, plain, splits, gen, b, t, stride, dtype) -> dict:
+    """One shape: the head against the plain head at T and T + 3 (in f32
+    also against the plain head in float64), the weight split kernel bit
+    for bit against its plain version, then the head, the plain head and
+    the split timed. The head's time includes its weight split, as on the
+    training path; split_ms is the split alone."""
+    split, split_plain = splits
+
     def inputs(length):
         x = torch.randn(b, length, 1, device="cuda", generator=gen) * 0.3
         w0 = torch.randn(15, 1, 128, device="cuda", generator=gen) / 15 ** 0.5
@@ -504,38 +523,74 @@ def _head_case(kernel, plain, gen, b, t, stride, dtype) -> dict:
         b1 = torch.randn(128, device="cuda", generator=gen) * 0.1
         return [a.to(dtype) for a in (x, w0, b0, wg, b1)]
 
-    rel_err = abs_err = 0.0
+    rel_err = abs_err = f64_err = plain_f64_err = 0.0
     for length in (t, t + 3):  # the path's T, and a ragged one
         args = inputs(length)
         outs = kernel(*args, stride=stride)
         refs = plain(*args, stride=stride)
+        refs64 = (plain(*(a.double() for a in args), stride=stride)
+                  if dtype == torch.float32 else refs)
         torch.cuda.synchronize()
-        for out, ref in zip(outs, refs):
+        for out, ref, ref64 in zip(outs, refs, refs64):
             if out.shape != ref.shape or not torch.isfinite(out).all():
                 raise AssertionError(f"scale_disc_head B{b} T{length} "
                                      f"s{stride} {dtype}: bad output")
             diff = (out.float() - ref.float()).abs().max().item()
             abs_err = max(abs_err, diff)
             rel_err = max(rel_err, diff / ref.float().abs().max().item())
+            if dtype == torch.float32:
+                scale = ref64.abs().max().item()
+                f64_err = max(f64_err, (out.double() - ref64).abs().max(
+                    ).item() / scale)
+                plain_f64_err = max(plain_f64_err, (ref.double() - ref64).abs(
+                    ).max().item() / scale)
     if rel_err > KERNEL_TOL[dtype]:
         raise AssertionError(f"scale_disc_head B{b} T{t} s{stride} {dtype}: "
                              f"error {rel_err:.3e} of max |h| > "
                              f"{KERNEL_TOL[dtype]}")
+    if f64_err > F64_TOL:
+        raise AssertionError(f"scale_disc_head B{b} T{t} s{stride} {dtype}: "
+                             f"error {f64_err:.3e} of max |h| against the "
+                             f"float64 head > {F64_TOL}")
     args = inputs(t)
+    if not torch.equal(split(args[3]), split_plain(args[3])):
+        raise AssertionError(f"split_weights {dtype}: differs from "
+                             f"split_weights_plain")
     n = 10
     # in turns: plain, kernel, kernel, plain
     p1 = device_time_ms(lambda: plain(*args, stride=stride), n)
     k1 = device_time_ms(lambda: kernel(*args, stride=stride), n)
     k2 = device_time_ms(lambda: kernel(*args, stride=stride), n)
     p2 = device_time_ms(lambda: plain(*args, stride=stride), n)
-    ops_ms, bytes_ms = head_times_ms(b, t, stride, dtype)
+    split_ms = device_time_ms(lambda: split(args[3]), n)
+    ops_ms, bytes_ms, fma_ms = head_times_ms(b, t, stride, dtype)
     return {"B": b, "T": t, "stride": stride,
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "f64_rel_err": f64_err, "plain_f64_rel_err": plain_f64_err,
             "kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "split_ms": split_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
+            "fma_bound_ms": max(fma_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def head_host_us_per_launch(head, requires_grad: bool, n: int = 2000) -> float:
+    """Host time of one head call (the weight split's launch and the
+    head's), at a shape so small that the card keeps up with the host: wall
+    time of n calls over n, with inputs that do or do not require grad."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w0, wg = (torch.randn(shape, device="cuda", generator=gen
+                             ).requires_grad_(requires_grad)
+                 for shape in ((1, 8, 1), (15, 1, 128), (41, 32, 128)))
+    for _ in range(10):
+        head(x, w0, None, wg, None, stride=4)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        head(x, w0, None, wg, None, stride=4)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / n * 1e6
 
 
 @contextlib.contextmanager
@@ -760,11 +815,11 @@ def _grad_gaps(got, want) -> tuple[float, float]:
 def phase_train(port: dict, seed: int, tmp: str) -> dict:
     train_cli, gan, inference = port["train"], port["gan"], port["inference"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
-    split = port["split_tf32"]
+    split, head_split = port["split_tf32"], port["split_weights"]
     config = TRAIN_CONFIG
     _write_corpus(tmp, seed)
     outdir = os.path.join(tmp, "exp")
-    pair.launches = head.launches = split.launches = 0
+    pair.launches = head.launches = split.launches = head_split.launches = 0
     start = time.perf_counter()
     trainer = train_cli.train(
         config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
@@ -774,13 +829,15 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
     run_seconds = time.perf_counter() - start
     launches = {"resblock_pair": pair.launches,
                 "scale_disc_head": head.launches,
-                "split_tf32": split.launches}
+                "split_tf32": split.launches,
+                "split_weights": head_split.launches}
     # (c) every step ran both generator forwards and all four discriminator
     # passes through the kernels; the weights are refolded every forward, so
-    # every f32 pair split its weights
+    # every f32 pair split its weights, and every head its weights
     expected = {"resblock_pair": 72 * TRAIN_STEPS,
                 "scale_disc_head": 12 * TRAIN_STEPS,
-                "split_tf32": 72 * TRAIN_STEPS}
+                "split_tf32": 72 * TRAIN_STEPS,
+                "split_weights": 12 * TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"train: launches {launches}, expected {expected}")
     # (a) the metrics summed over the run's steps
@@ -911,6 +968,8 @@ def main() -> int:
     from articulatory_tpu_torch.ops.scale_disc_head import (
         scale_disc_head,
         scale_disc_head_plain,
+        split_weights,
+        split_weights_plain,
     )
     from articulatory_tpu_torch.train import gan
     from articulatory_tpu_torch.train.trainer import to_device
@@ -934,12 +993,26 @@ def main() -> int:
             f"{sum_line(dtype, sums)}")
     log_stage_sums(by_stage, UTTS)
     head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
+                                  (split_weights, split_weights_plain),
                                   args.seed)
     for r in head_rows:
+        f32 = (f", FMA bound {r['fma_bound_ms']:.4f} ms; error against "
+               f"float64 {r['f64_rel_err']:.3e} of max |h| (limit {F64_TOL}), "
+               f"cuDNN f32's {r['plain_f64_rel_err']:.3e}"
+               if r["dtype"] == "float32" else "")
         log(f"[head] B{r['B']} T{r['T']} s{r['stride']} {r['dtype']}: kernel "
-            f"{r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max rel err "
-            f"{r['max_rel_err']:.2e}")
+            f"{r['kernel_ms']:.4f} ms (weight split {r['split_ms']:.4f} ms "
+            f"of it), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['kernel_ms']:.1f} % of the bound, max "
+            f"rel err {r['max_rel_err']:.2e}{f32}")
+    head_host_us = {
+        "no_grad_inputs": head_host_us_per_launch(scale_disc_head, False),
+        "requires_grad": head_host_us_per_launch(scale_disc_head, True)}
+    log(f"[head] host time per head call (split and head launches): "
+        f"{head_host_us['no_grad_inputs']:.2f} us with inputs that do not "
+        f"require grad, {head_host_us['requires_grad']:.2f} us with inputs "
+        f"that do")
     batch = TRAIN_CONFIG["batch_size"]
     train_frames = TRAIN_CONFIG["batch_max_steps"] // CONFIG["hop_size"]
     train_rows = phase_kernel(resblock_pair, resblock_pair_plain, splits,
@@ -960,7 +1033,7 @@ def main() -> int:
             hifigan=hifigan, build_model=build_model, to_device=to_device,
             resblock_pair=resblock_pair,
             resblock_pair_plain=resblock_pair_plain, split_tf32=split_tf32,
-            scale_disc_head=scale_disc_head,
+            scale_disc_head=scale_disc_head, split_weights=split_weights,
             scale_disc_head_plain=scale_disc_head_plain), args.seed, tmp)
 
     f32 = by_dtype["float32"]
@@ -1018,7 +1091,9 @@ def main() -> int:
         "source": "articulatory_tpu_torch/csrc/scale_disc_head.cu",
         "replaces": "articulatory_tpu/ops/pallas/scale_disc_head.py:150",
         "launches": train_results["launches"]["scale_disc_head"],
-        # the training path's three scales (one MSMPD pass), float32
+        # the training path's three scales (one MSMPD pass), float32 (3xTF32;
+        # ms includes the weight split, split_ms alone); bound_ms at three
+        # tf32 products a multiply-add, fma_bound_ms at the fp32 FMA rate
         "max_abs_err": max(r["max_abs_err"] for r in head_f32),
         "ms": sum(r["kernel_ms"] for r in head_f32),
         "plain_ms": sum(r["plain_ms"] for r in head_f32),
@@ -1027,6 +1102,14 @@ def main() -> int:
                      >= sum(r["bytes_ms"] for r in head_f32) else "bytes"),
         # no single PyTorch call computes both layers with the mask
         "library_ms": None,
+        "fma_bound_ms": sum(r["fma_bound_ms"] for r in head_f32),
+        "f64_rel_err": max(r["f64_rel_err"] for r in head_rows
+                           if r["dtype"] == "float32"),
+        "plain_f64_rel_err": max(r["plain_f64_rel_err"] for r in head_rows
+                                 if r["dtype"] == "float32"),
+        "split_ms": sum(r["split_ms"] for r in head_f32),
+        "split_launches_train": train_results["launches"]["split_weights"],
+        "host_us_per_launch": head_host_us,
         "bf16_ms": sum(r["kernel_ms"] for r in head_bf16),
         "bf16_plain_ms": sum(r["plain_ms"] for r in head_bf16),
         "bf16_bound_ms": sum(r["bound_ms"] for r in head_bf16),

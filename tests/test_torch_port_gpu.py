@@ -21,6 +21,8 @@ from articulatory_tpu_torch.ops.resblock_pair import (
 from articulatory_tpu_torch.ops.scale_disc_head import (
     scale_disc_head,
     scale_disc_head_plain,
+    split_weights,
+    split_weights_plain,
 )
 from articulatory_tpu_torch.utils.device import set_float32_parity
 
@@ -192,6 +194,46 @@ def test_scale_disc_head_matches_plain(cuda, b, t, stride, dtype, tol):
         assert got.dtype == dtype and got.shape == ref.shape
         err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
         assert err <= tol
+
+
+@pytest.mark.parametrize("b,t,stride", [(4, 2512, 4), (3, 901, 2),
+                                         (2, 300, 64), (1, 1, 2)])
+def test_f32_scale_disc_head_matches_float64_head(cuda, b, t, stride):
+    """The f32 head (layer 1 in 3xTF32, partial sums folded into f32)
+    against the plain head in float64 on the card: within 1e-5 of max |h|
+    for h0 and h1, as chip_smoke holds it (a single tf32 product reads about
+    2e-4); cuDNN f32's own error is in the message."""
+    args = _head_args(cuda, b, t, torch.float32)
+    outs = scale_disc_head(*args, stride=stride)
+    refs = scale_disc_head_plain(*(a.double() for a in args), stride=stride)
+    plains = scale_disc_head_plain(*args, stride=stride)
+    torch.cuda.synchronize()
+    for got, ref, plain in zip(outs, refs, plains):
+        scale = ref.abs().max()
+        err = (got.double() - ref).abs().max() / scale
+        cudnn = (plain.double() - ref).abs().max() / scale
+        assert err <= 1e-5, f"kernel {err:.3e}, cuDNN f32 {cudnn:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_split_kernel_matches_plain(cuda, dtype):
+    """The head's prep kernel (tf32 hi/lo split and transpose in f32, the
+    transpose in bf16), bit for bit, one launch."""
+    wg = _head_args(cuda, 1, 8, dtype, seed=3)[3]
+    before = split_weights.launches
+    got = split_weights(wg)
+    assert split_weights.launches == before + 1
+    torch.testing.assert_close(got, split_weights_plain(wg), rtol=0, atol=0)
+
+
+def test_head_launches_one_split_a_call(cuda):
+    """Training moves the weights every step, so every head call splits."""
+    args = _head_args(cuda, 2, 400, torch.float32)
+    before = scale_disc_head.launches, split_weights.launches
+    for _ in range(2):
+        scale_disc_head(*args, stride=4)
+    assert (scale_disc_head.launches, split_weights.launches) == (
+        before[0] + 2, before[1] + 2)
 
 
 def _grads(fn, args, **kwargs):
