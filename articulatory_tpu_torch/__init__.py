@@ -1,8 +1,9 @@
 """articulatory_tpu_torch: the PyTorch/CUDA port of articulatory_tpu.
 
-It carries the E2W HiFi-CAR decode path (``inference.load_model`` ->
-``inference.ar_loop`` / ``ar_loop_batched``, ``bin/decode.py``) and the GAN
-training step (``bin/train.py`` -> ``train/trainer.py`` ->
+It carries the HiFi-CAR decode path of the EMA and MRI recipes
+(``inference.load_model`` -> ``inference.ar_loop`` / ``ar_loop_batched`` /
+``ar_loop_scan``, the last two through a captured CUDA graph on a card;
+int8 and bf16 weight storage; ``bin/decode.py``) and the GAN training step (``bin/train.py`` -> ``train/trainer.py`` ->
 ``train/gan.py``) on an NVIDIA H100, with the generator's residual pairs
 and the scale discriminator's first two layers in hand-written CUDA kernels
 (``csrc/resblock_pair.cu``, ``csrc/scale_disc_head.cu``). Entry points run

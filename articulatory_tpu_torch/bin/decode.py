@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
 """Decode dumped features with a trained generator on the GPU (port of
-``articulatory_tpu/bin/decode.py`` for the a2w and default dataset modes).
+``articulatory_tpu/bin/decode.py`` for the wave-output modes: default, a2w
+and the generic x2y modes such as the MRI recipe's; ``art`` writes
+features).
 
-Writes ``<utt>_gen.wav`` per utterance and logs the real-time factor. AR
-generators decode chunk by chunk (``ar_loop``), or ``--decode-batch-size``
-utterances at a time (``ar_loop_batched``); others in one forward.
+Writes ``<utt>_gen.wav`` per utterance (``<utt>_<i>_gen.wav`` and
+``<utt>_<i>.npy`` per window with ``wsola``, ``<utt>_gen.npy`` for feature
+output) and logs the real-time factor. AR generators decode chunk by chunk
+(``ar_loop``), or ``--decode-batch-size`` utterances at a time
+(``ar_loop_batched``); ``--ar-scan`` runs either through the captured chunk
+step (a CUDA graph on a card). Others decode in one forward.
+``--int8-weights`` / ``--bf16-weights`` store the weights as int8 or
+bfloat16. Input transforms (``transform`` / ``input_transform``) apply to
+the features.
 
     python -m articulatory_tpu_torch.bin.decode --device cuda \\
-        --dumpdir dump/eval/norm --checkpoint exp/x/ckpt.pkl --outdir out
+        --dumpdir dump/eval/norm --checkpoint exp/x/ckpt.pkl --outdir out \\
+        --ar-scan
 """
 
 from __future__ import annotations
@@ -19,72 +28,134 @@ import time
 
 import numpy as np
 
+from articulatory_tpu_torch.data.collate import is_wave_output_mode
 from articulatory_tpu_torch.data.datasets import ArtDataset, ArtSCPDataset, MelSCPDataset
-from articulatory_tpu_torch.inference import ar_loop, ar_loop_batched, load_model
+from articulatory_tpu_torch.data.transforms import get_transform
+from articulatory_tpu_torch.inference import (
+    ar_loop,
+    ar_loop_batched,
+    ar_loop_scan,
+    load_model,
+)
 from articulatory_tpu_torch.utils.io import read_hdf5, write_wav
 
-_NOT_PORTED = ("int8_weights", "bf16_weights", "ar_scan")
+_NOT_PORTED_MODES = ("a2w_mult", "w2a", "ph2a", "ph2m", "a2m")
 
 
 def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
     if (feats_scp is not None) == (dumpdir is not None):
         raise ValueError("Please specify either --dumpdir or --feats-scp.")
     mode = config.get("dataset_mode", "default")
-    if config.get("transform") or config.get("input_transform"):
-        raise NotImplementedError("input transforms are not ported yet")
-    if mode not in ("default", "m2w", "a2w", "art"):
+    if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(f"dataset_mode {mode!r} is not ported yet")
+    transform = (get_transform(config["transform"])
+                 if config.get("transform") else None)
+    given = config.get("input_transform")
+    transform = get_transform(given) if given is not None else transform
+    if mode in ("default", "m2w"):
+        transform = None  # mel inputs take no transform
     if feats_scp is not None:
-        cls = MelSCPDataset if mode in ("default", "m2w") else ArtSCPDataset
-        return cls(feats_scp, return_utt_id=True)
+        if mode in ("default", "m2w"):
+            return MelSCPDataset(feats_scp, return_utt_id=True)
+        return ArtSCPDataset(feats_scp, return_utt_id=True,
+                             transform=transform)
     if config.get("format", "hdf5") == "hdf5":
         return ArtDataset(dumpdir, query="*.h5", return_utt_id=True,
+                          transform=transform,
                           load_fn=lambda path: read_hdf5(path, "feats"))
-    return ArtDataset(dumpdir, query="*-feats.npy", return_utt_id=True)
+    return ArtDataset(dumpdir, query="*-feats.npy", return_utt_id=True,
+                      transform=transform)
 
 
 def decode(config: dict, checkpoint: str, outdir: str, *,
            dumpdir: str | None = None, feats_scp: str | None = None,
            decode_batch_size: int = 1, normalize_before: bool = False,
-           bucket_frames: int = 64, device=None) -> dict:
+           bucket_frames: int = 64, ar_scan: bool = False,
+           ar_scan_bucket: int = 4, int8_weights: bool = False,
+           bf16_weights: bool = False, device=None) -> dict:
     """Decode every utterance of a dump directory or feats.scp into
-    ``outdir/<utt>_gen.wav``. Returns ``{"utterances", "seconds_audio",
-    "seconds_elapsed"}``."""
+    ``outdir``. Returns ``{"utterances", "seconds_audio", "seconds_elapsed",
+    "rtf"}`` (``rtf``: the mean per-utterance RTF, or the batched run's
+    effective one)."""
     dataset = _dataset(config, dumpdir, feats_scp)
     logging.info(f"The number of features to be decoded = {len(dataset)}.")
     model = load_model(checkpoint, config, device=device)
     logging.info(f"Loaded model parameters from {checkpoint}.")
     model.remove_weight_norm()
+    if int8_weights and not model.quantized:
+        model.quantize_int8()
+        logging.info("Quantized weights to int8 (per-out-channel symmetric).")
+    if bf16_weights:
+        model.to_bf16_weights()  # raises on int8 weights
+        logging.info("Stored weights as bfloat16 (weight norm folded).")
     os.makedirs(outdir, exist_ok=True)
+    mode = config.get("dataset_mode", "default")
     use_ar = config["generator_params"].get("use_ar", False)
-    sr = config["sampling_rate"]
+    do_wsola = bool(config.get("wsola", False))
+    is_wave = is_wave_output_mode(mode)
+    sr, hop = config["sampling_rate"], config["hop_size"]
     items = [(utt_id, np.asarray(c, np.float32)) for utt_id, c in dataset]
-    total_time = total_len = 0.0
-    if use_ar and decode_batch_size > 1:
-        groups = [items[i:i + decode_batch_size]
-                  for i in range(0, len(items), decode_batch_size)]
-    else:
-        groups = [[item] for item in items]
-    for group in groups:
+    total_time = total_len = total_rtf = 0.0
+
+    if decode_batch_size > 1 and use_ar and not do_wsola and is_wave:
+        for i in range(0, len(items), decode_batch_size):
+            group = items[i:i + decode_batch_size]
+            start = time.perf_counter()
+            # --ar-scan: each lane group is one run of the captured step
+            outs = ar_loop_batched(model, [c for _, c in group], config,
+                                   scan=ar_scan)
+            total_time += time.perf_counter() - start
+            for (utt_id, _), wav in zip(group, outs):
+                write_wav(os.path.join(outdir, f"{utt_id}_gen.wav"), wav, sr)
+                total_len += len(wav) / sr
+        rtf = total_time / max(total_len, 1e-9)
+        logging.info(f"Finished batched generation of {len(items)} utterances "
+                     f"(batch {decode_batch_size}); throughput = "
+                     f"{total_len / max(total_time, 1e-9):.1f}x realtime "
+                     f"(effective RTF {rtf:.6f}).")
+        return {"utterances": len(items), "seconds_audio": total_len,
+                "seconds_elapsed": total_time, "rtf": rtf}
+
+    if ar_scan and not (use_ar and not do_wsola and is_wave):
+        logging.warning("--ar-scan ignored: the captured chunk loop covers "
+                        "plain chunked-AR wave decode (no wsola/non-AR).")
+        ar_scan = False
+    for utt_id, c in items:
         start = time.perf_counter()
-        if use_ar and decode_batch_size > 1:
-            outs = ar_loop_batched(model, [c for _, c in group], config)
+        if ar_scan:
+            out = ar_loop_scan(model, c, config, chunk_bucket=ar_scan_bucket)
         elif use_ar:
-            outs = [ar_loop(model, group[0][1], config)]
+            out = ar_loop(model, c, config, do_wsola=do_wsola)
         else:
-            outs = [model.inference(group[0][1],
-                                    normalize_before=normalize_before,
-                                    bucket_frames=bucket_frames or None
-                                    ).reshape(-1)]
-        total_time += time.perf_counter() - start
-        for (utt_id, _), wav in zip(group, outs):
+            out = model.inference(c, normalize_before=normalize_before,
+                                  bucket_frames=bucket_frames or None)
+        elapsed = time.perf_counter() - start
+        if not is_wave:  # feature output; inputs at sr / hop frames a second
+            dur = len(c) * hop / sr
+            np.save(os.path.join(outdir, f"{utt_id}_gen.npy"),
+                    np.asarray(out, np.float32), allow_pickle=False)
+        elif do_wsola and use_ar:
+            # 50 %-overlap windows: each window's waveform and its input
+            signals, arts = out
+            for i, (signal, art) in enumerate(zip(signals, arts)):
+                write_wav(os.path.join(outdir, f"{utt_id}_{i}_gen.wav"),
+                          signal, sr)
+                np.save(os.path.join(outdir, f"{utt_id}_{i}.npy"), art)
+            dur = sum(len(signal) for signal in signals) / sr
+        else:
+            wav = np.asarray(out).reshape(-1)
             write_wav(os.path.join(outdir, f"{utt_id}_gen.wav"), wav, sr)
-            total_len += len(wav) / sr
-    logging.info(f"Finished generation of {len(items)} utterances; "
-                 f"throughput = {total_len / max(total_time, 1e-9):.1f}x "
-                 f"realtime (RTF {total_time / max(total_len, 1e-9):.6f}).")
+            dur = len(wav) / sr
+        total_rtf += elapsed / max(dur, 1e-9)
+        total_time += elapsed
+        total_len += dur
+    n = max(len(items), 1)
+    logging.info(f"Finished generation of {len(items)} utterances (avg time "
+                 f"{total_time / n:.3f} s, avg len {total_len / n:.3f} s).")
+    logging.info(f"Average RTF = {total_rtf / n:.6f}; throughput = "
+                 f"{total_len / max(total_time, 1e-9):.1f}x realtime.")
     return {"utterances": len(items), "seconds_audio": total_len,
-            "seconds_elapsed": total_time}
+            "seconds_elapsed": total_time, "rtf": total_rtf / n}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -104,9 +175,22 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--decode-batch-size", default=1, type=int,
                         help="batch N utterances through the AR loop "
                              "(1 = reference-exact sequential decode)")
-    for flag in _NOT_PORTED:
-        parser.add_argument("--" + flag.replace("_", "-"), default=False,
-                            action="store_true", help="not ported yet (raises)")
+    parser.add_argument("--int8-weights", default=False, action="store_true",
+                        help="store the weights as int8 (symmetric per "
+                             "output channel; folds weight norm first)")
+    parser.add_argument("--bf16-weights", default=False, action="store_true",
+                        help="store the weights as bfloat16 (folds weight "
+                             "norm first; compute dtypes unchanged); "
+                             "exclusive with int8 weights")
+    parser.add_argument("--ar-scan", default=False, action="store_true",
+                        help="run the chunked-AR decode through one captured "
+                             "chunk step (a CUDA graph on a card) replayed "
+                             "once a chunk; composes with "
+                             "--decode-batch-size (each lane group is one "
+                             "run). Ignored for wsola and non-AR decodes.")
+    parser.add_argument("--ar-scan-bucket", default=4, type=int,
+                        help="with --ar-scan, round each utterance's chunk "
+                             "count up to this multiple (0 = exact)")
     parser.add_argument("--sequence-parallel", default=0, type=int,
                         help="not ported yet (raises for N > 1)")
     parser.add_argument("--verbose", type=int, default=1)
@@ -115,22 +199,27 @@ def main(argv: list[str] | None = None) -> None:
         level=logging.DEBUG if args.verbose > 1 else
         logging.INFO if args.verbose > 0 else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s")
-    asked = [flag for flag in _NOT_PORTED if getattr(args, flag)]
     if args.sequence_parallel > 1:
-        asked.append("sequence_parallel")
-    if asked:
-        parser.error(", ".join("--" + f.replace("_", "-") for f in asked)
-                     + " is not yet ported to articulatory_tpu_torch")
+        parser.error("--sequence-parallel is not yet ported to "
+                     "articulatory_tpu_torch")
+    exclusive = ("--bf16-weights is exclusive with int8 weights (flag or "
+                 "config weight_quant: int8)")
+    if args.bf16_weights and args.int8_weights:
+        parser.error(exclusive)
 
     from articulatory_tpu_torch.config import load_config
 
     config = load_config(args.config or os.path.join(
         os.path.dirname(args.checkpoint), "config.yml"))
     config.update(vars(args))
+    if args.bf16_weights and config.get("weight_quant") == "int8":
+        parser.error(exclusive)
     decode(config, args.checkpoint, args.outdir, dumpdir=args.dumpdir,
            feats_scp=args.feats_scp, decode_batch_size=args.decode_batch_size,
            normalize_before=args.normalize_before,
-           bucket_frames=args.bucket_frames, device=args.device)
+           bucket_frames=args.bucket_frames, ar_scan=args.ar_scan,
+           ar_scan_bucket=args.ar_scan_bucket, int8_weights=args.int8_weights,
+           bf16_weights=args.bf16_weights, device=args.device)
 
 
 if __name__ == "__main__":

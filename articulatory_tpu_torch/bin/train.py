@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Train a GAN vocoder on the GPU (port of ``articulatory_tpu/bin/train.py``
-for the a2w path: ``SpeechDataset`` + ``SpeechCollater`` random windows, the
-HiFi-GAN generator and discriminators, ``train/gan.py``'s step).
+for the a2w path, which the generic x2y modes such as the MRI recipe's
+resolve to: ``SpeechDataset`` + ``SpeechCollater`` random windows, the
+named input/output transforms, the HiFi-GAN generator and discriminators,
+``train/gan.py``'s step). The top-level ``time_packing`` key, a TPU layout
+option, is accepted and ignored.
 
     python -m articulatory_tpu_torch.bin.train --device cuda \\
         --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
@@ -25,6 +28,10 @@ import numpy as np
 from articulatory_tpu_torch.data.collate import SpeechCollater
 from articulatory_tpu_torch.data.datasets import SpeechDataset
 from articulatory_tpu_torch.data.loader import DataLoader
+from articulatory_tpu_torch.data.transforms import (
+    ART_ONLY_TRANSFORMS,
+    get_transform,
+)
 from articulatory_tpu_torch.models import build_model
 from articulatory_tpu_torch.train.gan import (
     GANCriterion,
@@ -39,8 +46,7 @@ from articulatory_tpu_torch.utils.checkpoint import load_checkpoint, restore_sta
 from articulatory_tpu_torch.utils.device import resolve_device
 from articulatory_tpu_torch.utils.io import read_hdf5
 
-_NOT_PORTED_CONFIG = ("use_device_cache", "use_native_loader", "transform",
-                      "input_transform", "output_transform")
+_NOT_PORTED_CONFIG = ("use_device_cache", "use_native_loader")
 
 
 def _check_config(config: dict) -> None:
@@ -55,9 +61,31 @@ def _check_config(config: dict) -> None:
         raise NotImplementedError(f"config keys not ported yet: {asked}")
 
 
+def _transforms(config: dict) -> dict:
+    """``transform``, ``input_transform`` (default ``transform``) and
+    ``output_transform`` (default ``transform`` unless that is art-only),
+    resolved by name as in the JAX package's ``bin/train.py``."""
+    spec = config.get("transform")
+    transform = get_transform(spec)
+    given = config.get("input_transform")
+    output = config.get("output_transform")
+    if output is not None:
+        output = get_transform(output)
+    elif spec not in ART_ONLY_TRANSFORMS:
+        output = transform
+    return {"transform": transform,
+            "input_transform": (get_transform(given) if given is not None
+                                else transform),
+            "output_transform": output}
+
+
 def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
                    data_root: str):
     """Train/dev ``SpeechDataset``s and their collaters."""
+    mode = config.get("dataset_mode", "default")
+    if mode in ("art", "a2m", "m2a"):
+        raise NotImplementedError(f"training dataset_mode {mode!r} (the "
+                                  "mel/art collater) is not ported yet")
     if config["format"] == "hdf5":
         kwargs = dict(audio_query="*.h5", mel_query="*.h5",
                       audio_load_fn=lambda p: read_hdf5(p, "wave"))
@@ -68,7 +96,7 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
         raise ValueError("support only hdf5 or npy format.")
     datasets = [SpeechDataset(root_dir=d, data_root=data_root,
                               allow_cache=config.get("allow_cache", False),
-                              **kwargs)
+                              **_transforms(config), **kwargs)
                 for d in (train_dumpdir, dev_dumpdir)]
     rng = np.random.default_rng(config.get("seed", 0))
     gp = config["generator_params"]
@@ -78,8 +106,7 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
             batch_max_steps=config["batch_max_steps"],
             hop_size=config["hop_size"],
             aux_context_window=gp.get("aux_context_window", 0),
-            dataset_mode=config.get("dataset_mode", "default"),
-            config=config, rng=rng)
+            dataset_mode=mode, config=config, rng=rng)
 
     return datasets[0], datasets[1], collater(), collater()
 

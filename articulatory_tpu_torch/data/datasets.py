@@ -43,12 +43,16 @@ class SpeechDataset:
     """Training pairs ``{"art", "audio"}``: audio from the dump directory
     (``audio_query`` files through ``audio_load_fn``; the ``mel_query``
     files must pair with them one to one), articulatory features (.npy)
-    through ``<data_root>/<stage>/feats.scp``. The a2w path only: speaker
-    ids, phonemes, mel streams and transforms are not ported."""
+    through ``<data_root>/<stage>/feats.scp``. ``input_transform`` (default
+    ``transform``) maps the features, ``output_transform`` the audio (no
+    default: ``bin/train.py`` decides it, as in the JAX package). The a2w
+    path only: speaker ids, phonemes and mel streams are not ported."""
 
     def __init__(self, root_dir: str, audio_query: str = "*.h5",
                  mel_query: str = "*.h5", audio_load_fn=_read_wave,
-                 allow_cache: bool = False, data_root: str = "data"):
+                 allow_cache: bool = False, transform=None,
+                 input_transform=None, output_transform=None,
+                 data_root: str = "data"):
         audio_files = sorted(find_files(root_dir, audio_query))
         mel_files = sorted(find_files(root_dir, mel_query))
         if not audio_files:
@@ -70,14 +74,22 @@ class SpeechDataset:
             raise FileNotFoundError(f"missing {feats_path}")
         fid_to_artp = load_scp(feats_path)
         self.art_files = [fid_to_artp[fid] for fid in self.utt_ids]
+        self.input_transform = (input_transform if input_transform is not None
+                                else transform)
+        self.output_transform = output_transform
         self.allow_cache = allow_cache
         self.caches: dict[int, dict] = {}
 
     def __getitem__(self, idx: int) -> dict:
         if self.allow_cache and idx in self.caches:
             return self.caches[idx]
-        items = {"art": np.load(self.art_files[idx]),  # (T', C)
-                 "audio": self.audio_load_fn(self.audio_files[idx])}
+        art = np.load(self.art_files[idx])  # (T', C)
+        if self.input_transform is not None:
+            art = self.input_transform(art)
+        audio = self.audio_load_fn(self.audio_files[idx])
+        if self.output_transform is not None:
+            audio = self.output_transform(audio)
+        items = {"art": art, "audio": audio}
         if self.allow_cache:
             self.caches[idx] = items
         return items

@@ -17,6 +17,12 @@ pickles load straight in:
 Weight norm is ``w = g * v / ||v||`` over every axis but 0. The forward
 derives the effective kernel in the ops layout (``ops/conv.py``) from (g, v);
 after ``remove_weight_norm()`` it is computed once per dtype and cached.
+A weight may be stored as int8 (``store_int8``: buffers ``<name>_int8`` and
+``<name>_scale``, the parameter removed; ``utils/quantize.py``), read back
+as ``q.float() * s``, or in bfloat16: the effective weight is then derived
+in bfloat16, as the JAX package's layers define it, and cast to the compute
+dtype (its jitted forward lets XLA skip some of those bf16 roundings, so
+the two differ at bf16 rounding).
 Inits follow torch's defaults (U(+-1/sqrt(fan_in)) for kernel and bias), or
 N(0, std) for ``kernel_init="normal:<std>"``; random numbers come from the
 ``generator`` passed in.
@@ -59,7 +65,26 @@ def weight_norm_weight(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return g * v / norm
 
 
-class _Conv(nn.Module):
+class _Stored(nn.Module):
+    """Weights that may be stored as int8 (per-channel scale)."""
+
+    def stored(self, name: str) -> torch.Tensor:
+        """Parameter ``name``, dequantized (``q.float() * s``) if it is
+        stored as int8."""
+        q = self._buffers.get(f"{name}_int8")
+        if q is None:
+            return getattr(self, name)
+        return q.float() * self._buffers[f"{name}_scale"]
+
+    def store_int8(self, name: str, q: torch.Tensor, s: torch.Tensor) -> None:
+        """Replace parameter ``name`` by int8 values ``q`` and float32
+        scales ``s`` (broadcast against q)."""
+        delattr(self, name)
+        self.register_buffer(f"{name}_int8", q)
+        self.register_buffer(f"{name}_scale", s)
+
+
+class _Conv(_Stored):
     """Parameters and kernel cache shared by Conv1d and ConvTranspose1d."""
 
     def _make_params(self, shape, fan_in: int, out_channels: int, bias: bool,
@@ -81,8 +106,9 @@ class _Conv(nn.Module):
     def torch_weight(self) -> torch.Tensor:
         """The effective weight in torch's layout."""
         if self.use_weight_norm:
-            return weight_norm_weight(self.weight_g, self.weight_v)
-        return self.weight
+            return weight_norm_weight(self.stored("weight_g"),
+                                      self.stored("weight_v"))
+        return self.stored("weight")
 
     def _ops_kernel(self, w: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -211,8 +237,10 @@ class Conv2d(_Conv):
                                groups=self.groups)
 
 
-class Dense(nn.Module):
-    """torch.nn.Linear with torch's default init from an explicit generator."""
+class Dense(_Stored):
+    """torch.nn.Linear with torch's default init from an explicit generator.
+    Weights stored in another dtype than the input's (bf16, int8) are cast
+    to it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  generator: torch.Generator | None = None):
@@ -223,4 +251,6 @@ class Dense(nn.Module):
         self.bias = _uniform((out_features,), bound, generator) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.linear(x, self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return torch.nn.functional.linear(x, self.stored("weight").to(x.dtype),
+                                          b)

@@ -27,7 +27,9 @@ import torch
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.tensor(np.ascontiguousarray(a))
+    # a copy with canonical strides: ascontiguousarray keeps a negative
+    # stride on an axis of size 1 (a flipped kernel of one tap)
+    return torch.tensor(np.asarray(a).copy())
 
 
 def _conv1d(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:

@@ -4,12 +4,14 @@
 Drives the port's two paths at the full width of
 ``egs/ema/voc1/conf/e2w_hifigan_car.yaml`` (141 input channels incl. 128 AR
 features, channels 512, upsample (5, 4, 2, 2), MRF kernels (3, 7, 11) x
-dilations (1, 3, 5), AR 512) through their entry points:
+dilations (1, 3, 5), AR 512), and in phase 7 of
+``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
-  (``load_model`` -> ``ar_loop_batched``, and the ``bin/decode.py`` loop),
-  weights random from ``--seed`` in the JAX package's layout, carried
-  across by ``jax_params_to_state_dict``;
+  (``load_model`` -> ``ar_loop_batched``, eager and through the captured
+  chunk loop, ``ar_loop_scan``, and the ``bin/decode.py`` loop), weights
+  random from ``--seed`` in the JAX package's layout, carried across by
+  ``jax_params_to_state_dict``;
 - the GAN training step (``bin/train.py::train``) with the config's MSMPD
   discriminator (3 scales, downsample (4, 4, 4, 4, 1); periods 2-11),
   losses, Adam optimisers and batch (64 x 2000 samples), on a synthetic npy
@@ -41,7 +43,18 @@ Phases, each raising on failure:
    timed with the kernel, with plain pairs and with no pairs in turns
    (median and range of ROUNDS), one ``torch.profiler`` window over
    PROFILE_CHUNKS hybrid chunk forwards (the device's busy share and its
-   top ops by time), and the decode loop run on a 2-utterance .npy dump;
+   top ops by time); then [graph] the captured chunk loop
+   (``ar_loop_batched(scan=True)``, a CUDA graph) beside the eager loop in
+   f32 and hybrid: capture launches, samples/s of both in turns, chunks
+   0, 1 and the last against the eager forward under the graph run's carry
+   (CHUNK_TOL), a profiler window over PROFILE_CHUNKS replays counting 36
+   ``resblock_pair_wgmma`` kernels a replay and no weight split, and the
+   single-stream RTF of ``ar_loop_scan`` against ``ar_loop`` on one
+   utterance; [weights] int8 and bf16 weight storage through the graph
+   loop (36 weight splits in its warm-up, none after; chunks against plain
+   pairs on the same stored weights; samples/s); and ``bin/decode.py`` on
+   a 2-utterance .npy dump: eager, ``--ar-scan`` with batch 1 and 4, and
+   ``--int8-weights``;
 5. head kernel: ``scale_disc_head`` against ``scale_disc_head_plain`` at
    the training path's three scales (B 64, T 2512/1257/629, stride 4) and
    the Pallas kernel's shape (B 32, T 8512, stride 2), each also at T + 3,
@@ -62,7 +75,17 @@ Phases, each raising on failure:
    <= GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
    through ``inference.load_model``; then times full steps (median of
    STEP_ROUNDS) and the generator fwd+bwd, regeneration and discriminator
-   fwd+bwd apart.
+   fwd+bwd apart;
+7. mri: the repo's second recipe, ``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``
+   (format npy), at full width (230 features + 128 AR, channels 512,
+   upsample (8, 5, 3, 2), 125-frame chunks, AR 512): ``resblock_pair`` at
+   its 36 shapes (B 16, T 1000-30000) and ``scale_disc_head`` at its
+   training scales (B 16, T 30512/15257/7629, stride 4), both as in phases
+   3 and 5; its decode of MRI_UTTS x MRI_SECONDS s in f32 and hybrid, eager
+   (launch counts, chunks against plain pairs) and captured (as [graph]);
+   ``bin/decode.py --ar-scan`` on a dump in its dataset mode; and
+   ``train(config)`` for MRI_TRAIN_STEPS steps at its B 16 x 30,000 on a
+   synthetic corpus, checks (a)-(c) and (e) of phase 6 and the step time.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -111,6 +134,8 @@ CHUNK_FRAMES = 100
 UTTS, SECONDS = 16, 10  # the decode's batch, and each utterance's length
 ROUNDS = 5  # chunk-forward timings taken in turns, for median and range
 PROFILE_CHUNKS = 5  # hybrid chunk forwards in the profiler window
+# eager and graph decodes timed in turns (after one untimed call of each)
+TURNS = ("eager", "graph", "graph", "eager") * 2
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
 # tensor cores, bf16 tensor cores, HBM3 bandwidth; and TF32 tensor cores,
 # which the f32 pair runs at three products a multiply-add (3xTF32)
@@ -186,6 +211,16 @@ GRAD_TOL = (1e-3, 5e-2)
 # (B, T, stride): the training path's three MSD scales, and the Pallas
 # kernel's own shape
 HEAD_SHAPES = [(64, 2512, 4), (64, 1257, 4), (64, 629, 4), (32, 8512, 2)]
+
+# egs/mri/voc1/conf/mri2w_hifigan_car.yaml: 230 features (+128 AR) at
+# 20 kHz / hop 240, channels 512, upsample (8, 5, 3, 2); 125-frame chunks
+MRI_RECIPE = os.path.join(ROOT, "egs", "mri", "voc1", "conf",
+                          "mri2w_hifigan_car.yaml")
+MRI_UTTS, MRI_SECONDS = 16, 10
+# its training run: the recipe's B 16 x 30,000 samples on 16 utterances of
+# 3 s, MRI_TRAIN_STEPS steps; the head's three scales there (B, T, stride)
+MRI_TRAIN_UTTS, MRI_TRAIN_SECONDS, MRI_TRAIN_STEPS = 16, 3, 3
+MRI_HEAD_SHAPES = [(16, 30512, 4), (16, 15257, 4), (16, 7629, 4)]
 
 
 def log(msg: str) -> None:
@@ -331,15 +366,16 @@ def host_us_per_launch(kernel, requires_grad: bool, n: int = 2000) -> float:
 
 
 def phase_kernel(resblock_pair, resblock_pair_plain, splits, seed: int,
-                 batch: int, frames: int) -> list[dict]:
+                 batch: int, frames: int, gp: dict = GENERATOR_PARAMS
+                 ) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    scales = GENERATOR_PARAMS["upsample_scales"]
+    scales = gp["upsample_scales"]
     rows = []
     for stage in range(len(scales)):
-        c = GENERATOR_PARAMS["channels"] // 2 ** (stage + 1)
+        c = gp["channels"] // 2 ** (stage + 1)
         t = frames * int(np.prod(scales[: stage + 1]))
-        for k in GENERATOR_PARAMS["resblock_kernel_sizes"]:
-            for d in GENERATOR_PARAMS["resblock_dilations"][0]:
+        for k in gp["resblock_kernel_sizes"]:
+            for d in gp["resblock_dilations"][0]:
                 for dtype in (torch.float32, torch.bfloat16):
                     rows.append(_kernel_case(resblock_pair, resblock_pair_plain,
                                              splits, gen, batch, stage, t, c,
@@ -499,10 +535,11 @@ def head_times_ms(b, t, stride, dtype) -> tuple[float, float, float]:
     return ops_ms, nbytes / PEAK_BYTES * 1e3, fma_ms
 
 
-def phase_head_kernel(head, head_plain, splits, seed: int) -> list[dict]:
+def phase_head_kernel(head, head_plain, splits, seed: int,
+                      shapes=HEAD_SHAPES) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [_head_case(head, head_plain, splits, gen, b, t, stride, dtype)
-            for b, t, stride in HEAD_SHAPES
+            for b, t, stride in shapes
             for dtype in (torch.float32, torch.bfloat16)]
 
 
@@ -605,7 +642,9 @@ def swapped(module, name: str, fn):
 
 
 def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
-    inference, residual, resblock_pair, plain, split, weights, decode = port
+    inference, residual, resblock_pair, plain, split, weights, decode = (
+        port[k] for k in ("inference", "residual", "resblock_pair", "plain",
+                          "split", "weights", "decode"))
     gp = GENERATOR_PARAMS
     ckpt = os.path.join(tmp, "generator.pth")
     torch.save({"model": {"generator": weights.jax_params_to_state_dict(
@@ -690,44 +729,337 @@ def phase_slice(port, seed: int, device_name: str, tmp: str) -> dict:
             + "; ".join(f"{o['name'][:60]} x{o['calls']} {o['ms']:.3f} ms"
                         for o in prof["top_ops"]))
 
-    dump, outdir = os.path.join(tmp, "dump"), os.path.join(tmp, "out")
+    results["graph"] = phase_graph(port, models, modes, xs, "graph",
+                                   CHUNK_FRAMES, gp["ar_input"], device_name)
+    results["weights"] = phase_weights(port, ckpt, xs, device_name)
+
+    dump = os.path.join(tmp, "dump")
     os.makedirs(dump)
     for n in range(2):
         np.save(os.path.join(dump, f"utt{n}-feats.npy"), xs[n][:300])
-    decode.decode(CONFIG, ckpt, outdir, dumpdir=dump, device="cuda")
-    for n in range(2):
-        if not os.path.exists(os.path.join(outdir, f"utt{n}_gen.wav")):
-            raise AssertionError(f"decode wrote no utt{n}_gen.wav")
-    log("[slice] decode: wrote utt0_gen.wav, utt1_gen.wav")
+    runs = {"out": {}, "out_scan_b1": {"ar_scan": True},
+            "out_scan_b4": {"ar_scan": True, "decode_batch_size": 4},
+            "out_int8": {"int8_weights": True}}
+    for name, kwargs in runs.items():
+        outdir = os.path.join(tmp, name)
+        decode.decode(CONFIG, ckpt, outdir, dumpdir=dump, device="cuda",
+                      **kwargs)
+        for n in range(2):
+            if not os.path.exists(os.path.join(outdir, f"utt{n}_gen.wav")):
+                raise AssertionError(f"decode {kwargs} wrote no "
+                                     f"utt{n}_gen.wav")
+        log(f"[slice] decode {kwargs or 'eager'}: wrote utt0_gen.wav, "
+            f"utt1_gen.wav")
     results["launches_total"] = launches_total
     results["split_launches"] = split_launches
     results["split_launches_warmup"] = warmup_splits
     return results
 
 
+def run_turns(fns: dict, order) -> dict:
+    """Wall time of each ``fns[key]()`` (ending in a host sync) taken in
+    the given order of keys, after one untimed call of each: key -> list of
+    seconds, and the last result."""
+    for fn in fns.values():
+        fn()
+    times, results = {key: [] for key in fns}, {}
+    for key in order:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        results[key] = fns[key]()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - start)
+    return times, results
+
+
+def phase_graph(port, models, modes, xs, tag, chunk_frames, ar_input,
+                device_name) -> dict:
+    """The captured chunk loop (``ar_loop_batched(scan=True)``) beside the
+    eager loop on the same frozen models: capture counts (the warm-up steps
+    and the capture launch every pair; no weight split: the models' eager
+    warm-up cached them), both timed in turns (eager, graph, graph, eager),
+    outputs of the right length and finite, chunks 0, 1 and the last of the
+    graph run against the eager forward from the graph run's own carry
+    (within CHUNK_TOL; the whole outputs' max difference printed), one
+    ``torch.profiler`` window over PROFILE_CHUNKS replays (pair kernels
+    counted: 36 a replay; weight splits: 0; the device's busy share), and
+    the single-stream real-time factor of ``ar_loop_scan`` against eager
+    ``ar_loop`` on one utterance."""
+    inference, residual, resblock_pair, split = (
+        port["inference"], port["residual"], port["resblock_pair"],
+        port["split"])
+    results = {}
+    for mode, config in modes.items():
+        model = models[mode]
+        hop, chunk_len = config["hop_size"], config["batch_max_steps"]
+        n_frames = len(xs[0])
+        n_chunks = -(-n_frames // chunk_frames)
+        resblock_pair.launches = split.launches = 0
+        inference.ar_loop_batched(model, xs, config, scan=True)  # capture
+        capture = {"resblock_pair": resblock_pair.launches,
+                   "split_tf32": split.launches}
+        steps = port["warmup_steps"] + 1
+        if capture != {"resblock_pair": 36 * steps, "split_tf32": 0}:
+            raise AssertionError(f"[{tag}] {mode}: capture launched "
+                                 f"{capture}, expected 36 x {steps} pairs "
+                                 f"and no split")
+        # run_turns calls each once untimed first: the capture emptied the
+        # allocator's cache, which the eager loop refills
+        times, outs = run_turns({
+            "eager": lambda: inference.ar_loop_batched(model, xs, config),
+            "graph": lambda: inference.ar_loop_batched(model, xs, config,
+                                                       scan=True)},
+            TURNS)
+        if resblock_pair.launches != (capture["resblock_pair"]
+                                      + (TURNS.count("eager") + 1) * 36
+                                      * n_chunks):
+            raise AssertionError(f"[{tag}] {mode}: the graph runs launched "
+                                 f"pairs from Python")
+        for out in outs["graph"]:
+            if out.shape != (n_frames * hop,) or not np.isfinite(out).all():
+                raise AssertionError(f"[{tag}] {mode}: graph output "
+                                     f"{out.shape} not finite or not "
+                                     f"({n_frames * hop},)")
+        whole = max(float(np.abs(g - e).max())
+                    for g, e in zip(outs["graph"], outs["eager"]))
+        checks = _chunk_checks(model, xs, outs["graph"], residual, None, mode,
+                               n_chunks, chunk_len, chunk_frames, ar_input,
+                               pair=residual.resblock_pair, timings=False)
+        graph = model.chunk_graph(len(xs), chunk_frames, xs[0].shape[1],
+                                  ar_input, 1, ar_input <= chunk_len)
+        feats = np.zeros((PROFILE_CHUNKS, len(xs), chunk_frames,
+                          xs[0].shape[1]), np.float32)
+        for i, x in enumerate(xs):
+            lane = np.zeros((PROFILE_CHUNKS * chunk_frames, x.shape[1]),
+                            np.float32)
+            part = x[:len(lane)]
+            lane[:len(part)] = part
+            feats[:, i] = lane.reshape(PROFILE_CHUNKS, chunk_frames, -1)
+        chunks = torch.from_numpy(feats).cuda()
+        graph.run(chunks)
+        prof = profile_device(lambda: graph.run(chunks))
+        counts = prof["kernel_counts"]
+        if counts != {"resblock_pair_wgmma": 36 * PROFILE_CHUNKS,
+                      "split_tf32_kernel": 0}:
+            raise AssertionError(f"[{tag}] {mode}: the profiler counted "
+                                 f"{counts} over {PROFILE_CHUNKS} replays, "
+                                 f"expected {36 * PROFILE_CHUNKS} pairs and "
+                                 f"no split")
+        samples = len(xs) * n_frames * hop
+        rate = {k: samples / float(np.median(v)) for k, v in times.items()}
+        # the single stream: one utterance, graph (B 1) against eager
+        one = xs[0]
+        inference.ar_loop_scan(model, one, config)  # capture at B 1
+        one_times, one_outs = run_turns({
+            "eager": lambda: inference.ar_loop(model, one, config),
+            "graph": lambda: inference.ar_loop_scan(model, one, config)},
+            TURNS)
+        audio_s = n_frames * hop / config["sampling_rate"]
+        rtf = {k: float(np.median(v)) / audio_s for k, v in one_times.items()}
+        # over whole chunks: a ragged last chunk is zero-padded in the graph
+        # (the tiled AR features see the pad), short in ar_loop
+        whole_len = n_frames // chunk_frames * chunk_len
+        one_diff = float(np.abs(one_outs["graph"][:whole_len]
+                                - one_outs["eager"][:whole_len]).max())
+        if (one_outs["graph"].shape != (n_frames * hop,)
+                or not np.isfinite(one_outs["graph"]).all()
+                or one_diff > CHUNK_TOL[mode]):
+            raise AssertionError(f"[{tag}] {mode}: ar_loop_scan gave "
+                                 f"{one_outs['graph'].shape}, not finite or "
+                                 f"{one_diff:.3e} from ar_loop > "
+                                 f"{CHUNK_TOL[mode]}")
+        results[mode] = {
+            "capture_launches": capture, "seconds": times,
+            "samples_per_s": rate, "whole_max_abs_diff": whole,
+            "graph_vs_eager_chunk_max_abs_err": checks["chunk_max_abs_err"],
+            "profile": prof, "single_stream_rtf": rtf,
+            "single_stream_seconds": one_times,
+            "single_stream_max_abs_diff": one_diff}
+        busy = ("not measured" if prof["busy_share"] is None else
+                f"{100 * prof['busy_share']:.1f} %")
+        log(f"[{tag}] {mode}: {len(xs)} utts x {n_frames} frames, "
+            f"{n_chunks} chunks: eager {rate['eager']:.1f}, graph "
+            f"{rate['graph']:.1f} samples/s (medians of {len(TURNS) // 2}, in "
+            f"turns) on "
+            f"{device_name}; graph vs eager: chunk max abs err "
+            f"{checks['chunk_max_abs_err']:.3e} (tol {CHUNK_TOL[mode]}), "
+            f"whole output {whole:.3e}; profiler over {PROFILE_CHUNKS} "
+            f"replays: {counts}, device busy {busy}; single stream "
+            f"({audio_s:.1f} s): RTF eager {rtf['eager']:.6f}, graph "
+            f"{rtf['graph']:.6f}, max abs diff over whole chunks "
+            f"{one_diff:.3e}")
+    return results
+
+
+def phase_weights(port, ckpt, xs, device_name) -> dict:
+    """int8 and bf16 weight storage (``quantize_int8``, ``to_bf16_weights``)
+    through the captured chunk loop at full width, f32: the f32 pairs' weight
+    splits made once each in the graph's warm-up (36) and never after,
+    outputs of the right length and finite, chunks 0, 1 and the last against
+    plain pairs on the same stored weights under the run's carry, and the
+    throughput."""
+    inference, residual, plain, split = (port["inference"], port["residual"],
+                                         port["plain"], port["split"])
+    hop, chunk_len = CONFIG["hop_size"], CONFIG["batch_max_steps"]
+    n_frames = len(xs[0])
+    n_chunks = -(-n_frames // CHUNK_FRAMES)
+    results = {}
+    for kind, store in (("int8", "quantize_int8"), ("bf16", "to_bf16_weights")):
+        model = inference.load_model(ckpt, CONFIG, device="cuda")
+        model.remove_weight_norm()
+        getattr(model, store)()
+        split.launches = 0
+        inference.ar_loop_batched(model, xs, CONFIG, scan=True)  # capture
+        warmup_splits = split.launches
+        split.launches = 0
+        times, outs = run_turns({"graph": lambda: inference.ar_loop_batched(
+            model, xs, CONFIG, scan=True)}, ("graph", "graph"))
+        if (warmup_splits, split.launches) != (36, 0):
+            raise AssertionError(f"[weights] {kind}: weight splits "
+                                 f"{warmup_splits} in the warm-up and "
+                                 f"{split.launches} after, expected 36 and 0")
+        for out in outs["graph"]:
+            if out.shape != (n_frames * hop,) or not np.isfinite(out).all():
+                raise AssertionError(f"[weights] {kind}: output {out.shape} "
+                                     f"not finite or not ({n_frames * hop},)")
+        checks = _chunk_checks(model, xs, outs["graph"], residual, plain,
+                               "f32", n_chunks, chunk_len, timings=False)
+        rate = len(xs) * n_frames * hop / float(np.median(times["graph"]))
+        results[kind] = {"samples_per_s": rate, "seconds": times["graph"],
+                         "split_launches_warmup": warmup_splits,
+                         "split_launches": split.launches, **checks}
+        log(f"[weights] {kind} weights, f32, graph loop: {len(xs)} utts x "
+            f"{n_frames} frames at {rate:.1f} samples/s on {device_name}; "
+            f"weight splits {warmup_splits} in the warm-up, "
+            f"{split.launches} after; chunk max abs err vs plain pairs "
+            f"{checks['chunk_max_abs_err']:.3e} (tol {CHUNK_TOL['f32']})")
+    return results
+
+
+def mri_config() -> dict:
+    """``egs/mri/voc1/conf/mri2w_hifigan_car.yaml`` as it stands, but
+    ``format: npy`` (the card's machine has no h5py)."""
+    import yaml
+    with open(MRI_RECIPE) as f:
+        return dict(yaml.safe_load(f), format="npy")
+
+
+def phase_mri(port, seed: int, device_name: str, tmp: str) -> dict:
+    """The MRI recipe's decode at full width: MRI_UTTS x MRI_SECONDS s in f32
+    and hybrid bf16, eager (launch counts, chunks against plain pairs,
+    chunk forward timings) and through the captured loop (``phase_graph``),
+    then a ``bin/decode.py --ar-scan`` decode of a 2-utterance dump in the
+    recipe's dataset mode."""
+    inference, residual, resblock_pair, plain, split, weights, decode = (
+        port[k] for k in ("inference", "residual", "resblock_pair", "plain",
+                          "split", "weights", "decode"))
+    config = mri_config()
+    gp = config["generator_params"]
+    hop, chunk_len = config["hop_size"], config["batch_max_steps"]
+    chunk_frames = chunk_len // hop
+    n_feats = gp["in_channels"] - gp["ar_output"]
+    ckpt = os.path.join(tmp, "mri_generator.pth")
+    torch.save({"model": {"generator": weights.jax_params_to_state_dict(
+        numpy_generator_params(gp, seed), gp)}}, ckpt)
+    n_frames = int(MRI_SECONDS * config["sampling_rate"] / hop)
+    n_chunks = -(-n_frames // chunk_frames)
+    rng = np.random.default_rng(seed + 1)
+    xs = [rng.standard_normal((n_frames, n_feats)).astype(np.float32)
+          for _ in range(MRI_UTTS)]
+    modes = {"f32": config, "hybrid_bf16": dict(config, generator_params=dict(
+        gp, compute_dtype="bfloat16", hybrid_precision=True))}
+    models = {}
+    split.launches = 0
+    for mode, cfg in modes.items():
+        models[mode] = inference.load_model(ckpt, cfg, device="cuda")
+        models[mode].remove_weight_norm()
+        inference.ar_loop_batched(models[mode], [x[:chunk_frames] for x in xs],
+                                  cfg)  # warm-up: the weight splits
+    if split.launches != 36 + 9:
+        raise AssertionError(f"[mri] warm-up: the f32 weight split ran "
+                             f"{split.launches} times, expected {36 + 9}")
+    results = {"chunks": n_chunks, "frames": n_frames, "launches_total": 0,
+               "split_launches": 0}
+    for mode, cfg in modes.items():
+        resblock_pair.launches = split.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs = inference.ar_loop_batched(models[mode], xs, cfg)
+        seconds = time.perf_counter() - start
+        results["launches_total"] += resblock_pair.launches
+        results["split_launches"] += split.launches
+        if (resblock_pair.launches, split.launches) != (36 * n_chunks, 0):
+            raise AssertionError(f"[mri] {mode}: resblock_pair launched "
+                                 f"{resblock_pair.launches} times, expected "
+                                 f"{36 * n_chunks}; the weight split "
+                                 f"{split.launches}, expected 0 (cached)")
+        for out in outs:
+            if out.shape != (n_frames * hop,) or not np.isfinite(out).all():
+                raise AssertionError(f"[mri] {mode}: output {out.shape} not "
+                                     f"finite or not ({n_frames * hop},)")
+        r = {"seconds": seconds, "launches": 36 * n_chunks,
+             "samples_per_s": MRI_UTTS * n_frames * hop / seconds,
+             **_chunk_checks(models[mode], xs, outs, residual, plain, mode,
+                             n_chunks, chunk_len, chunk_frames,
+                             gp["ar_input"])}
+        results[mode] = r
+        log(f"[mri] {mode}: {MRI_UTTS} utts x {MRI_SECONDS} s ({n_frames} "
+            f"frames of {n_feats}), {n_chunks} chunks of {chunk_frames} in "
+            f"{seconds:.3f} s = {r['samples_per_s']:.1f} samples/s on "
+            f"{device_name}; resblock_pair launches {r['launches']}; chunk "
+            f"max abs err vs plain {r['chunk_max_abs_err']:.3e} (tol "
+            f"{CHUNK_TOL[mode]}); chunk forward median: kernel "
+            f"{r['chunk_ms']:.3f} ms, plain pairs {r['chunk_plain_ms']:.3f}, "
+            f"no pairs {r['chunk_without_pairs_ms']:.3f}")
+    results["graph"] = phase_graph(port, models, modes, xs, "mri-graph",
+                                   chunk_frames, gp["ar_input"], device_name)
+    dump, outdir = os.path.join(tmp, "mri_dump"), os.path.join(tmp, "mri_out")
+    os.makedirs(dump)
+    for n in range(2):
+        np.save(os.path.join(dump, f"mri{n}-feats.npy"), xs[n][:300])
+    decode.decode(config, ckpt, outdir, dumpdir=dump, ar_scan=True,
+                  device="cuda")
+    for n in range(2):
+        if not os.path.exists(os.path.join(outdir, f"mri{n}_gen.wav")):
+            raise AssertionError(f"[mri] decode wrote no mri{n}_gen.wav")
+    log(f"[mri] decode --ar-scan in dataset_mode {config['dataset_mode']}: "
+        f"wrote mri0_gen.wav, mri1_gen.wav")
+    return results
+
+
 def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
-                  chunk_len) -> dict:
+                  chunk_len, chunk_frames=CHUNK_FRAMES,
+                  ar_input=GENERATOR_PARAMS["ar_input"], pair=None,
+                  timings=True) -> dict:
     """Chunks 0, 1 and the last of the batched run, each against a forward
-    with the plain pair from the run's own carry; and one chunk forward's
-    time with the kernel, with plain pairs and with every pair an identity
-    (the time of the rest), taken in turns ROUNDS times: median and range."""
-    ar_input = GENERATOR_PARAMS["ar_input"]
-    feats = torch.from_numpy(np.stack(xs)).cuda()
+    with the plain pair (or ``pair``) from the run's own carry; and with
+    ``timings`` one chunk forward's time with the kernel, with plain pairs
+    and with every pair an identity (the time of the rest), taken in turns
+    ROUNDS times: median and range. A ragged last chunk is zero-padded, as
+    the batched run computed it."""
+    feats = np.stack(xs)
+    feats = torch.from_numpy(np.pad(feats, ((0, 0), (
+        0, n_chunks * chunk_frames - feats.shape[1]), (0, 0)))).cuda()
     wav = torch.from_numpy(np.stack(outs))[:, :, None].cuda()
     worst = 0.0
     for ci in sorted({0, 1, n_chunks - 1}):
-        cin = feats[:, ci * CHUNK_FRAMES:(ci + 1) * CHUNK_FRAMES]
+        cin = feats[:, ci * chunk_frames:(ci + 1) * chunk_frames]
         prev = (torch.zeros(len(xs), ar_input, 1, device="cuda") if ci == 0
                 else wav[:, ci * chunk_len - ar_input: ci * chunk_len])
-        with swapped(residual, "resblock_pair", plain):
+        with swapped(residual, "resblock_pair", pair or plain):
             ref = model(cin, ar=prev)
         got = wav[:, ci * chunk_len:(ci + 1) * chunk_len]
-        err = (got - ref).abs().max().item()
+        err = (got - ref[:, :got.shape[1]]).abs().max().item()
         if not torch.isfinite(ref).all() or err > CHUNK_TOL[mode]:
             raise AssertionError(f"{mode} chunk {ci}: max abs error {err:.3e} "
-                                 f"against the plain pair > {CHUNK_TOL[mode]}")
+                                 f"against the {'kernel' if pair else 'plain'}"
+                                 f" pair > {CHUNK_TOL[mode]}")
         worst = max(worst, err)
-    cin, prev = feats[:, :CHUNK_FRAMES], wav[:, chunk_len - ar_input:chunk_len]
+    out = {"chunk_max_abs_err": worst}
+    if not timings:
+        return out
+    cin = feats[:, :chunk_frames]
+    prev = wav[:, chunk_len - ar_input:chunk_len]
     pairs = {"chunk_ms": residual.resblock_pair, "chunk_plain_ms": plain,
              "chunk_without_pairs_ms": lambda x, *args, **kwargs: x}
     times = {key: [] for key in pairs}
@@ -735,7 +1067,6 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
         for key, pair_fn in pairs.items():
             with swapped(residual, "resblock_pair", pair_fn):
                 times[key].append(time_ms(lambda: model(cin, ar=prev), 5))
-    out = {"chunk_max_abs_err": worst}
     for key, values in times.items():
         out[key] = float(np.median(values))
         out[key + "_range"] = [min(values), max(values)]
@@ -743,22 +1074,34 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
 
 
 def profile_window(model, cin, prev) -> dict:
-    """One ``torch.profiler`` window over PROFILE_CHUNKS chunk forwards: the
-    device's busy share (the union of its activity intervals over the span
-    from the first start to the last end) and its top ops by self device
-    time. None where the profiler saw no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    """One ``torch.profiler`` window over PROFILE_CHUNKS chunk forwards (see
+    ``profile_device``)."""
     model(cin, ar=prev)
     torch.cuda.synchronize()
+    out = profile_device(lambda: [model(cin, ar=prev)
+                                  for _ in range(PROFILE_CHUNKS)])
+    return dict(out, chunks=PROFILE_CHUNKS)
+
+
+def profile_device(fn, kernels=("resblock_pair_wgmma", "split_tf32_kernel")
+                   ) -> dict:
+    """One ``torch.profiler`` window over ``fn()``: the device's busy share
+    (the union of its activity intervals over the span from the first start
+    to the last end), its top ops by self device time, and the count of
+    device kernels whose names hold each of ``kernels``. None where the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_CHUNKS):
-            model(cin, ar=prev)
+        fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {k: sum(k in e.name for e in events) for k in kernels}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return {"busy_share": None, "span_ms": None, "top_ops": []}
+        return {"busy_share": None, "span_ms": None, "top_ops": [],
+                "kernel_counts": counts}
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -770,20 +1113,23 @@ def profile_window(model, cin, prev) -> dict:
                   if e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)
     return {"busy_share": busy / span, "span_ms": span / 1e3,
-            "busy_ms": busy / 1e3, "chunks": PROFILE_CHUNKS,
+            "busy_ms": busy / 1e3, "kernel_counts": counts,
             "top_ops": [{"name": e.key[:120], "calls": e.count,
                          "ms": e.self_device_time_total / 1e3}
                         for e in ops[:8]]}
 
 
-def _write_corpus(root: str, seed: int) -> None:
+def _write_corpus(root: str, seed: int, config: dict = TRAIN_CONFIG,
+                  utts: int = TRAIN_UTTS, seconds: float = TRAIN_SECONDS,
+                  n_feats: int = N_FEATS) -> None:
     """``dump/<set>/norm/<utt>-{wave,feats}.npy`` and ``data/<set>/feats.scp``
-    under root: TRAIN_UTTS training and 8 dev utterances of TRAIN_SECONDS s,
-    random waveforms and 13 features at 200 Hz, from ``seed``."""
+    under root: ``utts`` training and 8 dev utterances of ``seconds`` s,
+    random waveforms and ``n_feats`` features at the config's frame rate,
+    from ``seed``."""
     rng = np.random.default_rng(seed)
-    hop = TRAIN_CONFIG["hop_size"]
-    frames = TRAIN_SECONDS * TRAIN_CONFIG["sampling_rate"] // hop
-    for stage, n in (("tr", TRAIN_UTTS), ("dev", 8)):
+    hop = config["hop_size"]
+    frames = int(seconds * config["sampling_rate"] // hop)
+    for stage, n in (("tr", utts), ("dev", 8)):
         dump = os.path.join(root, "dump", stage, "norm")
         data = os.path.join(root, "data", stage)
         os.makedirs(dump)
@@ -791,7 +1137,7 @@ def _write_corpus(root: str, seed: int) -> None:
         lines = []
         for i in range(n):
             wave = 0.3 * rng.standard_normal(frames * hop)
-            art = rng.standard_normal((frames, N_FEATS)).astype(np.float32)
+            art = rng.standard_normal((frames, n_feats)).astype(np.float32)
             np.save(os.path.join(dump, f"u{i}-wave.npy"), wave.astype(np.float32))
             np.save(os.path.join(dump, f"u{i}-feats.npy"), art)
             np.save(os.path.join(data, f"u{i}.npy"), art)
@@ -812,12 +1158,18 @@ def _grad_gaps(got, want) -> tuple[float, float]:
     return float(np.linalg.norm(gaps) / np.linalg.norm(norms)), per
 
 
-def phase_train(port: dict, seed: int, tmp: str) -> dict:
+def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
+                corpus: tuple = (TRAIN_UTTS, TRAIN_SECONDS, N_FEATS),
+                grads: bool = True, tag: str = "train") -> dict:
+    """``train(config)`` for its ``train_max_steps`` on a synthetic corpus
+    of ``corpus`` = (utterances, seconds, features), the checks (a)-(e) of
+    the module's docstring ((d), the gradients, with ``grads``), and the
+    step's time; logged under ``[tag]``."""
     train_cli, gan, inference = port["train"], port["gan"], port["inference"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
     split, head_split = port["split_tf32"], port["split_weights"]
-    config = TRAIN_CONFIG
-    _write_corpus(tmp, seed)
+    steps = config["train_max_steps"]
+    _write_corpus(tmp, seed, config, *corpus)
     outdir = os.path.join(tmp, "exp")
     pair.launches = head.launches = split.launches = head_split.launches = 0
     start = time.perf_counter()
@@ -834,17 +1186,17 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
     # (c) every step ran both generator forwards and all four discriminator
     # passes through the kernels; the weights are refolded every forward, so
     # every f32 pair split its weights, and every head its weights
-    expected = {"resblock_pair": 72 * TRAIN_STEPS,
-                "scale_disc_head": 12 * TRAIN_STEPS,
-                "split_tf32": 72 * TRAIN_STEPS,
-                "split_weights": 12 * TRAIN_STEPS}
+    expected = {"resblock_pair": 72 * steps,
+                "scale_disc_head": 12 * steps,
+                "split_tf32": 72 * steps,
+                "split_weights": 12 * steps}
     if launches != expected:
-        raise AssertionError(f"train: launches {launches}, expected {expected}")
+        raise AssertionError(f"{tag}: launches {launches}, expected {expected}")
     # (a) the metrics summed over the run's steps
-    losses = {k: float(v) / TRAIN_STEPS
+    losses = {k: float(v) / steps
               for k, v in trainer.total_train_loss.items()}
     if not losses or not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"train: losses not finite: {losses}")
+        raise AssertionError(f"{tag}: losses not finite: {losses}")
     # (b) the models built from the same seeds are the initial weights
     state = trainer.state
     for model, name, model_seed in (
@@ -856,14 +1208,14 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
         still = [k for k, p in model.named_parameters()
                  if torch.equal(p.detach().cpu(), initial[k])]
         if still:
-            raise AssertionError(f"train: {name} parameters never moved: "
+            raise AssertionError(f"{tag}: {name} parameters never moved: "
                                  f"{still[:5]}")
-    log(f"[train] {TRAIN_STEPS} steps at B {config['batch_size']} x "
+    log(f"[{tag}] {steps} steps at B {config['batch_size']} x "
         f"{config['batch_max_steps']} in {run_seconds:.3f} s (build and "
         f"warm-up included); launches {launches}; mean losses "
         + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items()))
 
-    # (d) one batch's gradients, kernels against plain versions
+    # (d) one batch's gradients, kernels against plain versions (with grads)
     criterion = gan.GANCriterion(trainer.config)
     batch = port["to_device"](next(iter(trainer.data_loader["train"])),
                               trainer.device)
@@ -878,25 +1230,29 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
                                              fake)
         return _grads(gen_loss, gen_params), _grads(dis_loss, disc_params)
 
-    kernel_grads = both_grads()
-    with swapped(port["residual"], "resblock_pair", port["resblock_pair_plain"]), \
-            swapped(port["hifigan"], "scale_disc_head",
-                    port["scale_disc_head_plain"]):
-        plain_grads = both_grads()
     grad_gaps = {}
-    for name, got, want in zip(("generator", "discriminator"), kernel_grads,
-                               plain_grads):
-        pooled, per = _grad_gaps(got, want)
-        grad_gaps[name] = {"pooled_rel_l2": pooled, "worst_tensor_rel_l2": per}
-        if pooled > GRAD_TOL[0] or per > GRAD_TOL[1]:
-            raise AssertionError(f"train: {name} gradients with the kernels "
-                                 f"differ from plain by {pooled:.3e} pooled, "
-                                 f"{per:.3e} worst tensor > {GRAD_TOL}")
-    log(f"[train] kernel vs plain gradients, relative L2 pooled / worst "
-        f"tensor: " + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} / "
-                                f"{v['worst_tensor_rel_l2']:.3e}"
-                                for k, v in grad_gaps.items())
-        + f" (limits {GRAD_TOL})")
+    if grads:
+        kernel_grads = both_grads()
+        with swapped(port["residual"], "resblock_pair",
+                     port["resblock_pair_plain"]), \
+                swapped(port["hifigan"], "scale_disc_head",
+                        port["scale_disc_head_plain"]):
+            plain_grads = both_grads()
+        for name, got, want in zip(("generator", "discriminator"),
+                                   kernel_grads, plain_grads):
+            pooled, per = _grad_gaps(got, want)
+            grad_gaps[name] = {"pooled_rel_l2": pooled,
+                               "worst_tensor_rel_l2": per}
+            if pooled > GRAD_TOL[0] or per > GRAD_TOL[1]:
+                raise AssertionError(
+                    f"{tag}: {name} gradients with the kernels differ from "
+                    f"plain by {pooled:.3e} pooled, {per:.3e} worst tensor "
+                    f"> {GRAD_TOL}")
+        log(f"[{tag}] kernel vs plain gradients, relative L2 pooled / worst "
+            f"tensor: " + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} / "
+                                    f"{v['worst_tensor_rel_l2']:.3e}"
+                                    for k, v in grad_gaps.items())
+            + f" (limits {GRAD_TOL})")
 
     # step time, and its parts apart
     lr = config["generator_optimizer_params"]["lr"]
@@ -917,13 +1273,13 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
     for key, fn in parts.items():
         with torch.set_grad_enabled(key != "regeneration_ms"):
             part_ms[key] = time_ms(fn, 3)
-    log(f"[train] step median {1e3 * float(np.median(step_s)):.3f} ms [range "
+    log(f"[{tag}] step median {1e3 * float(np.median(step_s)):.3f} ms [range "
         f"{1e3 * min(step_s):.3f}, {1e3 * max(step_s):.3f}] over "
         f"{STEP_ROUNDS}; " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       part_ms.items()))
 
     # (e) decode one chunk from the written checkpoint
-    ckpt = os.path.join(outdir, f"checkpoint-{TRAIN_STEPS}steps.ckpt")
+    ckpt = os.path.join(outdir, f"checkpoint-{steps}steps.ckpt")
     model = inference.load_model(ckpt, config, device="cuda")
     chunk = config["batch_max_steps"] // config["hop_size"]
     feats = [np.load(os.path.join(tmp, "data", "dev", f"u{i}.npy"))[:chunk]
@@ -932,13 +1288,13 @@ def phase_train(port: dict, seed: int, tmp: str) -> dict:
     for out in outs:
         if out.shape != (config["batch_max_steps"],) or not np.isfinite(
                 out).all():
-            raise AssertionError(f"train: decode from {ckpt} gave "
+            raise AssertionError(f"{tag}: decode from {ckpt} gave "
                                  f"{out.shape}, not finite or not "
                                  f"({config['batch_max_steps']},)")
-    log(f"[train] decoded one chunk of 4 utterances from "
+    log(f"[{tag}] decoded one chunk of 4 utterances from "
         f"{os.path.basename(ckpt)}")
     return {"run_seconds": run_seconds, "launches": launches,
-            "launches_per_step": {k: v // TRAIN_STEPS
+            "launches_per_step": {k: v // steps
                                   for k, v in launches.items()},
             "mean_losses": losses, "grad_gaps": grad_gaps,
             "step_ms_median": 1e3 * float(np.median(step_s)),
@@ -1023,18 +1379,55 @@ def main() -> int:
         log(f"[kernel] {dtype}: 36 training shapes at B={batch}: "
             f"{sum_line(dtype, sums)}")
     log_stage_sums(train_stages, batch)
+    port = dict(inference=inference, residual=residual,
+                resblock_pair=resblock_pair, plain=resblock_pair_plain,
+                split=split_tf32, weights=weights, decode=decode,
+                warmup_steps=inference.WARMUP_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
-        slice_results = phase_slice(
-            (inference, residual, resblock_pair, resblock_pair_plain,
-             split_tf32, weights, decode), args.seed, device_name, tmp)
+        slice_results = phase_slice(port, args.seed, device_name, tmp)
+    train_port = dict(
+        train=train_cli, gan=gan, inference=inference, residual=residual,
+        hifigan=hifigan, build_model=build_model, to_device=to_device,
+        resblock_pair=resblock_pair, resblock_pair_plain=resblock_pair_plain,
+        split_tf32=split_tf32, scale_disc_head=scale_disc_head,
+        split_weights=split_weights,
+        scale_disc_head_plain=scale_disc_head_plain)
     with tempfile.TemporaryDirectory() as tmp:
-        train_results = phase_train(dict(
-            train=train_cli, gan=gan, inference=inference, residual=residual,
-            hifigan=hifigan, build_model=build_model, to_device=to_device,
-            resblock_pair=resblock_pair,
-            resblock_pair_plain=resblock_pair_plain, split_tf32=split_tf32,
-            scale_disc_head=scale_disc_head, split_weights=split_weights,
-            scale_disc_head_plain=scale_disc_head_plain), args.seed, tmp)
+        train_results = phase_train(train_port, args.seed, tmp)
+
+    # the MRI recipe: its pair and head shapes, its decode, its training
+    mri = mri_config()
+    mri_gp = mri["generator_params"]
+    mri_frames = mri["batch_max_steps"] // mri["hop_size"]
+    mri_rows = phase_kernel(resblock_pair, resblock_pair_plain, splits,
+                            args.seed, MRI_UTTS, mri_frames, gp=mri_gp)
+    mri_sums, mri_stages = kernel_sums(mri_rows), stage_sums(mri_rows)
+    for dtype, sums in mri_sums.items():
+        log(f"[mri-kernel] {dtype}: 36 MRI shapes at B={MRI_UTTS}, "
+            f"{mri_frames} frames: {sum_line(dtype, sums)}")
+    log_stage_sums(mri_stages, MRI_UTTS)
+    mri_head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
+                                      (split_weights, split_weights_plain),
+                                      args.seed, shapes=MRI_HEAD_SHAPES)
+    for r in mri_head_rows:
+        log(f"[mri-head] B{r['B']} T{r['T']} s{r['stride']} {r['dtype']}: "
+            f"kernel {r['kernel_ms']:.4f} ms (weight split "
+            f"{r['split_ms']:.4f} ms of it), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['kernel_ms']:.1f} % of the bound, "
+            f"max rel err {r['max_rel_err']:.2e}, error against float64 "
+            f"{r['f64_rel_err']:.3e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mri_results = phase_mri(port, args.seed, device_name, tmp)
+    mri_train_config = dict(mri, train_max_steps=MRI_TRAIN_STEPS,
+                            save_interval_steps=200000,
+                            eval_interval_steps=200000, log_interval_steps=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        mri_train = phase_train(
+            train_port, args.seed, tmp, config=mri_train_config,
+            corpus=(MRI_TRAIN_UTTS, MRI_TRAIN_SECONDS,
+                    mri_gp["in_channels"] - mri_gp["ar_output"]),
+            grads=False, tag="mri-train")
 
     f32 = by_dtype["float32"]
     pair_entry = {
@@ -1081,6 +1474,24 @@ def main() -> int:
         "train_shapes_bf16_plain_ms": train_sums["bfloat16"]["plain_ms"],
         "train_shapes_bf16_bound_ms": train_sums["bfloat16"]["bound_ms"],
         "host_us_per_launch": host_us,
+        # inside the captured loop (CUDA-graph replays run no Python): the
+        # pair kernels the profiler counted over PROFILE_CHUNKS replays
+        "launches_graph_profiled": {
+            f"{tag}/{mode}": r["profile"]["kernel_counts"]["resblock_pair_wgmma"]
+            for tag, graph in (("ema", slice_results["graph"]),
+                               ("mri", mri_results["graph"]))
+            for mode, r in graph.items()},
+        "launches_mri_decode": mri_results["launches_total"],
+        "launches_mri_train": mri_train["launches"]["resblock_pair"],
+        # the MRI recipe's 36 shapes (B 16, 125 frames: T 1000 to 30000),
+        # its decode chunk's and its training step's
+        "mri_shapes_ms": mri_sums["float32"]["kernel_ms"],
+        "mri_shapes_plain_ms": mri_sums["float32"]["plain_ms"],
+        "mri_shapes_bound_ms": mri_sums["float32"]["bound_ms"],
+        "mri_shapes_f64_max_rel_err": mri_sums["float32"]["f64_rel_err"],
+        "mri_shapes_bf16_ms": mri_sums["bfloat16"]["kernel_ms"],
+        "mri_shapes_bf16_plain_ms": mri_sums["bfloat16"]["plain_ms"],
+        "mri_shapes_bf16_bound_ms": mri_sums["bfloat16"]["bound_ms"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -1117,6 +1528,12 @@ def main() -> int:
         "pallas_shape_ms": {d: r["kernel_ms"] for d, r in pallas.items()},
         "pallas_shape_plain_ms": {d: r["plain_ms"] for d, r in pallas.items()},
         "pallas_shape_bound_ms": {d: r["bound_ms"] for d, r in pallas.items()},
+        "launches_mri_train": mri_train["launches"]["scale_disc_head"],
+        # the MRI training step's three scales (B 16, T 30512/15257/7629)
+        **{f"mri_shapes_{key}": {d: sum(r[key] for r in mri_head_rows
+                                        if r["dtype"] == d)
+                                 for d in ("float32", "bfloat16")}
+           for key in ("kernel_ms", "plain_ms", "bound_ms")},
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1128,7 +1545,11 @@ def main() -> int:
                    "kernel_train_totals": train_sums,
                    "kernel_train_stages": train_stages,
                    "head_shapes": head_rows, "slice": slice_results,
-                   "train": train_results, "kernels": kernels}, f, indent=1)
+                   "train": train_results, "mri_kernel_shapes": mri_rows,
+                   "mri_kernel_totals": mri_sums,
+                   "mri_kernel_stages": mri_stages,
+                   "mri_head_shapes": mri_head_rows, "mri": mri_results,
+                   "mri_train": mri_train, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -297,3 +297,107 @@ def test_discriminator_on_card_matches_cpu(cuda):
     for got_maps, ref_maps in zip(out, ref):
         for got, want in zip(got_maps, ref_maps):
             torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+PAIRS = 4 * 2 * 2  # a chunk forward of _loaded's generator: stages x K x d
+
+
+def _loaded(cuda, ar_input, channels=128, **gp):
+    """A small AR generator on the card as a frozen ``LoadedModel``, and its
+    config (10-frame chunks: ar_input 64 keeps the last-window carry, 2000
+    the shift register). Its stages' C (64 to 8) are multiples of 8, so no
+    f32 pair pads its channels: a padded pair splits its padded weights in
+    every call."""
+    from articulatory_tpu_torch.inference import LoadedModel
+
+    gp = dict(in_channels=13 + 8, channels=channels,
+              upsample_scales=[5, 4, 2, 2], upsample_kernel_sizes=[10, 8, 4, 4],
+              resblock_kernel_sizes=[3, 7], resblock_dilations=[[1, 3]] * 2,
+              use_ar=True, ar_input=ar_input, ar_hidden=8, ar_output=8, **gp)
+    config = {"dataset_mode": "a2w", "batch_max_steps": 800, "hop_size": 80,
+              "generator_params": gp}
+    model = LoadedModel(model=build_model("HiFiGANGenerator", gp).to(cuda).eval(),
+                        config=config, device=cuda)
+    model.remove_weight_norm()
+    return model, config
+
+
+def _feats(lengths, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(t, 13, generator=gen).numpy() for t in lengths]
+
+
+@pytest.mark.parametrize("ar_input", [64, 2000])
+@pytest.mark.parametrize("compute", [{}, {"compute_dtype": "bfloat16",
+                                          "hybrid_precision": True}],
+                         ids=["f32", "hybrid"])
+def test_graph_replay_matches_eager_loop(cuda, ar_input, compute):
+    """The captured chunk step replays the eager loop's kernels in its
+    order: the same outputs, lane by lane and for one stream."""
+    import numpy as np
+
+    from articulatory_tpu_torch.inference import (
+        ar_loop,
+        ar_loop_batched,
+        ar_loop_scan,
+    )
+
+    model, config = _loaded(cuda, ar_input, **compute)
+    xs = _feats([30, 20, 27])
+    eager = ar_loop_batched(model, xs, config)
+    before = resblock_pair.launches
+    graph = ar_loop_batched(model, xs, config, scan=True)
+    # the warm-up steps and the capture launch; replays run no Python
+    assert resblock_pair.launches - before == PAIRS * (2 + 1)
+    for e, g in zip(eager, graph):
+        np.testing.assert_allclose(g, e, rtol=0, atol=1e-6)
+    one = ar_loop_scan(model, xs[0], config)
+    np.testing.assert_allclose(one, ar_loop(model, xs[0], config), rtol=0,
+                               atol=1e-6)
+
+
+def test_graph_cache_hit_and_drop(cuda):
+    import numpy as np
+
+    from articulatory_tpu_torch.inference import ar_loop_batched
+
+    model, config = _loaded(cuda, 64)
+    xs = _feats([25, 25])
+    first = ar_loop_batched(model, xs, config, scan=True)
+    (graph,) = model.graphs.values()
+    before = resblock_pair.launches
+    again = ar_loop_batched(model, xs, config, scan=True)
+    assert resblock_pair.launches == before  # a hit: replays only
+    assert list(model.graphs.values()) == [graph]
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    model.to_bf16_weights()
+    assert not model.graphs
+    before = split_tf32.launches
+    bf16 = ar_loop_batched(model, xs, config, scan=True)
+    # the f32 pairs split the upcast bf16 kernels once, in the warm-up
+    assert split_tf32.launches == before + PAIRS
+    assert len(model.graphs) == 1
+    for out in bf16:
+        assert out.shape == (2000,) and np.isfinite(out).all()
+
+
+def test_capture_error_raises_and_runs_no_eager_loop(cuda, monkeypatch):
+    """A step that cannot be captured (a host sync inside the forward)
+    raises; the eager loop is not run in its place."""
+    from articulatory_tpu_torch import inference
+
+    model, config = _loaded(cuda, 64)
+    forward = model.model.forward
+
+    def syncing_forward(c, ar=None):
+        out = forward(c, ar)
+        out.sum().item()  # a device-to-host copy: illegal while capturing
+        return out
+
+    monkeypatch.setattr(model.model, "forward", syncing_forward)
+    monkeypatch.setattr(inference, "_eager_chunks", lambda *a, **k: (
+        pytest.fail("the eager loop ran")))
+    with pytest.raises(RuntimeError, match="capturing the chunk step"):
+        inference.ar_loop_batched(model, _feats([20]), config, scan=True)
+    assert not model.graphs

@@ -23,7 +23,12 @@ from articulatory_tpu.inference import ar_loop as jax_ar_loop
 from articulatory_tpu.inference import ar_loop_batched as jax_ar_loop_batched
 from articulatory_tpu.models import HiFiGANGenerator as JaxGenerator
 from articulatory_tpu_torch.bin import decode as decode_cli
-from articulatory_tpu_torch.inference import ar_loop, ar_loop_batched, load_model
+from articulatory_tpu_torch.inference import (
+    ar_loop,
+    ar_loop_batched,
+    ar_loop_scan,
+    load_model,
+)
 from articulatory_tpu_torch.utils.checkpoint import load_checkpoint
 from articulatory_tpu_torch.utils.weights import jax_params_to_state_dict
 
@@ -211,20 +216,62 @@ def test_decode_cli_writes_wavs(ckpt_dir, tmp_path):
             np.testing.assert_allclose(wav[:n], ref[:n], atol=1)
 
 
-@pytest.mark.parametrize("flag", [["--int8-weights"], ["--bf16-weights"],
-                                  ["--ar-scan"], ["--sequence-parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--sequence-parallel", "2"]])
 def test_decode_cli_unported_flags_raise(flag, tmp_path):
     with pytest.raises(SystemExit):
         decode_cli.main(["--dumpdir", str(tmp_path), "--checkpoint", "x",
                          "--outdir", str(tmp_path), *flag])
 
 
+@pytest.mark.parametrize("flag", ["--int8-weights", "--bf16-weights",
+                                  "--ar-scan"])
+def test_decode_cli_flags(flag, ckpt_dir, tmp_path):
+    """Each flag decodes the dump like the same call on the model the flag
+    makes: int8 or bf16 weights through ``ar_loop``, or ``ar_loop_scan``
+    (chunk count bucketed to 4)."""
+    import yaml
+
+    config = _config(64)
+    cfg_path = tmp_path / "config.yml"
+    cfg_path.write_text(yaml.dump(config))
+    dump = tmp_path / "dump"
+    dump.mkdir()
+    (x,) = _feats(6, [23])
+    np.save(dump / "utt1-feats.npy", x)
+    out = tmp_path / "out"
+    decode_cli.main(["--dumpdir", str(dump), "--checkpoint",
+                     _checkpoint(ckpt_dir, 64), "--config", str(cfg_path),
+                     "--outdir", str(out), "--device", "cpu", "--verbose",
+                     "0", flag])
+    model = load_model(_checkpoint(ckpt_dir, 64), config, device="cpu")
+    if flag == "--ar-scan":
+        ref = ar_loop_scan(model, x, config, chunk_bucket=4)
+    else:
+        if flag == "--int8-weights":
+            model.quantize_int8()
+        else:
+            model.to_bf16_weights()
+        ref = ar_loop(model, x, config)
+    sr, wav = wavfile.read(out / "utt1_gen.wav")
+    assert sr == 16000 and wav.shape == (23 * 80,)
+    np.testing.assert_allclose(
+        wav, (np.clip(ref, -1, 1) * 32767).astype(np.int16), atol=1)
+
+
+def test_decode_cli_bf16_weights_exclusive_with_int8(ckpt_dir, tmp_path):
+    with pytest.raises(SystemExit):
+        decode_cli.main(["--dumpdir", str(tmp_path), "--checkpoint",
+                         _checkpoint(ckpt_dir, 64), "--outdir", str(tmp_path),
+                         "--int8-weights", "--bf16-weights"])
+
+
 def test_unported_decode_modes_raise(ckpt_dir):
     model = load_model(_checkpoint(ckpt_dir, 64), _config(64), device="cpu")
     x = np.zeros((10, 13), np.float32)
     with pytest.raises(NotImplementedError):
-        ar_loop(model, x, _config(64), do_wsola=True)
+        ar_loop(model, x, _config(64), modality=0)
     with pytest.raises(NotImplementedError):
         ar_loop(model, x, dict(_config(64), dataset_mode="w2a"))
     with pytest.raises(NotImplementedError):
-        ar_loop_batched(model, [x], _config(64), scan=True)
+        ar_loop_batched(model, [x], dict(_config(64), dataset_mode="w2a"),
+                        scan=True)
