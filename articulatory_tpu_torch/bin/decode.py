@@ -2,14 +2,16 @@
 """Decode dumped features with a trained generator on the GPU (port of
 ``articulatory_tpu/bin/decode.py`` for the wave-output modes: default, a2w
 and the generic x2y modes such as the MRI recipe's; ``art`` writes
-features).
+features; ``w2a`` inverts the waves of a wav.scp (``--feats-scp``) into
+EMA trajectories with a ``BiGRU``).
 
 Writes ``<utt>_gen.wav`` per utterance (``<utt>_<i>_gen.wav`` and
 ``<utt>_<i>.npy`` per window with ``wsola``, ``<utt>_gen.npy`` for feature
-output) and logs the real-time factor. AR generators decode chunk by chunk
-(``ar_loop``), or ``--decode-batch-size`` utterances at a time
-(``ar_loop_batched``); ``--ar-scan`` runs either through the captured chunk
-step (a CUDA graph on a card). Others decode in one forward.
+output) and logs the real-time factor (w2a: of the input audio). AR
+generators decode chunk by chunk (``ar_loop``), or ``--decode-batch-size``
+utterances at a time (``ar_loop_batched``); ``--ar-scan`` runs either
+through the captured chunk step (a CUDA graph on a card). Others decode in
+one forward.
 ``--int8-weights`` / ``--bf16-weights`` store the weights as int8 or
 bfloat16. Input transforms (``transform`` / ``input_transform``) apply to
 the features.
@@ -29,7 +31,12 @@ import time
 import numpy as np
 
 from articulatory_tpu_torch.data.collate import is_wave_output_mode
-from articulatory_tpu_torch.data.datasets import ArtDataset, ArtSCPDataset, MelSCPDataset
+from articulatory_tpu_torch.data.datasets import (
+    ArtDataset,
+    ArtSCPDataset,
+    AudioSCPDataset,
+    MelSCPDataset,
+)
 from articulatory_tpu_torch.data.transforms import get_transform
 from articulatory_tpu_torch.inference import (
     ar_loop,
@@ -39,7 +46,7 @@ from articulatory_tpu_torch.inference import (
 )
 from articulatory_tpu_torch.utils.io import read_hdf5, write_wav
 
-_NOT_PORTED_MODES = ("a2w_mult", "w2a", "ph2a", "ph2m", "a2m")
+_NOT_PORTED_MODES = ("a2w_mult", "ph2a", "ph2m", "a2m")
 
 
 def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
@@ -48,6 +55,12 @@ def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
     mode = config.get("dataset_mode", "default")
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(f"dataset_mode {mode!r} is not ported yet")
+    if mode == "w2a":
+        if feats_scp is None:
+            raise ValueError("w2a decodes the waves of a wav.scp: pass "
+                             "--feats-scp")
+        return AudioSCPDataset(feats_scp, return_utt_id=True,
+                               return_sampling_rate=False)
     transform = (get_transform(config["transform"])
                  if config.get("transform") else None)
     given = config.get("input_transform")
@@ -93,11 +106,14 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
     use_ar = config["generator_params"].get("use_ar", False)
     do_wsola = bool(config.get("wsola", False))
     is_wave = is_wave_output_mode(mode)
+    w2a = mode == "w2a"
+    # the chunked-AR loops: wave decode and w2a inversion
+    ar_chunked = use_ar and not do_wsola and (is_wave or w2a)
     sr, hop = config["sampling_rate"], config["hop_size"]
     items = [(utt_id, np.asarray(c, np.float32)) for utt_id, c in dataset]
     total_time = total_len = total_rtf = 0.0
 
-    if decode_batch_size > 1 and use_ar and not do_wsola and is_wave:
+    if decode_batch_size > 1 and ar_chunked:
         for i in range(0, len(items), decode_batch_size):
             group = items[i:i + decode_batch_size]
             start = time.perf_counter()
@@ -105,9 +121,15 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
             outs = ar_loop_batched(model, [c for _, c in group], config,
                                    scan=ar_scan)
             total_time += time.perf_counter() - start
-            for (utt_id, _), wav in zip(group, outs):
-                write_wav(os.path.join(outdir, f"{utt_id}_gen.wav"), wav, sr)
-                total_len += len(wav) / sr
+            for (utt_id, c), out in zip(group, outs):
+                if w2a:  # trajectories; the input rows are wave samples
+                    np.save(os.path.join(outdir, f"{utt_id}_gen.npy"),
+                            np.asarray(out, np.float32), allow_pickle=False)
+                    total_len += len(c) / sr
+                else:
+                    write_wav(os.path.join(outdir, f"{utt_id}_gen.wav"), out,
+                              sr)
+                    total_len += len(out) / sr
         rtf = total_time / max(total_len, 1e-9)
         logging.info(f"Finished batched generation of {len(items)} utterances "
                      f"(batch {decode_batch_size}); throughput = "
@@ -116,9 +138,10 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
         return {"utterances": len(items), "seconds_audio": total_len,
                 "seconds_elapsed": total_time, "rtf": rtf}
 
-    if ar_scan and not (use_ar and not do_wsola and is_wave):
+    if ar_scan and not ar_chunked:
         logging.warning("--ar-scan ignored: the captured chunk loop covers "
-                        "plain chunked-AR wave decode (no wsola/non-AR).")
+                        "plain chunked-AR wave decode and w2a inversion (no "
+                        "wsola/non-AR).")
         ar_scan = False
     for utt_id, c in items:
         start = time.perf_counter()
@@ -130,8 +153,9 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
             out = model.inference(c, normalize_before=normalize_before,
                                   bucket_frames=bucket_frames or None)
         elapsed = time.perf_counter() - start
-        if not is_wave:  # feature output; inputs at sr / hop frames a second
-            dur = len(c) * hop / sr
+        if not is_wave:  # feature output; w2a inputs are wave samples, the
+            # other modes' frames at sr / hop a second
+            dur = len(c) / sr if w2a else len(c) * hop / sr
             np.save(os.path.join(outdir, f"{utt_id}_gen.npy"),
                     np.asarray(out, np.float32), allow_pickle=False)
         elif do_wsola and use_ar:
@@ -187,7 +211,9 @@ def main(argv: list[str] | None = None) -> None:
                              "chunk step (a CUDA graph on a card) replayed "
                              "once a chunk; composes with "
                              "--decode-batch-size (each lane group is one "
-                             "run). Ignored for wsola and non-AR decodes.")
+                             "run). Covers a2w wave decode and w2a "
+                             "inversion; ignored for wsola and non-AR "
+                             "decodes.")
     parser.add_argument("--ar-scan-bucket", default=4, type=int,
                         help="with --ar-scan, round each utterance's chunk "
                              "count up to this multiple (0 = exact)")

@@ -1,9 +1,10 @@
 """Feature datasets (port of ``articulatory_tpu/data/datasets.py``):
 ``SpeechDataset`` for training (audio from a dump directory, articulatory
 features through ``<data_root>/<stage>/feats.scp``); for decoding
-``ArtDataset`` over a dump directory or a feats.scp of .npy paths, and
+``ArtDataset`` over a dump directory or a feats.scp of .npy paths,
 ``MelSCPDataset`` / ``ArtSCPDataset`` over a feats.scp of hdf5 or npy
-values. They return numpy arrays."""
+values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input).
+They return numpy arrays."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 from articulatory_tpu_torch.utils.io import (
     HDF5ScpLoader,
     NpyScpLoader,
+    WavScpLoader,
     find_files,
     load_scp,
     read_hdf5,
@@ -143,6 +145,32 @@ class ArtDataset:
 
     def __len__(self) -> int:
         return len(self.art_files)
+
+
+class AudioSCPDataset:
+    """wav.scp-driven audio: ``(audio, fs)`` items, ``audio`` alone with
+    ``return_sampling_rate=False``, each after its utterance id with
+    ``return_utt_id`` (reference scp_dataset.py:49-173). Piped entries and
+    ``segments`` as ``WavScpLoader``."""
+
+    def __init__(self, wav_scp: str, segments: str | None = None,
+                 return_utt_id: bool = False,
+                 return_sampling_rate: bool = True):
+        self.loader = WavScpLoader(wav_scp, segments=segments)
+        self.utt_ids = list(self.loader.keys())
+        self.return_utt_id = return_utt_id
+        self.return_sampling_rate = return_sampling_rate
+
+    def __getitem__(self, idx: int):
+        utt_id = self.utt_ids[idx]
+        audio, fs = self.loader[utt_id]
+        items = (audio, fs) if self.return_sampling_rate else (audio,)
+        if self.return_utt_id:
+            return (utt_id, *items)
+        return items if self.return_sampling_rate else audio
+
+    def __len__(self) -> int:
+        return len(self.utt_ids)
 
 
 class MelSCPDataset:

@@ -1,13 +1,18 @@
-"""Inference runtime: model loading, full-utterance synthesis and the
-chunked-autoregressive decode loop (HiFi-CAR), ported from
-``articulatory_tpu/inference.py`` for the a2w direction.
+"""Inference runtime: model loading, full-utterance synthesis or inversion
+and the chunked-autoregressive decode loop (HiFi-CAR), ported from
+``articulatory_tpu/inference.py`` for both directions.
 
-A chunk of ``batch_max_steps / hop_size`` feature frames and the last
-``ar_input`` output samples (the AR carry) go through one generator forward;
-the carry for the next chunk is the new output's tail (``ar_input <=
-batch_max_steps``) or a shift register over several chunks (``ar_input >
-batch_max_steps``), as in the reference's decode.py:77-81. Outputs stay on
-the device until the loop ends.
+a2w (features -> waveform): a chunk of ``batch_max_steps / hop_size``
+feature frames and the last ``ar_input`` output samples (the AR carry) go
+through one generator forward. w2a (``dataset_mode: w2a``, acoustic
+features -> EMA trajectories through a ``BiGRU``): a chunk is
+``batch_max_steps`` input rows and the carry holds the last ``ar_input /
+out_channels`` output frames; a trailing chunk shorter than ``hop_size``
+rows is dropped (reference decode.py:57-58). In both, the carry for the
+next chunk is the new output's tail when it is at most ``batch_max_steps``
+long, else a shift register over several chunks that slides by the output
+length (a2w) or the input rows (w2a), as in the reference's
+decode.py:77-81. Outputs stay on the device until the loop ends.
 
 ``ar_loop_scan`` and ``ar_loop_batched(scan=True)`` are the counterpart of
 the JAX package's one-dispatch ``lax.scan`` decode: on a card, one chunk
@@ -16,15 +21,16 @@ step (the forward and the carry update) is captured in a CUDA graph
 uploaded once and one host sync at the end. On the CPU the same chunking,
 bucketing and trimming run through the eager per-chunk loop, the graph's
 plain version. On a card a capture or replay that fails raises; nothing
-falls back to the eager loop.
+falls back to the eager loop. A w2a ragged tail runs after the whole chunks
+as one exact-shape forward, as in the JAX package.
 
 Weights may be stored as int8 (``LoadedModel.quantize_int8``) or bfloat16
 (``to_bf16_weights``); the kernels read the dequantized or upcast frozen
 weights. Float64 inputs decode in float64 through ``ar_loop`` (with a
 ``.double()`` model), for parity checks.
 
-Not ported yet (they raise ``NotImplementedError``): w2a inversion,
-multimodal decode, PQMF synthesis.
+Not ported yet (they raise ``NotImplementedError``): multimodal decode,
+PQMF synthesis, int8 or bf16 storage of a ``BiGRU``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from torch import nn
 
 from articulatory_tpu_torch.config import fix_generator_params, load_config
 from articulatory_tpu_torch.models import build_model
+from articulatory_tpu_torch.models.rnn import BiGRU
 from articulatory_tpu_torch.utils.checkpoint import (
     generator_state_dict,
     load_checkpoint,
@@ -69,10 +76,16 @@ class LoadedModel:
         self.model.remove_weight_norm()
         self.graphs.clear()
 
+    def _check_storage(self, kind: str) -> None:
+        if isinstance(self.model, BiGRU):
+            raise NotImplementedError(f"{kind} weight storage of a BiGRU is "
+                                      "not ported yet")
+
     def quantize_int8(self) -> None:
         """Fold weight norm and store the conv and dense weights as int8
         (symmetric per output channel, ``utils/quantize.py``); the frozen
         kernels are dequantized once and cached."""
+        self._check_storage("int8")
         from articulatory_tpu_torch.utils.quantize import (
             fold_weight_norm_,
             quantize_int8_,
@@ -92,6 +105,7 @@ class LoadedModel:
                 "to_bf16_weights on an int8-quantized model would cast the "
                 "dequantization scales to bf16 (silent extra rounding); "
                 "pick one weight-compression scheme")
+        self._check_storage("bf16")
         from articulatory_tpu_torch.utils.quantize import fold_weight_norm_
 
         self.remove_weight_norm()
@@ -101,8 +115,8 @@ class LoadedModel:
 
     @torch.inference_mode()
     def __call__(self, c, ar=None) -> torch.Tensor:
-        """(B, T, C) features [and (B, P, 1) AR carry] -> (B, T_out, C_out)
-        on the model's device."""
+        """(B, T, C) features [and (B, P, C_out) AR carry] -> (B, T_out,
+        C_out) on the model's device."""
         c = torch.as_tensor(c, device=self.device)
         if c.is_floating_point() and c.dtype != torch.float64:
             c = c.float()
@@ -111,28 +125,32 @@ class LoadedModel:
         return self.model(c, torch.as_tensor(ar, device=self.device,
                                              dtype=c.dtype))
 
-    def chunk_graph(self, batch: int, in_chunk_len: int, feat_dim: int,
-                    past_out_len: int, out_channels: int,
-                    last_window: bool) -> ChunkGraph:
-        """The captured chunk step for this signature, captured on first
+    def chunk_graph(self, batch: int, feat_dim: int, ck: Chunking,
+                    masked: bool = False) -> ChunkGraph:
+        """The captured chunk step for this signature (``masked``: a lane
+        mask keeps the carries of the lanes outside it), captured on first
         use and cached (dropped when the weights change)."""
         gen = self.model
-        key = (batch, in_chunk_len, feat_dim, past_out_len, out_channels,
-               last_window, str(getattr(gen, "compute_dtype", None)),
+        key = (batch, feat_dim, ck, masked,
+               str(getattr(gen, "compute_dtype", None)),
                bool(getattr(gen, "hybrid_precision", False)))
         if key not in self.graphs:
-            self.graphs[key] = ChunkGraph(gen, self.device, *key[:6])
+            self.graphs[key] = ChunkGraph(gen, self.device, batch, feat_dim,
+                                          ck, masked)
         return self.graphs[key]
 
     def inference(self, c: np.ndarray, normalize_before: bool = False,
                   bucket_frames: int | None = None) -> np.ndarray:
-        """(T, in_feats) -> (T * prod(scales), out_channels), full utterance.
+        """(T, in_feats) -> (T_out, out_channels), full utterance (a2w T *
+        prod(scales) samples; a BiGRU's T frames).
 
         ``bucket_frames`` pads T up to a multiple before the forward and trims
         the output back, as the JAX package does to bound its compile count;
         only the last receptive-field window can differ from an exact-length
         forward."""
         c = np.asarray(c, np.float32)
+        if c.ndim == 1:  # a raw wave into an inversion model
+            c = c[:, None]
         if normalize_before:
             c = self.normalize(c)
         t = c.shape[0]
@@ -157,10 +175,10 @@ def _load_stats(stats: str) -> tuple[np.ndarray, np.ndarray]:
 def load_model(checkpoint: str, config: dict | str | None = None,
                stats: str | None = None, generator2: bool = False,
                device: str | torch.device | None = None) -> LoadedModel:
-    """Rebuild a generator from its config and a checkpoint (a JAX-package
-    msgpack file or a reference torch pickle) on ``device`` (default cuda;
-    raises without a card). ``weight_quant: int8`` stores the weights as
-    int8."""
+    """Rebuild a generator (or a ``BiGRU`` inversion model) from its config
+    and a checkpoint (a JAX-package msgpack file or a reference torch
+    pickle) on ``device`` (default cuda; raises without a card).
+    ``weight_quant: int8`` stores the weights as int8."""
     dev = resolve_device(device)
     prefix = "generator2" if generator2 else "generator"
     if config is None:
@@ -173,12 +191,26 @@ def load_model(checkpoint: str, config: dict | str | None = None,
                          "implemented)")
     gen_type = config.get(f"{prefix}_type", "ParallelWaveGANGenerator")
     gen_params = fix_generator_params(config[f"{prefix}_params"])
+    # multiband synthesis only where the config asks for it: a w2a model's
+    # channels are EMA features
     if gen_params.get("out_channels", 1) > 1 and config.get("pqmf", False):
         raise NotImplementedError("PQMF synthesis is not ported yet")
     model = build_model(gen_type, gen_params)
-    model.load_state_dict(generator_state_dict(load_checkpoint(checkpoint),
-                                               prefix, gen_params))
+    state = generator_state_dict(load_checkpoint(checkpoint), prefix,
+                                 gen_params, gen_type)
+    if isinstance(model, BiGRU):
+        width = state["gru1.weight_ih_l0"].shape[1]
+        if width != model.in_channels:
+            raise ValueError(
+                f"the checkpoint's BiGRU reads {width} inputs a frame (gru1 "
+                f"weight_ih) but the config's in_channels is "
+                f"{model.in_channels}; in_channels counts the input features "
+                f"with the AR and speaker features concatenated")
+    model.load_state_dict(state)
     model.to(dev).eval()
+    for m in model.modules():
+        if isinstance(m, nn.RNNBase):
+            m.flatten_parameters()  # one weight buffer: no copy a call
 
     if stats is None:  # stats beside the checkpoint (reference utils.py:345)
         ext = "h5" if config.get("format", "hdf5") == "hdf5" else "npy"
@@ -195,61 +227,104 @@ def load_model(checkpoint: str, config: dict | str | None = None,
     return loaded
 
 
-def _a2w_chunking(config: dict, params_key: str) -> tuple[int, int, int]:
-    """(input frames per chunk, AR carry length, output channels)."""
-    if config.get("dataset_mode") == "w2a":
-        raise NotImplementedError("w2a (inversion) decode is not ported yet")
-    gp = config[params_key]
-    return (int(config["batch_max_steps"] / config["hop_size"]),
-            gp.get("ar_input", 512), gp.get("out_channels", 1))
+@dataclasses.dataclass(frozen=True)
+class Chunking:
+    """How a config chunks the AR decode (JAX ``inference.py:341-350``)."""
+
+    in_chunk_len: int  # input rows a chunk: frames (a2w), rows (w2a)
+    past_out_len: int  # the carry: output samples (a2w), frames (w2a)
+    out_channels: int
+    # the carry is the output's tail, else a shift register; the reference
+    # compares with the SAMPLE chunk length in both directions (decode.py:77)
+    last_window: bool
+    w2a: bool
+    hop: int
+
+    def kept_rows(self, t: int) -> int:
+        """Input rows decoded: w2a drops a trailing remainder shorter than a
+        hop (reference decode.py:57-58)."""
+        rem = t % self.in_chunk_len
+        return t - rem if self.w2a and 0 < rem < self.hop else t
+
+    def empty(self) -> np.ndarray:
+        """The output of an input with no rows to decode."""
+        if self.w2a or self.out_channels > 1:
+            return np.zeros((0, self.out_channels), np.float32)
+        return np.zeros((0,), np.float32)
 
 
-def _next_carry(prev: torch.Tensor, cout: torch.Tensor, past_out_len: int,
-                last_window: bool) -> torch.Tensor:
-    if last_window:
-        return cout[:, -past_out_len:, :]
-    # shift register (reference decode.py:79-81): the AR window spans
-    # several chunks; slide left by one chunk's output
-    return torch.cat([prev[:, cout.shape[1]:, :], cout], dim=1)
+def chunking(config: dict, generator2: bool = False) -> Chunking:
+    gp = config["generator2_params" if generator2 else "generator_params"]
+    out_channels = gp.get("out_channels", 1)
+    w2a = not generator2 and config.get("dataset_mode") == "w2a"
+    chunk_len, hop = config["batch_max_steps"], config["hop_size"]
+    if w2a:  # the carry holds ar_input values as frames of out_channels
+        in_chunk_len = chunk_len
+        past_out_len = int(gp.get("ar_input", 512) / out_channels)
+    else:
+        in_chunk_len = int(chunk_len / hop)
+        past_out_len = gp.get("ar_input", 512)
+    return Chunking(in_chunk_len, past_out_len, out_channels,
+                    past_out_len <= chunk_len, w2a, hop)
+
+
+def chunk_step(forward, cin: torch.Tensor, prev: torch.Tensor, ck: Chunking,
+               mask: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the AR loop: ``forward(cin, prev)`` and the next carry,
+    the output's tail or the shift register slid by one chunk (the output
+    length in a2w, the input rows in w2a; reference decode.py:77-81). Lanes
+    outside ``mask`` keep their carry. The plain version of the captured
+    step."""
+    out = forward(cin, prev)
+    if ck.last_window:
+        new_prev = out[:, -ck.past_out_len:, :]
+    else:
+        shift = cin.shape[1] if ck.w2a else out.shape[1]
+        new_prev = torch.cat([prev[:, shift:, :], out], dim=1)
+    if mask is not None:
+        new_prev = torch.where(mask[:, None, None], new_prev, prev)
+    return out, new_prev
 
 
 class ChunkGraph:
-    """One chunk step of the batched AR loop captured in a CUDA graph: the
-    generator forward on a static input ``(B, in_chunk_len, F)`` and carry
-    ``(B, P, C_out)``, then the carry update written back into the static
-    carry. ``WARMUP_STEPS`` eager steps on the capture stream come first,
-    so that every first-use host step of the kernels (shared-memory
-    attributes, launch plans, tensor maps, the f32 weight splits cached on
-    the frozen kernels) happens outside the capture. The graph keeps the
-    frozen kernels it reads alive."""
+    """One chunk step of the AR loop captured in a CUDA graph: the forward
+    on a static input ``(B, in_chunk_len, F)`` and carry ``(B, P, C_out)``,
+    then the carry update (with ``masked``, through a static lane mask)
+    written back into the static carry. ``WARMUP_STEPS`` eager steps on the
+    capture stream come first, so that every first-use host step of the
+    kernels (shared-memory attributes, launch plans, tensor maps, the f32
+    weight splits cached on the frozen kernels) happens outside the capture.
+    The graph keeps the frozen kernels it reads alive."""
 
     @torch.inference_mode()
     def __init__(self, model: nn.Module, device: torch.device, batch: int,
-                 in_chunk_len: int, feat_dim: int, past_out_len: int,
-                 out_channels: int, last_window: bool):
-        self.static_in = torch.zeros((batch, in_chunk_len, feat_dim),
+                 feat_dim: int, ck: Chunking, masked: bool = False):
+        self.static_in = torch.zeros((batch, ck.in_chunk_len, feat_dim),
                                      device=device)
-        self.static_prev = torch.zeros((batch, past_out_len, out_channels),
-                                       device=device)
+        self.static_prev = torch.zeros((batch, ck.past_out_len,
+                                        ck.out_channels), device=device)
+        self.static_mask = (torch.ones((batch,), dtype=torch.bool,
+                                       device=device) if masked else None)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             for _ in range(WARMUP_STEPS):
-                out = model(self.static_in, self.static_prev)
-                _next_carry(self.static_prev, out, past_out_len, last_window)
+                chunk_step(model, self.static_in, self.static_prev, ck,
+                           self.static_mask)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
-                self.static_out = model(self.static_in, self.static_prev)
-                # a fresh tensor first: the shift register reads the carry
-                new_prev = _next_carry(self.static_prev, self.static_out,
-                                       past_out_len, last_window)
+                # a fresh carry first: the shift register reads the old one
+                self.static_out, new_prev = chunk_step(
+                    model, self.static_in, self.static_prev, ck,
+                    self.static_mask)
                 self.static_prev.copy_(new_prev)
         except RuntimeError as e:
             raise RuntimeError(
-                f"capturing the chunk step (B {batch}, {in_chunk_len} frames "
-                f"x {feat_dim}, carry {past_out_len}) in a CUDA graph "
+                f"capturing the chunk step (B {batch}, {ck.in_chunk_len} "
+                f"rows x {feat_dim}, carry {ck.past_out_len}) in a CUDA graph "
                 f"failed; on a card the scan decode runs only as a graph"
             ) from e
         self.weights = [t for m in model.modules()
@@ -270,36 +345,44 @@ class ChunkGraph:
             outs[i].copy_(self.static_out)
         return outs
 
+    @torch.inference_mode()
+    def step(self, cin: torch.Tensor, prev: torch.Tensor,
+             mask: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One replay from carry ``prev`` (and ``mask``): the output and the
+        next carry, as copies that later replays leave alone."""
+        self.static_in.copy_(cin)
+        self.static_prev.copy_(prev)
+        if mask is not None:
+            self.static_mask.copy_(mask)
+        self.graph.replay()
+        return self.static_out.clone(), self.static_prev.clone()
+
 
 def _eager_chunks(model: LoadedModel, chunks: torch.Tensor,
-                  past_out_len: int, out_channels: int,
-                  last_window: bool) -> torch.Tensor:
+                  ck: Chunking) -> torch.Tensor:
     """The chunk loop eagerly: chunks ``(n, B, T, F)`` -> ``(B, n * T_out,
     C_out)``."""
-    prev = torch.zeros((chunks.shape[1], past_out_len, out_channels),
+    prev = torch.zeros((chunks.shape[1], ck.past_out_len, ck.out_channels),
                        device=model.device)
     outs = []
     for cin in chunks:
-        cout = model(cin, ar=prev)
+        cout, prev = chunk_step(model, cin, prev, ck)
         outs.append(cout)
-        prev = _next_carry(prev, cout, past_out_len, last_window)
     return torch.cat(outs, dim=1)
 
 
-def _scan_chunks(model: LoadedModel, chunks: np.ndarray, past_out_len: int,
-                 out_channels: int, last_window: bool) -> np.ndarray:
+def _scan_chunks(model: LoadedModel, chunks: np.ndarray,
+                 ck: Chunking) -> np.ndarray:
     """chunks ``(n, B, T, F)`` -> ``(B, n * T_out, C_out)``: one upload, the
     captured chunk step replayed once a chunk on a card (the eager loop on
     the CPU), one host sync."""
     dev_chunks = torch.from_numpy(np.ascontiguousarray(chunks)).to(
         model.device)
     if model.device.type == "cpu":
-        return _eager_chunks(model, dev_chunks, past_out_len, out_channels,
-                             last_window).numpy()
-    n, b, in_chunk_len, feat_dim = chunks.shape
-    graph = model.chunk_graph(b, in_chunk_len, feat_dim, past_out_len,
-                              out_channels, last_window)
-    outs = graph.run(dev_chunks)  # (n, B, T_out, C)
+        return _eager_chunks(model, dev_chunks, ck).numpy()
+    n, b, _, feat_dim = chunks.shape
+    outs = model.chunk_graph(b, feat_dim, ck).run(dev_chunks)  # (n, B, T, C)
     return outs.transpose(0, 1).reshape(b, -1, outs.shape[-1]).cpu().numpy()
 
 
@@ -307,39 +390,45 @@ def ar_loop(model: LoadedModel, x: np.ndarray, config: dict,
             do_wsola: bool = False, modality: int | None = None,
             generator2: bool = False):
     """Chunked AR decode of one utterance (reference decode.py:31-100).
-    x: (T, num_feats) features -> waveform (T * hop,) (or (T * hop, C_out)).
-    float64 features decode in float64 (the model must be float64 too).
-    ``do_wsola``: 50 %-overlap windows instead, -> (list of each window's
-    waveform, list of its input frames)."""
+    a2w: features (T, num_feats) -> waveform (T * hop,) (or (T * hop,
+    C_out)); w2a: input rows (T, F) (a raw wave may be 1-D) -> trajectories
+    (T', C_out). float64 input decodes in float64 (the model must be float64
+    too). ``do_wsola`` (a2w): 50 %-overlap windows instead, -> (list of each
+    window's waveform, list of its input frames)."""
     if modality is not None:
         raise NotImplementedError("multimodal decode is not ported yet")
-    params_key = "generator2_params" if generator2 else "generator_params"
-    in_chunk_len, past_out_len, out_channels = _a2w_chunking(config, params_key)
+    ck = chunking(config, generator2)
     x = np.asarray(x)
     # float64 kept for parity decodes; everything else computes in float32
     x = x if x.dtype == np.float64 else x.astype(np.float32)
     if x.ndim == 1:
         x = x[:, None]
     if do_wsola:
-        return _wsola(model, x, config, params_key, in_chunk_len, past_out_len)
-    last_window = past_out_len <= config["batch_max_steps"]
-    prev = torch.zeros((1, past_out_len, out_channels),
-                       dtype=torch.float64 if x.dtype == np.float64
-                       else torch.float32, device=model.device)
+        if ck.w2a:
+            raise NotImplementedError("WSOLA decodes waveforms; w2a has none")
+        params_key = "generator2_params" if generator2 else "generator_params"
+        return _wsola(model, x, config, params_key, ck)
+    t = ck.kept_rows(len(x))
+    xt = torch.from_numpy(np.ascontiguousarray(x[:t])).to(model.device)
+    prev = torch.zeros((1, ck.past_out_len, ck.out_channels), dtype=xt.dtype,
+                       device=model.device)
     outs = []
-    for i in range(0, len(x), in_chunk_len):
-        cout = model(x[None, i:i + in_chunk_len], ar=prev)
+    for i in range(0, t, ck.in_chunk_len):
+        cout, prev = chunk_step(model, xt[None, i:i + ck.in_chunk_len], prev,
+                                ck)
         outs.append(cout[0])
-        prev = _next_carry(prev, cout, past_out_len, last_window)
+    if not outs:
+        return ck.empty()
     out = torch.cat(outs, dim=0).cpu().numpy()
-    return out[:, 0] if out.shape[1] == 1 else out
+    return out[:, 0] if not ck.w2a and out.shape[1] == 1 else out
 
 
 def _wsola(model: LoadedModel, x: np.ndarray, config: dict, params_key: str,
-           in_chunk_len: int, past_out_len: int):
+           ck: Chunking):
     """WSOLA decode (JAX ``ar_loop(do_wsola=True)``): windows of
     ``in_chunk_len`` frames (+1 with ``extra_art``) every half chunk; each
     window's carry is the previous output's samples just before its middle."""
+    in_chunk_len, past_out_len = ck.in_chunk_len, ck.past_out_len
     if in_chunk_len % 2:
         raise ValueError(f"WSOLA needs an even chunk length, got "
                          f"{in_chunk_len} frames")
@@ -362,62 +451,90 @@ def _wsola(model: LoadedModel, x: np.ndarray, config: dict, params_key: str,
 
 def ar_loop_batched(model: LoadedModel, xs: list[np.ndarray], config: dict,
                     scan: bool = False) -> list[np.ndarray]:
-    """Throughput-mode chunked AR decode over a batch of utterances.
+    """Throughput-mode chunked AR decode over a batch of utterances, in
+    either direction.
 
     Each utterance keeps its own AR carry; inputs are zero-padded to a common
-    chunk count and outputs trimmed to each utterance's length. Outputs match
-    the sequential ``ar_loop`` on every complete chunk. ``scan=True`` runs
-    the same lane semantics through the captured chunk step (one upload, one
-    replay a chunk, one host sync; the eager loop on the CPU)."""
-    in_chunk_len, past_out_len, out_channels = _a2w_chunking(
-        config, "generator_params")
-    hop = config["hop_size"]
-    last_window = past_out_len <= config["batch_max_steps"]
+    chunk count and outputs trimmed to each utterance's length (w2a: after
+    the sub-hop tail drop, by the model's output frames a chunk). Outputs
+    match the sequential ``ar_loop`` on every complete chunk. ``scan=True``
+    runs the same lane semantics through the captured chunk step (one
+    upload, one replay a chunk, one host sync; the eager loop on the CPU)."""
+    ck = chunking(config)
     b = len(xs)
-    lengths = [len(x) for x in xs]
-    n_chunks = max(-(-t // in_chunk_len) for t in lengths)
+    lengths = [ck.kept_rows(len(x)) for x in xs]
+    n_chunks = max(-(-t // ck.in_chunk_len) for t in lengths)
     if n_chunks == 0:
-        return [np.zeros((0,), np.float32) if out_channels == 1
-                else np.zeros((0, out_channels), np.float32) for _ in xs]
+        return [ck.empty() for _ in xs]
     feat_dim = xs[0].shape[1] if xs[0].ndim == 2 else 1
-    batch = np.zeros((b, n_chunks * in_chunk_len, feat_dim), np.float32)
+    batch = np.zeros((b, n_chunks * ck.in_chunk_len, feat_dim), np.float32)
     for i, x in enumerate(xs):
         batch[i, : lengths[i]] = np.asarray(x, np.float32).reshape(
-            lengths[i], feat_dim)
-    chunks = batch.reshape(b, n_chunks, in_chunk_len, feat_dim).swapaxes(0, 1)
+            len(x), feat_dim)[: lengths[i]]
+    chunks = batch.reshape(b, n_chunks, ck.in_chunk_len,
+                           feat_dim).swapaxes(0, 1)
     if scan:
-        wav = _scan_chunks(model, chunks, past_out_len, out_channels,
-                           last_window)
+        out = _scan_chunks(model, chunks, ck)
     else:
-        wav = _eager_chunks(model, torch.from_numpy(
-            np.ascontiguousarray(chunks)).to(model.device), past_out_len,
-            out_channels, last_window).cpu().numpy()
-    return [wav[i, : lengths[i] * hop, 0] if out_channels == 1
-            else wav[i, : lengths[i] * hop] for i in range(b)]
+        out = _eager_chunks(model, torch.from_numpy(
+            np.ascontiguousarray(chunks)).to(model.device), ck).cpu().numpy()
+    if ck.w2a:  # output frames a chunk are the model's (T -> T for a BiGRU)
+        fpc = out.shape[1] // n_chunks
+        return [out[i, : lengths[i] * fpc // ck.in_chunk_len]
+                for i in range(b)]
+    return [out[i, : lengths[i] * ck.hop, 0] if ck.out_channels == 1
+            else out[i, : lengths[i] * ck.hop] for i in range(b)]
 
 
 def ar_loop_scan(model: LoadedModel, x: np.ndarray, config: dict,
                  chunk_bucket: int = 0) -> np.ndarray:
     """One utterance through the captured chunk step (JAX
-    ``ar_loop_scan``, a2w): pad to whole chunks, run them all, trim to
-    ``T * hop``. A ragged last chunk is computed under zero padding, as in
-    the JAX package; near its end it differs from ``ar_loop``'s short
-    chunk, whose padding carries no tiled AR features. ``chunk_bucket``
-    rounds the chunk count up to a multiple (the padded chunks are computed
-    and dropped); 0 = exact."""
-    in_chunk_len, past_out_len, out_channels = _a2w_chunking(
-        config, "generator_params")
-    hop = config["hop_size"]
-    last_window = past_out_len <= config["batch_max_steps"]
+    ``ar_loop_scan``), in either direction. ``chunk_bucket`` rounds the
+    chunk count up to a multiple (the padded chunks are computed and
+    dropped); 0 = exact.
+
+    a2w: pad to whole chunks, run them all, trim to ``T * hop``. A ragged
+    last chunk is computed under zero padding, as in the JAX package; near
+    its end it differs from ``ar_loop``'s short chunk, whose padding carries
+    no tiled AR features. w2a: the whole chunks run captured, then a ragged
+    tail (at least a hop) runs as one exact-shape forward seeded with the
+    last ``past_out_len`` output frames, zero-prefixed: the carry that both
+    regimes hold there. A sub-hop tail is dropped."""
+    ck = chunking(config)
     x = np.asarray(x, np.float32)
     if x.ndim == 1:
         x = x[:, None]
+    if ck.w2a:
+        return _w2a_scan(model, x, ck, chunk_bucket)
     t = len(x)
-    n_chunks = max(-(-t // in_chunk_len), 1)
+    n_chunks = max(-(-t // ck.in_chunk_len), 1)
     if chunk_bucket:
         n_chunks = -(-n_chunks // chunk_bucket) * chunk_bucket
-    xp = np.pad(x, ((0, n_chunks * in_chunk_len - t), (0, 0)))
-    chunks = xp.reshape(n_chunks, 1, in_chunk_len, x.shape[1])
-    out = _scan_chunks(model, chunks, past_out_len, out_channels,
-                       last_window)[0]
-    return out[: t * hop, 0] if out.shape[1] == 1 else out[: t * hop]
+    xp = np.pad(x, ((0, n_chunks * ck.in_chunk_len - t), (0, 0)))
+    chunks = xp.reshape(n_chunks, 1, ck.in_chunk_len, x.shape[1])
+    out = _scan_chunks(model, chunks, ck)[0]
+    return (out[: t * ck.hop, 0] if out.shape[1] == 1
+            else out[: t * ck.hop])
+
+
+def _w2a_scan(model: LoadedModel, x: np.ndarray, ck: Chunking,
+              chunk_bucket: int) -> np.ndarray:
+    """``ar_loop_scan`` in w2a (JAX ``inference.py:626-659``)."""
+    t = ck.kept_rows(len(x))
+    full, rem = divmod(t, ck.in_chunk_len)
+    out = ck.empty()
+    if full:
+        n_chunks = (-(-full // chunk_bucket) * chunk_bucket if chunk_bucket
+                    else full)
+        xp = np.zeros((n_chunks * ck.in_chunk_len, x.shape[1]), np.float32)
+        xp[: full * ck.in_chunk_len] = x[: full * ck.in_chunk_len]
+        scanned = _scan_chunks(model, xp.reshape(
+            n_chunks, 1, ck.in_chunk_len, x.shape[1]), ck)[0]
+        out = scanned[: full * (scanned.shape[0] // n_chunks)]
+    if rem:
+        carry = np.concatenate([np.zeros((ck.past_out_len, ck.out_channels),
+                                         np.float32), out])
+        tail = model(x[None, full * ck.in_chunk_len:t],
+                     ar=carry[None, len(carry) - ck.past_out_len:])
+        out = np.concatenate([out, tail[0].cpu().numpy()])
+    return out

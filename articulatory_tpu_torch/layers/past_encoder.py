@@ -6,6 +6,11 @@ channel 0, then channel 1, ...), as the reference's ``x.reshape(B, -1)`` on
 ``(B, C, P)``, then run through 4 LeakyReLU(0.1) layers and a linear head.
 The layers sit in ``model`` at indices 0, 2, 4, 6, 8, the reference's
 ``nn.Sequential`` keys.
+
+The first layer reads the whole flattened carry: ``input_len`` samples of
+one channel for the a2w generator; for a w2a BiGRU, ``input_len //
+channels`` frames of ``channels`` values (504 inputs at ``ar_input`` 512 and
+12 EMA channels), the width the JAX package takes from the carry.
 """
 
 from __future__ import annotations
@@ -18,9 +23,10 @@ from articulatory_tpu_torch.layers.conv import Dense
 
 class PastFCEncoder(nn.Module):
     def __init__(self, input_len: int = 512, hidden_dim: int = 256,
-                 output_dim: int = 128, generator: torch.Generator | None = None):
+                 output_dim: int = 128, channels: int = 1,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        dims = [input_len] + [hidden_dim] * 4
+        dims = [input_len // channels * channels] + [hidden_dim] * 4
         layers: list[nn.Module] = []
         for i in range(4):
             layers += [Dense(dims[i], dims[i + 1], generator=generator),

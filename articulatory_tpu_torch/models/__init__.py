@@ -1,7 +1,7 @@
 """Model registry: YAML class names -> the port's modules.
 
-Ported: ``HiFiGANGenerator`` and the HiFi-GAN discriminators; other names
-raise ``NotImplementedError``.
+Ported: ``HiFiGANGenerator``, the HiFi-GAN discriminators and the ``BiGRU``
+inversion model; other names raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -9,12 +9,14 @@ from __future__ import annotations
 import torch
 
 from articulatory_tpu_torch.models import hifigan
+from articulatory_tpu_torch.models.rnn import BiGRU
 
 _REGISTRY = {name: getattr(hifigan, name) for name in (
     "HiFiGANGenerator", "HiFiGANPeriodDiscriminator",
     "HiFiGANMultiPeriodDiscriminator", "HiFiGANScaleDiscriminator",
     "HiFiGANMultiScaleDiscriminator",
     "HiFiGANMultiScaleMultiPeriodDiscriminator")}
+_REGISTRY["BiGRU"] = BiGRU
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "fp32": torch.float32,
            "float32": torch.float32}

@@ -11,7 +11,8 @@
   under ``.pkl`` names too.
 
 ``generator_state_dict`` / ``discriminator_state_dict`` turn either
-payload's model entries into the port's state dicts. ``save_checkpoint``
+payload's model entries into the port's state dicts (a JAX ``BiGRU`` with
+its BatchNorm statistics from ``payload["mutables"]``). ``save_checkpoint``
 writes a training state as a torch pickle in the reference's layout,
 ``{"model": {"generator", "discriminator"}, "optimizer": {...},
 "scheduler": {...}, "steps", "epochs"}``, which ``load_model`` decodes from
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from articulatory_tpu_torch.utils.weights import (
+    jax_bigru_to_state_dict,
     jax_msmpd_to_state_dict,
     jax_params_to_state_dict,
 )
@@ -100,13 +102,23 @@ def load_checkpoint(path: str) -> dict:
 
 
 def generator_state_dict(payload: dict, generator_key: str,
-                         generator_params: dict) -> dict[str, torch.Tensor]:
+                         generator_params: dict,
+                         generator_type: str = "HiFiGANGenerator"
+                         ) -> dict[str, torch.Tensor]:
     """The port's state dict for ``payload["model"][generator_key]``: a JAX
-    param tree is converted, a torch state dict is used as it is."""
+    param tree is converted (a ``BiGRU``'s with
+    ``payload["mutables"][generator_key]``), a torch state dict is used as
+    it is."""
     sd: Any = payload["model"][generator_key]
     if isinstance(sd, tuple):  # reference generator2 save quirk (train.py:165)
         sd = sd[0]
     if _is_jax_tree(sd):
+        if generator_type == "BiGRU":
+            mutables = (payload.get("mutables") or {}).get(generator_key)
+            if not mutables:
+                raise ValueError("a JAX BiGRU checkpoint without its "
+                                 "BatchNorm statistics (mutables)")
+            return jax_bigru_to_state_dict(sd, mutables, generator_params)
         return jax_params_to_state_dict(sd, generator_params)
     return {k: torch.as_tensor(v) for k, v in sd.items()}
 

@@ -1,4 +1,5 @@
-"""File I/O: kaldi-style scp maps, hdf5 datasets, PCM wav writing (port of
+"""File I/O: kaldi-style scp maps (feature and wav.scp, with piped entries
+and segments), hdf5 datasets, PCM wav reading and writing (port of
 ``articulatory_tpu/utils/io.py``). ``h5py`` is imported only when an hdf5
 file is read."""
 
@@ -33,6 +34,24 @@ def read_hdf5(hdf5_name: str, hdf5_path: str) -> np.ndarray:
         if hdf5_path not in f:
             raise KeyError(f"There is no dataset {hdf5_path} in {hdf5_name}.")
         return f[hdf5_path][()]
+
+
+def _pcm_to_float(data: np.ndarray) -> np.ndarray:
+    """Integer PCM -> float32 in [-1, 1]; float data passes through."""
+    if data.dtype == np.int16:
+        return data.astype(np.float32) / 32768.0
+    if data.dtype == np.int32:
+        return data.astype(np.float32) / 2147483648.0
+    if data.dtype == np.uint8:
+        return (data.astype(np.float32) - 128.0) / 128.0
+    return data.astype(np.float32)
+
+
+def read_wav(path) -> tuple[np.ndarray, int]:
+    """A wav file (a path or a binary file object) -> (float32 waveform in
+    [-1, 1], sample rate)."""
+    sr, data = wavfile.read(path)
+    return _pcm_to_float(data), int(sr)
 
 
 def write_wav(path: str, wav: np.ndarray, sr: int, subtype: str = "PCM_16") -> None:
@@ -97,3 +116,50 @@ class NpyScpLoader(_ScpLoader):
 
     def __getitem__(self, key: str) -> np.ndarray:
         return np.load(self.data[key])
+
+
+class WavScpLoader:
+    """wav.scp values: paths, or shell commands ending in ``|`` whose
+    standard output is a wav. With ``segments`` (lines ``utt_id rec_id start
+    end``, seconds) the keys are utterances cut out of the recordings.
+    Items are ``(waveform, sample rate)``."""
+
+    def __init__(self, wav_scp: str, segments: str | None = None):
+        self.data = load_scp(wav_scp)
+        self.segments: dict[str, tuple[str, float, float]] | None = None
+        if segments is not None:
+            self.segments = {}
+            with open(segments) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) >= 4:
+                        utt, rec, start, end = parts[:4]
+                        self.segments[utt] = (rec, float(start), float(end))
+
+    @staticmethod
+    def _read(value: str) -> tuple[np.ndarray, int]:
+        if value.endswith("|"):
+            import io
+            import subprocess
+
+            proc = subprocess.run(value[:-1], shell=True, check=True,
+                                  stdout=subprocess.PIPE)
+            return read_wav(io.BytesIO(proc.stdout))
+        return read_wav(value)
+
+    def __getitem__(self, key: str) -> tuple[np.ndarray, int]:
+        if self.segments is not None:
+            rec, start, end = self.segments[key]
+            audio, sr = self._read(self.data[rec])
+            return audio[int(start * sr): int(end * sr)], sr
+        return self._read(self.data[key])
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def keys(self):
+        return (self.segments if self.segments is not None
+                else self.data).keys()

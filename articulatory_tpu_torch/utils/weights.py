@@ -3,14 +3,19 @@
 ``jax_params_to_state_dict`` turns the JAX ``HiFiGANGenerator`` param tree
 (nested dicts of numpy arrays) into the port's ``state_dict``, and
 ``jax_msmpd_to_state_dict`` the JAX
-``HiFiGANMultiScaleMultiPeriodDiscriminator`` tree; both have the
-reference's torch keys and layouts:
+``HiFiGANMultiScaleMultiPeriodDiscriminator`` tree, and
+``jax_bigru_to_state_dict`` the JAX ``BiGRU`` tree with its BatchNorm
+``batch_stats``; all have the reference's torch keys and layouts:
 
 - Conv1d (K, C_in, C_out) -> (C_out, C_in, K);
 - Conv2d (Kh, Kw, C_in, C_out) -> (C_out, C_in, Kh, Kw);
 - ConvTranspose1d (K, C_in, C_out), time-flipped -> (C_in, C_out, K),
   un-flipped;
 - Dense (in, out) -> (out, in);
+- GRU ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` (torch's packing already) ->
+  ``weight_ih_l0`` ... , ``_reverse`` for the backward direction;
+- BatchNorm scale, bias and the running mean and variance -> ``weight``,
+  ``bias``, ``running_mean``, ``running_var``;
 - weight-norm (g, v) -> ``weight_g`` / ``weight_v`` on torch's axes.
 
 ``fold_weight_norm`` is ``remove_weight_norm`` on a state dict: each
@@ -96,6 +101,37 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     if generator_params.get("use_ar", False):
         for li, ti in enumerate([0, 2, 4, 6, 8]):
             _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+    return sd
+
+
+def jax_bigru_to_state_dict(params: Mapping[str, Any],
+                            mutables: Mapping[str, Any],
+                            generator_params: Mapping[str, Any]
+                            ) -> dict[str, torch.Tensor]:
+    """JAX ``BiGRU`` params and mutables (``{"batch_stats": {"bn": {"mean",
+    "var"}}}``) -> the port's state dict (the keys of the JAX package's
+    ``utils/torch_export.py::export_bigru``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("gru1", "gru2"):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            layer = params[name][direction]
+            for src, dst in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                             ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                sd[f"{name}.{dst}_l0{suffix}"] = _tensor(layer[src])
+    _linear(sd, "fc1.0", params["fc1"])
+    stats = mutables.get("batch_stats", mutables)["bn"]
+    sd["bn.weight"] = _tensor(params["bn"]["scale"])
+    sd["bn.bias"] = _tensor(params["bn"]["bias"])
+    sd["bn.running_mean"] = _tensor(stats["mean"])
+    sd["bn.running_var"] = _tensor(stats["var"])
+    sd["bn.num_batches_tracked"] = torch.tensor(0)
+    _linear(sd, "fc2.0" if generator_params.get("use_tanh", False) else "fc2",
+            params["fc2"])
+    if generator_params.get("use_ar", False):
+        for li, ti in enumerate([0, 2, 4, 6, 8]):
+            _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+    if generator_params.get("use_spk_emb", False):
+        _linear(sd, "spk_fc", params["spk_fc"])
     return sd
 
 

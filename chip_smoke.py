@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of articulatory_tpu_torch on one NVIDIA GPU.
 
-Drives the port's two paths at the full width of
+Drives the port's paths at the full width of
 ``egs/ema/voc1/conf/e2w_hifigan_car.yaml`` (141 input channels incl. 128 AR
 features, channels 512, upsample (5, 4, 2, 2), MRF kernels (3, 7, 11) x
-dilations (1, 3, 5), AR 512), and in phase 7 of
-``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, through their entry points:
+dilations (1, 3, 5), AR 512), in phase 7 of
+``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, and in phases 8-11 of the
+inversion BiGRU of ``benchmarks/inversion_bench.py`` and the stream server,
+through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -87,6 +89,33 @@ Phases, each raising on failure:
    ``train(config)`` for MRI_TRAIN_STEPS steps at its B 16 x 30,000 on a
    synthetic corpus, checks (a)-(c) and (e) of phase 6 and the step time.
 
+8. w2a: the full-utterance BiGRU (2 x BiGRU 256, FC 128, BatchNorm, FC
+   12) at B 16 x 2000 frames (10 s at 200 Hz), 13-d and 1024-d inputs:
+   samples/s of input audio (median of ROUNDS), and f32 against the same
+   module in float64 on the card (<= W2A_F64_TOL of max |y|);
+9. w2a-ar: its AR form (ar_input 512 over 12 channels: a 42-frame carry;
+   13 + 64 inputs; 200-row chunks): one 10 s stream through
+   ``ar_loop_scan`` (graph) against ``ar_loop`` (eager) in turns (RTF,
+   outputs bit-equal), a W2A_TAIL-row ragged tail (the exact tail forward)
+   bit-equal to ``ar_loop``, W2A_LANES lanes through ``ar_loop_batched``
+   eager and ``scan=True`` in turns (samples/s; graph chunks bit-equal to
+   eager forwards from the graph run's carry), and a profiler window over
+   replays (the device's busy share);
+10. w2a-cli: ``bin/decode.py`` in w2a mode on a wav.scp (a raw-wave AR
+   BiGRU; eager, ``--ar-scan``, ``--decode-batch-size 4 --ar-scan``) and
+   ``bin/predict_ema.py`` on a wav directory (with and without ``--ar-scan
+   --batch 4``), each writing its .npy files;
+11. stream: ``StreamingServer`` with STREAM_LANES lanes at the EMA width, in
+   f32 and hybrid, through the churn of ``benchmarks/streaming_bench.py``
+   (57 rounds: 10 at 1 stream, a ramp to 16, 10 at 16, a drain to 4, 10 at
+   4; odd clients stall every seventh round): p50/p99 ms a round per phase,
+   every round bit-equal to the eager masked step, every client bit-equal
+   to its stream served alone in its lane, 36 pair kernels a round counted
+   by the profiler and its busy share beside a replay's device time over
+   the round's p50, one stream's ms a chunk synced, pipelined and by
+   ``synthesize_all`` (bit-equal); then the AR BiGRU on the same churn,
+   each client against its solo serve.
+
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -100,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -134,6 +164,7 @@ CHUNK_FRAMES = 100
 UTTS, SECONDS = 16, 10  # the decode's batch, and each utterance's length
 ROUNDS = 5  # chunk-forward timings taken in turns, for median and range
 PROFILE_CHUNKS = 5  # hybrid chunk forwards in the profiler window
+PROFILE_LEAD_S = 0.05  # idle host time that opens a profiler window
 # eager and graph decodes timed in turns (after one untimed call of each)
 TURNS = ("eager", "graph", "graph", "eager") * 2
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
@@ -221,6 +252,27 @@ MRI_UTTS, MRI_SECONDS = 16, 10
 # 3 s, MRI_TRAIN_STEPS steps; the head's three scales there (B, T, stride)
 MRI_TRAIN_UTTS, MRI_TRAIN_SECONDS, MRI_TRAIN_STEPS = 16, 3, 3
 MRI_HEAD_SHAPES = [(16, 30512, 4), (16, 15257, 4), (16, 7629, 4)]
+
+# inversion (w2a): the reference recipe's BiGRU as benchmarks/
+# inversion_bench.py builds it (2 x BiGRU 256, FC 128, BatchNorm, FC 12),
+# B 16 x 10 s of 200 Hz features (MFCC hop 80 at 16 kHz), 13-d MFCCs and
+# the 1024-d SSL width; its AR form (ar_input 512: a carry of 42 frames of
+# 12, ar_hidden 64, ar_output 64) in 200-row chunks, one stream and 64 lanes
+W2A_GP = {"hidden_size": 256, "out_channels": 12}
+W2A_AR_GP = dict(W2A_GP, use_ar=True, ar_input=512, ar_hidden=64,
+                 ar_output=64)
+W2A_CONFIG = {"dataset_mode": "w2a", "batch_max_steps": 200, "hop_size": 80,
+              "sampling_rate": 16000, "format": "npy",
+              "generator_type": "BiGRU"}
+W2A_FEATS = (13, 1024)
+W2A_BATCH, W2A_SECONDS, W2A_LANES = 16, 10, 64
+W2A_TAIL = 137  # rows past 10 s: the exact ragged tail of ar_loop_scan
+W2A_F64_TOL = 1e-4  # f32 against float64, of max |y|
+# streaming: the EMA HiFi-CAR above on STREAM_LANES lanes, the churn of
+# benchmarks/streaming_bench.py (10 rounds at 1 stream, a ramp to 16 with a
+# join a round, 10 rounds at 16, a drain to 4 with a leave a round, 10
+# rounds at 4), and the AR BiGRU on the same schedule
+STREAM_LANES = 16
 
 
 def log(msg: str) -> None:
@@ -825,8 +877,8 @@ def phase_graph(port, models, modes, xs, tag, chunk_frames, ar_input,
         checks = _chunk_checks(model, xs, outs["graph"], residual, None, mode,
                                n_chunks, chunk_len, chunk_frames, ar_input,
                                pair=residual.resblock_pair, timings=False)
-        graph = model.chunk_graph(len(xs), chunk_frames, xs[0].shape[1],
-                                  ar_input, 1, ar_input <= chunk_len)
+        graph = model.chunk_graph(len(xs), xs[0].shape[1],
+                                  inference.chunking(config))
         feats = np.zeros((PROFILE_CHUNKS, len(xs), chunk_frames,
                           xs[0].shape[1]), np.float32)
         for i, x in enumerate(xs):
@@ -836,7 +888,6 @@ def phase_graph(port, models, modes, xs, tag, chunk_frames, ar_input,
             lane[:len(part)] = part
             feats[:, i] = lane.reshape(PROFILE_CHUNKS, chunk_frames, -1)
         chunks = torch.from_numpy(feats).cuda()
-        graph.run(chunks)
         prof = profile_device(lambda: graph.run(chunks))
         counts = prof["kernel_counts"]
         if counts != {"resblock_pair_wgmma": 36 * PROFILE_CHUNKS,
@@ -1076,8 +1127,6 @@ def _chunk_checks(model, xs, outs, residual, plain, mode, n_chunks,
 def profile_window(model, cin, prev) -> dict:
     """One ``torch.profiler`` window over PROFILE_CHUNKS chunk forwards (see
     ``profile_device``)."""
-    model(cin, ar=prev)
-    torch.cuda.synchronize()
     out = profile_device(lambda: [model(cin, ar=prev)
                                   for _ in range(PROFILE_CHUNKS)])
     return dict(out, chunks=PROFILE_CHUNKS)
@@ -1085,14 +1134,22 @@ def profile_window(model, cin, prev) -> dict:
 
 def profile_device(fn, kernels=("resblock_pair_wgmma", "split_tf32_kernel")
                    ) -> dict:
-    """One ``torch.profiler`` window over ``fn()``: the device's busy share
-    (the union of its activity intervals over the span from the first start
-    to the last end), its top ops by self device time, and the count of
-    device kernels whose names hold each of ``kernels``. None where the
-    profiler saw no device activity."""
+    """One ``torch.profiler`` window over ``fn()``, after one call of it
+    outside the window: the device's busy share (the union of its activity
+    intervals over the span from the first start to the last end), its top
+    ops by self device time, the count of device kernels whose names hold
+    each of ``kernels``, and of all device ops. None where the profiler saw
+    no device activity. The window opens with PROFILE_LEAD_S of idle host
+    time: the profiler drops the device's records that it dates before the
+    window's start, and now and then dates them some ms early (before the
+    host launched them), so a window without the lead lost its leading
+    kernels at random."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
@@ -1101,7 +1158,7 @@ def profile_device(fn, kernels=("resblock_pair_wgmma", "split_tf32_kernel")
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
         return {"busy_share": None, "span_ms": None, "top_ops": [],
-                "kernel_counts": counts}
+                "kernel_counts": counts, "device_ops": 0}
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -1114,6 +1171,7 @@ def profile_device(fn, kernels=("resblock_pair_wgmma", "split_tf32_kernel")
                  key=lambda e: e.self_device_time_total, reverse=True)
     return {"busy_share": busy / span, "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "kernel_counts": counts,
+            "device_ops": len(events),
             "top_ops": [{"name": e.key[:120], "calls": e.count,
                          "ms": e.self_device_time_total / 1e3}
                         for e in ops[:8]]}
@@ -1302,6 +1360,454 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
             **part_ms}
 
 
+def numpy_bigru_params(gp: dict, seed: int) -> tuple[dict, dict]:
+    """A BiGRU param tree and its BatchNorm statistics in the JAX package's
+    layout: GRU weights U(+-1/sqrt(H)), dense U(+-1/sqrt(fan_in)) as
+    torch's defaults, random BatchNorm affine and statistics."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, bound):
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    def gru(c_in, h):
+        b = h ** -0.5
+        return {"w_ih": uniform((3 * h, c_in), b),
+                "w_hh": uniform((3 * h, h), b),
+                "b_ih": uniform((3 * h,), b), "b_hh": uniform((3 * h,), b)}
+
+    def dense(c_in, c_out):
+        return {"w": uniform((c_in, c_out), c_in ** -0.5),
+                "b": uniform((c_out,), c_in ** -0.5)}
+
+    h, out = gp["hidden_size"], gp["out_channels"]
+    tree = {"gru1": {d: gru(gp["in_channels"], h) for d in ("fwd", "bwd")},
+            "gru2": {d: gru(2 * h, h) for d in ("fwd", "bwd")},
+            "fc1": dense(2 * h, 128), "fc2": dense(128, out),
+            "bn": {"scale": rng.uniform(0.5, 1.5, 128).astype(np.float32),
+                   "bias": uniform((128,), 0.1)}}
+    if gp.get("use_ar"):
+        dims = ([gp["ar_input"] // out * out] + [gp["ar_hidden"]] * 4
+                + [gp["ar_output"]])
+        tree["ar_model"] = {f"fc{i}": dense(dims[i], dims[i + 1])
+                            for i in range(5)}
+    stats = {"mean": uniform((128,), 0.3),
+             "var": rng.uniform(0.5, 2.0, 128).astype(np.float32)}
+    return tree, {"batch_stats": {"bn": stats}}
+
+
+def bigru_checkpoint(port, gp: dict, seed: int, path: str) -> str:
+    """A reference-layout torch pickle of a random BiGRU (through
+    ``jax_bigru_to_state_dict``)."""
+    params, mutables = numpy_bigru_params(gp, seed)
+    torch.save({"model": {"generator": port["weights"].jax_bigru_to_state_dict(
+        params, mutables, gp)}}, path)
+    return path
+
+
+def phase_w2a(port, seed: int, device_name: str, tmp: str) -> dict:
+    """[w2a] The full-utterance BiGRU at B W2A_BATCH x W2A_SECONDS s, 13-d
+    and 1024-d: samples/s of input audio (median of ROUNDS forwards), and
+    the f32 output against the same module in float64 on the card."""
+    inference = port["inference"]
+    frame_rate = W2A_CONFIG["sampling_rate"] // W2A_CONFIG["hop_size"]
+    frames = W2A_SECONDS * frame_rate
+    rng = np.random.default_rng(seed + 2)
+    results = {}
+    for feats in W2A_FEATS:
+        gp = dict(W2A_GP, in_channels=feats)
+        config = dict(W2A_CONFIG, generator_params=gp)
+        model = inference.load_model(bigru_checkpoint(
+            port, gp, seed, os.path.join(tmp, f"w2a_{feats}.pth")), config,
+            device="cuda")
+        x = torch.from_numpy(rng.standard_normal(
+            (W2A_BATCH, frames, feats)).astype(np.float32)).cuda()
+        times = []
+        for _ in range(ROUNDS + 1):  # the first untimed
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            y = model(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        seconds = float(np.median(times[1:]))
+        with torch.inference_mode():
+            y64 = copy.deepcopy(model.model).double()(x.double())
+        err = ((y.double() - y64).abs().max() / y64.abs().max()).item()
+        if (y.shape != (W2A_BATCH, frames, 12) or not torch.isfinite(y).all()
+                or err > W2A_F64_TOL):
+            raise AssertionError(f"[w2a] {feats}-d: output {tuple(y.shape)}, "
+                                 f"not finite or {err:.3e} from float64 > "
+                                 f"{W2A_F64_TOL} of max |y|")
+        rate = W2A_BATCH * W2A_SECONDS * W2A_CONFIG["sampling_rate"] / seconds
+        prof = profile_device(lambda: model(x))
+        results[feats] = {"seconds": times[1:], "samples_per_s": rate,
+                          "f64_rel_err": err, "profile": prof}
+        busy = ("not measured" if prof["busy_share"] is None else
+                f"{100 * prof['busy_share']:.1f} % of "
+                f"{prof['span_ms']:.3f} ms")
+        log(f"[w2a] BiGRU {feats}-d, B {W2A_BATCH} x {frames} frames: "
+            f"{rate:.1f} samples/s (median of {ROUNDS} forwards, "
+            f"{1e3 * seconds:.3f} ms) on {device_name}; f32 against float64 "
+            f"{err:.3e} of max |y| (limit {W2A_F64_TOL}); profiler over one "
+            f"forward: {prof['device_ops']} device ops, device busy {busy}")
+    return results
+
+
+def phase_w2a_ar(port, seed: int, device_name: str, tmp: str) -> dict:
+    """[w2a-ar] The AR BiGRU (13-d MFCCs, 200-row chunks, a 42-frame
+    carry): one 10 s stream through ``ar_loop_scan`` (graph) against
+    ``ar_loop`` (eager) in turns, real-time factors and outputs bit-equal;
+    one stream with a W2A_TAIL-row ragged tail (the exact tail forward)
+    bit-equal to ``ar_loop``; W2A_LANES lanes of 10 s through
+    ``ar_loop_batched`` eager and ``scan=True`` in turns, samples/s, chunks
+    0, 1 and the last of the graph run against eager forwards from its
+    carry (bit-equal), and a profiler window over PROFILE_CHUNKS replays."""
+    inference = port["inference"]
+    gp = dict(W2A_AR_GP, in_channels=13 + W2A_AR_GP["ar_output"])
+    config = dict(W2A_CONFIG, generator_params=gp)
+    ck = inference.chunking(config)
+    model = inference.load_model(bigru_checkpoint(
+        port, gp, seed, os.path.join(tmp, "w2a_ar.pth")), config,
+        device="cuda")
+    rows = W2A_SECONDS * config["sampling_rate"] // config["hop_size"]
+    rng = np.random.default_rng(seed + 3)
+    one = rng.standard_normal((rows, 13)).astype(np.float32)
+    inference.ar_loop_scan(model, one, config)  # capture at B 1
+    one_times, one_outs = run_turns({
+        "eager": lambda: inference.ar_loop(model, one, config),
+        "graph": lambda: inference.ar_loop_scan(model, one, config)}, TURNS)
+    rtf = {k: float(np.median(v)) / W2A_SECONDS for k, v in one_times.items()}
+    one_diff = float(np.abs(one_outs["graph"] - one_outs["eager"]).max())
+    ragged = rng.standard_normal((rows + W2A_TAIL, 13)).astype(np.float32)
+    tail = {k: fn(model, ragged, config) for k, fn in (
+        ("graph", inference.ar_loop_scan), ("eager", inference.ar_loop))}
+    tail_diff = float(np.abs(tail["graph"] - tail["eager"]).max())
+    for name, out, n, diff in (("one stream", one_outs["graph"], rows,
+                                one_diff),
+                               ("ragged tail", tail["graph"],
+                                rows + W2A_TAIL, tail_diff)):
+        if out.shape != (n, 12) or not np.isfinite(out).all() or diff:
+            raise AssertionError(f"[w2a-ar] {name}: ar_loop_scan gave "
+                                 f"{out.shape}, not finite or {diff:.3e} "
+                                 f"from ar_loop (expected bit-equal)")
+
+    xs = [rng.standard_normal((rows, 13)).astype(np.float32)
+          for _ in range(W2A_LANES)]
+    inference.ar_loop_batched(model, xs, config, scan=True)  # capture
+    times, outs = run_turns({
+        "eager": lambda: inference.ar_loop_batched(model, xs, config),
+        "graph": lambda: inference.ar_loop_batched(model, xs, config,
+                                                   scan=True)}, TURNS)
+    rate = {k: W2A_LANES * W2A_SECONDS * config["sampling_rate"]
+            / float(np.median(v)) for k, v in times.items()}
+    lanes_diff = max(float(np.abs(g - e).max())
+                     for g, e in zip(outs["graph"], outs["eager"]))
+    feats = torch.from_numpy(np.stack(xs)).cuda()
+    wav = torch.from_numpy(np.stack(outs["graph"])).cuda()
+    n_chunks = rows // ck.in_chunk_len
+    chunk_err = 0.0
+    for ci in sorted({0, 1, n_chunks - 1}):
+        lo = ci * ck.in_chunk_len
+        prev = (torch.zeros(W2A_LANES, ck.past_out_len, 12, device="cuda")
+                if ci == 0 else wav[:, lo - ck.past_out_len:lo])
+        ref = model(feats[:, lo:lo + ck.in_chunk_len], ar=prev)
+        chunk_err = max(chunk_err, (wav[:, lo:lo + ck.in_chunk_len]
+                                    - ref).abs().max().item())
+    if lanes_diff or chunk_err or not all(
+            o.shape == (rows, 12) and np.isfinite(o).all()
+            for o in outs["graph"]):
+        raise AssertionError(f"[w2a-ar] {W2A_LANES} lanes: graph against "
+                             f"eager {lanes_diff:.3e}, chunks against eager "
+                             f"forwards {chunk_err:.3e} (expected 0.0), or "
+                             f"outputs not ({rows}, 12) and finite")
+    graph = model.chunk_graph(W2A_LANES, 13, ck)
+    replays = min(PROFILE_CHUNKS, n_chunks)
+    chunks = feats[:, :replays * ck.in_chunk_len].reshape(
+        W2A_LANES, replays, ck.in_chunk_len, 13).transpose(0, 1)
+    prof = profile_device(lambda: graph.run(chunks))
+    busy = ("not measured" if prof["busy_share"] is None else
+            f"{100 * prof['busy_share']:.1f} % of {prof['span_ms']:.3f} ms")
+    log(f"[w2a-ar] AR BiGRU 13-d on {device_name}: one {W2A_SECONDS} s "
+        f"stream ({n_chunks} chunks of {ck.in_chunk_len}) RTF eager "
+        f"{rtf['eager']:.6f}, graph {rtf['graph']:.6f} (medians of "
+        f"{len(TURNS) // 2}, in turns), graph against eager {one_diff:.1e}; "
+        f"+{W2A_TAIL}-row ragged tail against ar_loop {tail_diff:.1e}; "
+        f"{W2A_LANES} lanes: eager {rate['eager']:.1f}, graph "
+        f"{rate['graph']:.1f} samples/s, graph against eager {lanes_diff:.1e}"
+        f", chunks against eager forwards {chunk_err:.1e}; profiler over "
+        f"{replays} replays: device busy {busy}")
+    return {"single_stream_rtf": rtf, "single_stream_seconds": one_times,
+            "samples_per_s": rate, "seconds": times,
+            "single_stream_max_abs_diff": one_diff,
+            "ragged_tail_max_abs_diff": tail_diff,
+            "lanes_max_abs_diff": lanes_diff,
+            "chunk_max_abs_err": chunk_err, "profile": prof}
+
+
+def _write_wavs(write_wav, root: str, lengths, rng) -> str:
+    os.makedirs(root)
+    for i, n in enumerate(lengths):
+        write_wav(os.path.join(root, f"utt{i}.wav"),
+                  0.3 * rng.standard_normal(n), 16000)
+    return root
+
+
+def phase_w2a_cli(port, seed: int, tmp: str) -> dict:
+    """[w2a-cli] ``bin/decode.py`` in w2a mode on a wav.scp of synthetic
+    waves with a raw-wave AR BiGRU (1 + 64 inputs, 4000-sample chunks):
+    eager, ``--ar-scan`` and ``--decode-batch-size 4 --ar-scan``; then
+    ``bin/predict_ema.py`` on a synthetic wav directory with the 13-d AR
+    BiGRU, with and without ``--ar-scan --batch 4``. Each writes its .npy
+    files, of the right shape and finite."""
+    import yaml
+    inference, decode, predict_ema = (port["inference"], port["decode"],
+                                      port["predict_ema"])
+    rng = np.random.default_rng(seed + 4)
+    gp = dict(W2A_AR_GP, in_channels=1 + W2A_AR_GP["ar_output"])
+    config = dict(W2A_CONFIG, generator_params=gp, batch_max_steps=4000)
+    ckpt = bigru_checkpoint(port, gp, seed, os.path.join(tmp, "w2a_raw.pth"))
+    lengths = (20000, 12800)
+    wav_dir = _write_wavs(port["write_wav"], os.path.join(tmp, "wavs"),
+                          lengths, rng)
+    scp = os.path.join(tmp, "wav.scp")
+    with open(scp, "w") as f:
+        f.writelines(f"utt{i} {os.path.join(wav_dir, f'utt{i}.wav')}\n"
+                     for i in range(len(lengths)))
+    ck = inference.chunking(config)
+    results = {}  # run -> the output shapes it wrote
+    for name, kwargs in (("eager", {}), ("scan", {"ar_scan": True}),
+                         ("scan_b4", {"ar_scan": True,
+                                      "decode_batch_size": 4})):
+        outdir = os.path.join(tmp, f"w2a_{name}")
+        decode.decode(config, ckpt, outdir, feats_scp=scp, device="cuda",
+                      **kwargs)
+        results[f"decode_{name}"] = []
+        for i, n in enumerate(lengths):
+            out = np.load(os.path.join(outdir, f"utt{i}_gen.npy"))
+            results[f"decode_{name}"].append(out.shape)
+            if out.shape != (ck.kept_rows(n), 12) or not np.isfinite(
+                    out).all():
+                raise AssertionError(f"[w2a-cli] decode {name}: utt{i} "
+                                     f"{out.shape}, not ({ck.kept_rows(n)}, "
+                                     f"12) or not finite")
+        log(f"[w2a-cli] decode w2a {kwargs or 'eager'}: wrote "
+            f"utt0_gen.npy, utt1_gen.npy")
+    # predict_ema: <exp>/config.yml + best_mel_ckpt.pkl, MFCC-13 features
+    exp = os.path.join(tmp, "exp", "ema_w2a_mfcc")
+    os.makedirs(exp)
+    gp13 = dict(W2A_AR_GP, in_channels=13 + W2A_AR_GP["ar_output"])
+    with open(os.path.join(exp, "config.yml"), "w") as f:
+        yaml.safe_dump(dict(W2A_CONFIG, generator_params=gp13), f)
+    bigru_checkpoint(port, gp13, seed, os.path.join(exp, "best_mel_ckpt.pkl"))
+    ema_wavs = _write_wavs(port["write_wav"], os.path.join(tmp, "ema_wavs"),
+                           (32000, 24080, 16000, 40000, 8000), rng)
+    hop = predict_ema.hop_of(exp)
+    ck = inference.chunking(dict(W2A_CONFIG, generator_params=gp13))
+    for name, flags in (("loop", []), ("scan_b4", ["--ar-scan", "--batch",
+                                                   "4"])):
+        outdir = os.path.join(tmp, f"ema_{name}")
+        predict_ema.main([exp, ema_wavs, outdir, *flags, "--device", "cuda"])
+        results[f"predict_ema_{name}"] = []
+        for i, n in enumerate((32000, 24080, 16000, 40000, 8000)):
+            out = np.load(os.path.join(outdir, f"utt{i}.npy"))
+            results[f"predict_ema_{name}"].append(out.shape)
+            rows = ck.kept_rows(n // hop + 1)
+            if out.shape != (rows, 12) or not np.isfinite(out).all():
+                raise AssertionError(f"[w2a-cli] predict_ema {name}: utt{i} "
+                                     f"{out.shape}, not ({rows}, 12) or not "
+                                     f"finite")
+        log(f"[w2a-cli] predict_ema {' '.join(flags) or '(chunk loop)'}: "
+            f"wrote utt0.npy ... utt4.npy")
+    return results
+
+
+def churn_schedule(lanes: int) -> list[tuple[str, int, int]]:
+    """(phase, joins, leaves) before each round of the churn."""
+    return ([("1 stream", 0, 0)] * 10 + [(f"ramp to {lanes}", 1, 0)]
+            * (lanes - 1) + [(f"{lanes} streams", 0, 0)] * 10
+            + [("drain to 4", 0, 1)] * (lanes - 4) + [("4 streams", 0, 0)]
+            * 10)
+
+
+def run_churn(streaming, inference, model, config, feat_dim: int,
+              rng, eager_check: bool) -> dict:
+    """The churn schedule through one ``StreamingServer``: each round timed
+    (``step``, its host readback included); with ``eager_check`` each round
+    held against the eager masked step (``chunk_step``) on the same inputs,
+    carry and mask, bit for bit; then each client's stream served alone in
+    its lane (the lanes below it held by clients that send nothing), bit
+    for bit. Clients with an odd id skip every seventh round of their
+    stream (a stall keeps the carry)."""
+    server = streaming.StreamingServer(model, config, max_lanes=STREAM_LANES)
+    syn = server.syn
+    rows = syn.chunk_frames
+    server.join("warm-up")  # the capture, outside the timed rounds
+    server.step({"warm-up": np.zeros((rows, feat_dim), np.float32)})
+    server.leave("warm-up")
+    server.join(0)
+    lane_of, sent, got, lat = {0: 0}, {0: []}, {0: []}, {}
+    next_id, age, worst = 1, {0: 0}, 0.0
+    for label, joins, leaves in churn_schedule(STREAM_LANES):
+        for _ in range(joins):
+            lane_of[next_id] = server.join(next_id)
+            sent[next_id], got[next_id], age[next_id] = [], [], 0
+            next_id += 1
+        for _ in range(leaves):
+            server.leave(server.active[0])
+        subs = {}
+        for cid in server.active:
+            age[cid] += 1
+            if not (cid % 2 and age[cid] % 7 == 0):
+                subs[cid] = rng.standard_normal((rows, feat_dim)).astype(
+                    np.float32)
+        prev = syn._prev.clone()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs = server.step(subs)
+        lat.setdefault(label, []).append(1e3 * (time.perf_counter() - start))
+        for cid, chunk in subs.items():
+            sent[cid].append(chunk)
+            got[cid].append(outs[cid])
+        if eager_check:
+            feats = torch.zeros((STREAM_LANES, rows, feat_dim), device="cuda")
+            mask = torch.zeros((STREAM_LANES,), dtype=torch.bool,
+                               device="cuda")
+            for cid, chunk in subs.items():
+                feats[lane_of[cid]] = torch.from_numpy(chunk).cuda()
+                mask[lane_of[cid]] = True
+            with torch.inference_mode():
+                out, new_prev = inference.chunk_step(model, feats, prev,
+                                                     syn.ck, mask)
+            diff = max([(syn._prev - new_prev).abs().max().item()] + [
+                float(np.abs(outs[cid] - out[lane_of[cid]].cpu().numpy()
+                             ).max()) for cid in subs])
+            worst = max(worst, diff)
+    if worst:
+        raise AssertionError(f"[stream] rounds against the eager masked "
+                             f"step: {worst:.3e} (expected bit-equal)")
+    for cid in sent:  # each stream alone, in its lane
+        solo = streaming.StreamingServer(model, config,
+                                         max_lanes=STREAM_LANES)
+        for i in range(lane_of[cid]):
+            solo.join(f"idle {i}")
+        solo.join(cid)
+        alone = [solo.step({cid: chunk})[cid] for chunk in sent[cid]]
+        if not np.array_equal(np.concatenate(alone), np.concatenate(got[cid])):
+            raise AssertionError(f"[stream] client {cid} (lane "
+                                 f"{lane_of[cid]}): served with others "
+                                 f"differs from served alone")
+    every = [v for values in lat.values() for v in values]
+    phases = {label: {"p50_ms": float(np.percentile(v, 50)),
+                      "p99_ms": float(np.percentile(v, 99)), "rounds": len(v)}
+              for label, v in [*lat.items(), ("overall", every)]}
+    return {"phases": phases, "clients": len(sent),
+            "eager_max_abs_diff": worst if eager_check else None,
+            "server": server, "last_subs": subs}
+
+
+def phase_stream(port, seed: int, device_name: str, tmp: str) -> dict:
+    """[stream] ``StreamingServer(max_lanes=STREAM_LANES)`` with the EMA
+    HiFi-CAR at full width (100-frame chunks, 0.5 s), f32 and hybrid: the
+    churn (``run_churn``, eager check on), p50/p99 ms a round per phase and
+    overall; a profiler window over PROFILE_CHUNKS rounds counting the pair
+    kernels a replay (36), and a replay's device time by CUDA events; one stream's ms a chunk synced, pipelined
+    (``pipeline_depth=2``) and by ``synthesize_all``, in turns, all three
+    bit-equal; then the AR BiGRU served on the same churn, each client
+    against its solo serve."""
+    inference, streaming, weights = (port["inference"], port["streaming"],
+                                     port["weights"])
+    gp = GENERATOR_PARAMS
+    ckpt = os.path.join(tmp, "stream_generator.pth")
+    torch.save({"model": {"generator": weights.jax_params_to_state_dict(
+        numpy_generator_params(gp, seed), gp)}}, ckpt)
+    modes = {"f32": CONFIG, "hybrid_bf16": dict(CONFIG, generator_params=dict(
+        gp, compute_dtype="bfloat16", hybrid_precision=True))}
+    rng = np.random.default_rng(seed + 5)
+    results = {}
+    for mode, config in modes.items():
+        model = inference.load_model(ckpt, config, device="cuda")
+        model.remove_weight_norm()
+        r = run_churn(streaming, inference, model, config, N_FEATS, rng,
+                      eager_check=True)
+        server, subs = r.pop("server"), r.pop("last_subs")
+        prof = profile_device(lambda: [server.step(subs)
+                                       for _ in range(PROFILE_CHUNKS)])
+        pairs = prof["kernel_counts"]["resblock_pair_wgmma"]
+        if pairs != 36 * PROFILE_CHUNKS:
+            raise AssertionError(f"[stream] {mode}: the profiler counted "
+                                 f"{pairs} pair kernels over "
+                                 f"{PROFILE_CHUNKS} rounds, expected "
+                                 f"{36 * PROFILE_CHUNKS}")
+        # beside the profiler's busy share, one read without it: a replay's
+        # device time over the round's p50 (a round adds the upload, the
+        # mask, the copies out and the readback to the replay)
+        replay_ms = time_ms(model.chunk_graph(
+            STREAM_LANES, N_FEATS, server.syn.ck, masked=True).graph.replay,
+            20)
+        replay_share = replay_ms / r["phases"]["overall"]["p50_ms"]
+        x = rng.standard_normal((W2A_SECONDS * 200, N_FEATS)).astype(
+            np.float32)
+        n_chunks = len(x) // CHUNK_FRAMES
+        syn = streaming.StreamingSynthesizer(model, config)
+
+        def synced():
+            syn.reset()
+            return np.concatenate([syn.synthesize_chunk(
+                x[i:i + CHUNK_FRAMES])[0] for i in range(0, len(x),
+                                                         CHUNK_FRAMES)])
+
+        def pipelined():
+            syn.reset()
+            return np.concatenate(list(syn.synthesize(x, pipeline_depth=2)))
+
+        times, outs = run_turns({"synced": synced, "pipelined": pipelined,
+                                 "synthesize_all": lambda: syn.synthesize_all(
+                                     x)}, ("synced", "pipelined",
+                                           "synthesize_all") * 2)
+        if not (np.array_equal(outs["synced"], outs["pipelined"])
+                and np.array_equal(outs["synced"][:, 0],
+                                   outs["synthesize_all"])):
+            raise AssertionError(f"[stream] {mode}: one stream synced, "
+                                 f"pipelined and synthesize_all differ")
+        chunk_ms = {k: 1e3 * float(np.median(v)) / n_chunks
+                    for k, v in times.items()}
+        r.update(profile=prof, pair_launches_profiled=pairs,
+                 replay_device_ms=replay_ms,
+                 replay_share_of_round_p50=replay_share,
+                 single_stream_chunk_ms=chunk_ms)
+        results[mode] = r
+        spans = "; ".join(f"{label} p50 {p['p50_ms']:.3f} p99 "
+                          f"{p['p99_ms']:.3f}" for label, p in
+                          r["phases"].items())
+        busy = ("not measured" if prof["busy_share"] is None else
+                f"{100 * prof['busy_share']:.1f} %")
+        log(f"[stream] {mode}, {STREAM_LANES} lanes, {r['clients']} clients "
+            f"over {len(churn_schedule(STREAM_LANES))} rounds on "
+            f"{device_name}: ms a round {spans}; rounds against the eager "
+            f"masked step {r['eager_max_abs_diff']:.1e}, every client "
+            f"bit-equal to its solo serve; profiler over {PROFILE_CHUNKS} "
+            f"rounds: {pairs} resblock_pair_wgmma, device busy {busy} (a "
+            f"replay's device time {replay_ms:.3f} ms, "
+            f"{100 * replay_share:.1f} % of the round's p50); one "
+            f"stream, ms a chunk: synced {chunk_ms['synced']:.3f}, pipelined "
+            f"{chunk_ms['pipelined']:.3f}, synthesize_all "
+            f"{chunk_ms['synthesize_all']:.3f}")
+    gp13 = dict(W2A_AR_GP, in_channels=13 + W2A_AR_GP["ar_output"])
+    config = dict(W2A_CONFIG, generator_params=gp13)
+    model = inference.load_model(bigru_checkpoint(
+        port, gp13, seed, os.path.join(tmp, "stream_w2a.pth")), config,
+        device="cuda")
+    r = run_churn(streaming, inference, model, config, 13, rng,
+                  eager_check=False)
+    r.pop("server"), r.pop("last_subs")
+    results["w2a"] = r
+    spans = "; ".join(f"{label} p50 {p['p50_ms']:.3f} p99 {p['p99_ms']:.3f}"
+                      for label, p in r["phases"].items())
+    log(f"[stream] w2a AR BiGRU, {STREAM_LANES} lanes, {r['clients']} clients "
+        f"on {device_name}: ms a round {spans}; every client bit-equal to its "
+        f"solo serve")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1309,8 +1815,8 @@ def main() -> int:
 
     smi, device_name = phase_device()
     sys.path.insert(0, ROOT)
-    from articulatory_tpu_torch import inference
-    from articulatory_tpu_torch.bin import decode
+    from articulatory_tpu_torch import inference, streaming
+    from articulatory_tpu_torch.bin import decode, predict_ema
     from articulatory_tpu_torch.bin import train as train_cli
     from articulatory_tpu_torch.layers import residual
     from articulatory_tpu_torch.models import build_model, hifigan
@@ -1331,6 +1837,7 @@ def main() -> int:
     from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
     from articulatory_tpu_torch.utils.device import set_float32_parity
+    from articulatory_tpu_torch.utils.io import write_wav
 
     set_float32_parity()
     build_seconds = phase_build(_build)
@@ -1429,6 +1936,15 @@ def main() -> int:
                     mri_gp["in_channels"] - mri_gp["ar_output"]),
             grads=False, tag="mri-train")
 
+    # inversion and streaming
+    port.update(streaming=streaming, predict_ema=predict_ema,
+                write_wav=write_wav)
+    with tempfile.TemporaryDirectory() as tmp:
+        w2a = phase_w2a(port, args.seed, device_name, tmp)
+        w2a_ar = phase_w2a_ar(port, args.seed, device_name, tmp)
+        w2a_cli = phase_w2a_cli(port, args.seed, tmp)
+        stream = phase_stream(port, args.seed, device_name, tmp)
+
     f32 = by_dtype["float32"]
     pair_entry = {
         "name": "resblock_pair", "route": "cuda",
@@ -1492,6 +2008,11 @@ def main() -> int:
         "mri_shapes_bf16_ms": mri_sums["bfloat16"]["kernel_ms"],
         "mri_shapes_bf16_plain_ms": mri_sums["bfloat16"]["plain_ms"],
         "mri_shapes_bf16_bound_ms": mri_sums["bfloat16"]["bound_ms"],
+        # the streaming server's captured round (replays run no Python):
+        # the pair kernels the profiler counted over PROFILE_CHUNKS rounds
+        "launches_stream_profiled": {
+            mode: stream[mode]["pair_launches_profiled"]
+            for mode in ("f32", "hybrid_bf16")},
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -1549,7 +2070,9 @@ def main() -> int:
                    "mri_kernel_totals": mri_sums,
                    "mri_kernel_stages": mri_stages,
                    "mri_head_shapes": mri_head_rows, "mri": mri_results,
-                   "mri_train": mri_train, "kernels": kernels}, f, indent=1)
+                   "mri_train": mri_train, "w2a": w2a, "w2a_ar": w2a_ar,
+                   "w2a_cli": w2a_cli, "stream": stream,
+                   "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

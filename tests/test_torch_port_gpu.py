@@ -401,3 +401,123 @@ def test_capture_error_raises_and_runs_no_eager_loop(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the chunk step"):
         inference.ar_loop_batched(model, _feats([20]), config, scan=True)
     assert not model.graphs
+
+
+def _bigru(cuda, ar_input=16, out=4, feats=5, chunk=32):
+    """A small AR BiGRU on the card as a ``LoadedModel``, and its w2a
+    config: 32-row chunks, hop 8; ar_input 16 keeps a 4-frame last-window
+    carry, 200 (50 frames) the shift register."""
+    from articulatory_tpu_torch.inference import LoadedModel
+
+    gp = dict(in_channels=feats + 8, hidden_size=16, out_channels=out,
+              use_ar=True, ar_input=ar_input, ar_hidden=8, ar_output=8)
+    config = {"dataset_mode": "w2a", "batch_max_steps": chunk,
+              "hop_size": 8, "generator_params": gp}
+    model = build_model("BiGRU", gp, seed=ar_input).to(cuda).eval()
+    return LoadedModel(model=model, config=config, device=cuda), config
+
+
+def _rows(lengths, feats=5, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(t, feats, generator=gen).numpy() for t in lengths]
+
+
+@pytest.mark.parametrize("ar_input", [16, 200])
+def test_bigru_graph_matches_eager(cuda, ar_input):
+    """The BiGRU's captured chunk step (cuDNN's recurrence inside a CUDA
+    graph) gives the eager loop's outputs bit for bit: lanes, one stream,
+    and the exact ragged tail after the whole chunks."""
+    import numpy as np
+
+    from articulatory_tpu_torch.inference import (
+        ar_loop,
+        ar_loop_batched,
+        ar_loop_scan,
+    )
+
+    model, config = _bigru(cuda, ar_input)
+    xs = _rows([96, 70, 45])
+    eager = ar_loop_batched(model, xs, config)
+    graph = ar_loop_batched(model, xs, config, scan=True)
+    for e, g in zip(eager, graph):
+        np.testing.assert_array_equal(g, e)
+    for x in xs:  # 45 rows: a whole chunk and a 13-row tail
+        np.testing.assert_array_equal(ar_loop_scan(model, x, config),
+                                      ar_loop(model, x, config))
+    assert len(model.graphs) == 2  # B 3 and B 1
+
+
+def test_bigru_f32_on_card_matches_float64(cuda):
+    """cuDNN's f32 recurrence (TF32 off) within 1e-4 of max |y| of the same
+    module in float64 on the card."""
+    import copy
+
+    model, _ = _bigru(cuda, feats=13)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 300, 13, generator=gen).to(cuda)
+    ar = torch.randn(4, 4, 4, generator=gen).to(cuda)
+    with torch.inference_mode():
+        y = model.model(x, ar)
+        y64 = copy.deepcopy(model.model).double()(x.double(), ar.double())
+    err = (y.double() - y64).abs().max() / y64.abs().max()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("which", ["a2w", "w2a"])
+def test_server_graph_step_matches_eager_masked_step(cuda, which):
+    """Rounds of a churning server, each replayed from the captured masked
+    step, equal the eager masked step on the same inputs, carry and mask,
+    output and next carry bit for bit."""
+    import numpy as np
+
+    from articulatory_tpu_torch.inference import chunk_step
+    from articulatory_tpu_torch.streaming import StreamingServer
+
+    if which == "a2w":
+        model, config = _loaded(cuda, 64)
+        feats, rows = 13, 10
+    else:
+        model, config = _bigru(cuda)
+        feats, rows = 5, 32
+    server = StreamingServer(model, config, max_lanes=3)
+    (x,) = _rows([8 * rows], feats=feats)
+    plan = [["a"], ["a", "b"], ["b"], ["a", "b", "c"], ["c"], ["a", "c"]]
+    for rnd, clients in enumerate(plan):
+        for cid in clients:
+            if cid not in server.active:
+                server.join(cid)
+        prev = server.syn._prev.clone()
+        subs = {cid: x[rnd * rows:(rnd + 1) * rows] for cid in clients}
+        got = server.step(subs)
+        feats_in = torch.zeros(3, rows, feats, device=cuda)
+        mask = torch.zeros(3, dtype=torch.bool, device=cuda)
+        for cid, chunk in subs.items():
+            lane = server._lane_of[cid]
+            feats_in[lane] = torch.from_numpy(chunk).to(cuda)
+            mask[lane] = True
+        with torch.inference_mode():
+            out, new_prev = chunk_step(model, feats_in, prev, server.syn.ck,
+                                       mask)
+        assert torch.equal(server.syn._prev, new_prev), rnd
+        for cid in clients:
+            np.testing.assert_array_equal(
+                got[cid], out[server._lane_of[cid]].cpu().numpy()[
+                    :len(got[cid])])
+    assert len(model.graphs) == 1  # one masked graph for every round
+
+
+def test_dispatched_chunks_survive_later_replays(cuda):
+    """``dispatch_chunk`` hands out a tensor of its own: chunks kept in
+    flight keep their values while later chunks replay the graph."""
+    from articulatory_tpu_torch.streaming import StreamingSynthesizer
+
+    model, config = _loaded(cuda, 64)
+    (x,) = _feats([40])
+    syn = StreamingSynthesizer(model, config)
+    inflight = [syn.dispatch_chunk(x[i:i + 10]) for i in range(0, 40, 10)]
+    syn.reset()
+    synced = [syn.synthesize_chunk(x[i:i + 10]) for i in range(0, 40, 10)]
+    graph = next(iter(model.graphs.values()))
+    for out, want in zip(inflight, synced):
+        assert out.data_ptr() != graph.static_out.data_ptr()
+        assert torch.equal(out.cpu(), torch.from_numpy(want))
