@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Decode dumped features with a trained generator on the GPU (port of
 ``articulatory_tpu/bin/decode.py`` for the wave-output modes: default, a2w
-and the generic x2y modes such as the MRI recipe's; ``art`` writes
-features; ``w2a`` inverts the waves of a wav.scp (``--feats-scp``) into
-EMA trajectories with a ``BiGRU``).
+and the generic x2y modes such as the MRI recipe's; ``art`` and ``a2m``
+write features; ``w2a`` inverts the waves of a wav.scp (``--feats-scp``),
+or the input stream of a dump directory (``--dumpdir``: ``<utt>-wave.npy``
+or the hdf5 ``wave``, e.g. frame-rate MFCCs), into EMA trajectories with
+an inversion model, a ``BiGRU`` or the ``Transformer``).
+Every generator of the zoo decodes: the chunked-AR loops run the AR ones,
+``LoadedModel.inference`` (full utterance; PQMF synthesis for multi-band
+models, seeded noise for Parallel WaveGAN and StyleMelGAN) the others.
 
 Writes ``<utt>_gen.wav`` per utterance (``<utt>_<i>_gen.wav`` and
 ``<utt>_<i>.npy`` per window with ``wsola``, ``<utt>_gen.npy`` for feature
@@ -46,7 +51,7 @@ from articulatory_tpu_torch.inference import (
 )
 from articulatory_tpu_torch.utils.io import read_hdf5, write_wav
 
-_NOT_PORTED_MODES = ("a2w_mult", "ph2a", "ph2m", "a2m")
+_NOT_PORTED_MODES = ("a2w_mult", "ph2a", "ph2m")
 
 
 def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
@@ -56,11 +61,13 @@ def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(f"dataset_mode {mode!r} is not ported yet")
     if mode == "w2a":
-        if feats_scp is None:
-            raise ValueError("w2a decodes the waves of a wav.scp: pass "
-                             "--feats-scp")
-        return AudioSCPDataset(feats_scp, return_utt_id=True,
-                               return_sampling_rate=False)
+        if feats_scp is not None:
+            return AudioSCPDataset(feats_scp, return_utt_id=True,
+                                   return_sampling_rate=False)
+        if config.get("format", "hdf5") == "hdf5":
+            return ArtDataset(dumpdir, query="*.h5", return_utt_id=True,
+                              load_fn=lambda path: read_hdf5(path, "wave"))
+        return ArtDataset(dumpdir, query="*-wave.npy", return_utt_id=True)
     transform = (get_transform(config["transform"])
                  if config.get("transform") else None)
     given = config.get("input_transform")

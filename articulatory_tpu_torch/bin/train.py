@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Train a GAN vocoder on the GPU (port of ``articulatory_tpu/bin/train.py``
-for the a2w path, which the generic x2y modes such as the MRI recipe's
-resolve to: ``SpeechDataset`` + ``SpeechCollater`` random windows, the
-named input/output transforms, the HiFi-GAN generator and discriminators,
-``train/gan.py``'s step). The top-level ``time_packing`` key, a TPU layout
-option, is accepted and ignored.
+"""Train a GAN vocoder or an inversion model on the GPU (port of
+``articulatory_tpu/bin/train.py``): ``SpeechDataset`` + ``SpeechCollater``
+random windows for a2w (and the generic x2y modes such as the MRI
+recipe's) and w2a, ``MelArtDataset`` + ``CollaterMelArt`` for art, a2m and
+m2a; the named input/output transforms; every generator and
+discriminator of the zoo; ``train/gan.py``'s step (its noise and window
+draws seeded from ``--seed``). The top-level ``time_packing`` key, a TPU
+layout option, is accepted and ignored.
 
     python -m articulatory_tpu_torch.bin.train --device cuda \\
         --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
@@ -25,8 +27,11 @@ import os
 
 import numpy as np
 
-from articulatory_tpu_torch.data.collate import SpeechCollater
-from articulatory_tpu_torch.data.datasets import SpeechDataset
+from articulatory_tpu_torch.data.collate import (
+    CollaterMelArt,
+    SpeechCollater,
+)
+from articulatory_tpu_torch.data.datasets import MelArtDataset, SpeechDataset
 from articulatory_tpu_torch.data.loader import DataLoader
 from articulatory_tpu_torch.data.transforms import (
     ART_ONLY_TRANSFORMS,
@@ -36,6 +41,7 @@ from articulatory_tpu_torch.models import build_model
 from articulatory_tpu_torch.train.gan import (
     GANCriterion,
     GANTrainState,
+    RandomDraws,
     make_eval_step,
     make_train_step,
 )
@@ -81,25 +87,39 @@ def _transforms(config: dict) -> dict:
 
 def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
                    data_root: str):
-    """Train/dev ``SpeechDataset``s and their collaters."""
+    """Train/dev datasets and their collaters: ``SpeechDataset`` with
+    ``SpeechCollater``, or ``MelArtDataset`` with ``CollaterMelArt`` in the
+    art, a2m and m2a modes."""
     mode = config.get("dataset_mode", "default")
-    if mode in ("art", "a2m", "m2a"):
-        raise NotImplementedError(f"training dataset_mode {mode!r} (the "
-                                  "mel/art collater) is not ported yet")
     if config["format"] == "hdf5":
         kwargs = dict(audio_query="*.h5", mel_query="*.h5",
                       audio_load_fn=lambda p: read_hdf5(p, "wave"))
+        mel_load_fn = lambda p: read_hdf5(p, "feats")  # noqa: E731
     elif config["format"] == "npy":
         kwargs = dict(audio_query="*-wave.npy", mel_query="*-feats.npy",
                       audio_load_fn=np.load)
+        mel_load_fn = np.load
     else:
         raise ValueError("support only hdf5 or npy format.")
+    rng = np.random.default_rng(config.get("seed", 0))
+    gp = config["generator_params"]
+    if mode in ("art", "a2m", "m2a"):
+        datasets = [MelArtDataset(
+            d, mel_query=kwargs["mel_query"], mel_load_fn=mel_load_fn,
+            allow_cache=config.get("allow_cache", False),
+            transform=_transforms(config)["transform"], data_root=data_root)
+            for d in (train_dumpdir, dev_dumpdir)]
+        ar_len = (int(gp["ar_input"] / gp["out_channels"])
+                  if gp.get("use_ar", False) else None)
+        collater = CollaterMelArt(
+            config["batch_max_steps"], config["hop_size"],
+            gp.get("aux_context_window", 0), ar_len=ar_len,
+            dataset_mode=mode, rng=rng)
+        return datasets[0], datasets[1], collater, collater
     datasets = [SpeechDataset(root_dir=d, data_root=data_root,
                               allow_cache=config.get("allow_cache", False),
                               **_transforms(config), **kwargs)
                 for d in (train_dumpdir, dev_dumpdir)]
-    rng = np.random.default_rng(config.get("seed", 0))
-    gp = config["generator_params"]
 
     def collater():
         return SpeechCollater(
@@ -168,7 +188,8 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
             opt_params.get("lr", 1e-3),
             config.get(f"{name}_scheduler_params", {}))
     state = GANTrainState(generator=generator, discriminator=discriminator,
-                          opt_g=opts["generator"], opt_d=opts["discriminator"])
+                          opt_g=opts["generator"], opt_d=opts["discriminator"],
+                          draws=RandomDraws(seed))
     epochs = 0
     if pretrain:
         restore_state(state, load_checkpoint(pretrain), config,

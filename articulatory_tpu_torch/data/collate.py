@@ -1,15 +1,28 @@
-"""Training collater: lists of utterances -> fixed-shape numpy batches in
-NLC layout (port of ``articulatory_tpu/data/collate.py::SpeechCollater``).
+"""Training collaters: lists of utterances -> fixed-shape numpy batches in
+NLC layout (port of ``articulatory_tpu/data/collate.py``).
 
-The port carries the a2w path with ``package_mode: random_window`` (a
-random fixed-size crop per utterance, drawn from the collater's numpy
-generator in the JAX package's order, so one seed gives both packages the
-same crops): x = (art window,), y = audio (B, T, 1), and with ``use_ar``
-the waveform past ``ar`` (B, ar_input, 1), zero-padded at the start of an
-utterance. It takes every ``dataset_mode`` that ``parse_dataset_mode``
-resolves to those streams: ``a2w``, ``default`` and the generic x2y modes
-(the MRI recipe's among them). Other dataset modes, package modes, speaker
-ids and phonemes raise ``NotImplementedError``.
+``SpeechCollater`` carries ``package_mode: random_window`` (a random
+fixed-size crop per utterance, drawn from the collater's numpy generator in
+the JAX package's order, so one seed gives both packages the same crops)
+over the art and audio streams, in both directions:
+
+- a2w (``a2w``, ``default`` and the generic x2y modes, the MRI recipe's
+  among them): x = (art window,), y = audio (B, T, 1), and with ``use_ar``
+  the waveform past ``ar`` (B, ar_input, 1);
+- w2a: x = (audio window,), y = art (B, T', C), and with ``use_ar`` the
+  feature past ``ar`` (B, ar_input // out_channels, C).
+
+AR pasts are zero-padded at the start of an utterance. An audio stream of
+frame-rate features, ``(T, F)`` per utterance (the w2a recipes' MFCCs, with
+``hop_size`` 1), is batched as ``(B, T, F)``; the JAX package's collater
+appends an axis to it too, a 4-D batch no model reads. Other dataset modes
+(mel and phoneme streams), package modes, speaker ids and phonemes raise
+``NotImplementedError``.
+
+``CollaterMelArt`` is the a2m / m2a / art crop of (mel, art) pairs, and
+``Collater`` the legacy Parallel WaveGAN (audio, mel) crop, with
+``use_noise_input`` a standard-normal noise input drawn from the same
+generator, x = (noise, aux window); both copied from the JAX package.
 
 ``parse_dataset_mode`` and ``is_wave_output_mode`` are the JAX package's
 rules (``articulatory_tpu/data/collate.py``), copied.
@@ -94,7 +107,7 @@ class SpeechCollater:
         config = config or {}
         gp = config.get("generator_params", {})
         x_key, y_key = parse_dataset_mode(dataset_mode)[:2]
-        if (x_key, y_key) != ("art", "audio"):
+        if {x_key, y_key} != {"art", "audio"}:
             raise NotImplementedError(f"training dataset_mode {dataset_mode!r} "
                                       f"({x_key} to {y_key}) is not ported "
                                       "yet")
@@ -111,7 +124,9 @@ class SpeechCollater:
         self.hop_size = hop_size
         self.aux_context_window = aux_context_window
         self.rng = rng or np.random.default_rng()
-        # waveform-output modes carry the waveform-domain AR past
+        self.x_key, self.y_key = x_key, y_key
+        # the AR past of the output stream: waveform samples (a2w) or
+        # feature frames (w2a)
         self.ar_len = (int(gp.get("ar_input", 512) / gp.get("out_channels", 1))
                        if gp.get("use_ar", False) else None)
         self.start_offset = aux_context_window
@@ -137,14 +152,104 @@ class SpeechCollater:
                     + self.aux_context_window)
         audio = np.stack([a[s:s + self.batch_max_steps]
                           for a, s in zip(audios, wav_starts)]
-                         ).astype(np.float32)[..., None]  # (B, T, 1)
+                         ).astype(np.float32)
+        if audio.ndim == 2:
+            audio = audio[..., None]  # (B, T, 1)
         art = np.stack([a[s:e] for a, s, e in zip(arts, art_starts, art_ends)]
                        ).astype(np.float32)  # (B, T', C)
-        out = {"audio": audio, "art": art, "x": (art,), "y": audio}
+        out = {"audio": audio, "art": art}
+        out["x"], out["y"] = (out[self.x_key],), out[self.y_key]
         if self.ar_len is not None:
             windows = []
-            for wav, start in zip(audios, wav_starts):
-                w = wav[max(0, start - self.ar_len): start]
-                windows.append(np.pad(w, (self.ar_len - len(w), 0)))
-            out["ar"] = np.stack(windows).astype(np.float32)[..., None]
+            if self.y_key == "audio":
+                for wav, start in zip(audios, wav_starts):
+                    w = wav[max(0, start - self.ar_len): start]
+                    windows.append(np.pad(w, (self.ar_len - len(w), 0)))
+                out["ar"] = np.stack(windows).astype(np.float32)[..., None]
+            else:
+                for a, start in zip(arts, art_starts):
+                    w = a[max(0, start - self.ar_len): start]
+                    windows.append(np.pad(w, ((self.ar_len - len(w), 0),
+                                              (0, 0))))
+                out["ar"] = np.stack(windows).astype(np.float32)
+        return out
+
+
+class CollaterMelArt:
+    """Random-window crop of (mel, art) pairs: x = art, y = mel (a2m,
+    art), or x = mel, y = art (m2a)."""
+
+    def __init__(self, batch_max_steps: int = 20480, hop_size: int = 256,
+                 aux_context_window: int = 2, ar_len=None,
+                 dataset_mode: str = "a2m",
+                 rng: np.random.Generator | None = None):
+        if ar_len is not None:
+            raise NotImplementedError("AR pasts are not supported here (as "
+                                      "in the reference)")
+        batch_max_steps -= batch_max_steps % hop_size
+        self.batch_max_frames = batch_max_steps // hop_size
+        self.aux_context_window = aux_context_window
+        self.dataset_mode = dataset_mode
+        self.rng = rng or np.random.default_rng()
+        self.start_offset = aux_context_window
+        self.end_offset = -(self.batch_max_frames + aux_context_window)
+
+    def __call__(self, batch) -> dict:
+        cs = [b[0] for b in batch]
+        arts = [b[1] for b in batch]
+        start_frames = np.array([
+            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            for c in cs])
+        starts = start_frames - self.aux_context_window
+        ends = start_frames + self.batch_max_frames + self.aux_context_window
+        c_batch = np.stack([c[s:e] for c, s, e in zip(cs, starts, ends)]
+                           ).astype(np.float32)
+        art_batch = np.stack([a[s:e] for a, s, e in zip(arts, starts, ends)]
+                             ).astype(np.float32)
+        if self.dataset_mode == "m2a":
+            return {"x": (c_batch,), "y": art_batch}
+        return {"x": (art_batch,), "y": c_batch}
+
+
+class Collater:
+    """Legacy Parallel WaveGAN crop of (audio, mel) pairs with the aux
+    context window; ``use_noise_input`` adds x[0] = N(0, 1) noise of the
+    audio's shape."""
+
+    def __init__(self, batch_max_steps: int = 20480, hop_size: int = 256,
+                 aux_context_window: int = 2, use_noise_input: bool = False,
+                 rng: np.random.Generator | None = None):
+        batch_max_steps -= batch_max_steps % hop_size
+        self.batch_max_steps = batch_max_steps
+        self.batch_max_frames = batch_max_steps // hop_size
+        self.hop_size = hop_size
+        self.aux_context_window = aux_context_window
+        self.use_noise_input = use_noise_input
+        self.rng = rng or np.random.default_rng()
+        self.start_offset = aux_context_window
+        self.end_offset = -(self.batch_max_frames + aux_context_window)
+        self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
+
+    def __call__(self, batch) -> dict:
+        batch = [b for b in batch if len(b[1]) > self.mel_threshold]
+        xs = [b[0] for b in batch]
+        cs = [b[1] for b in batch]
+        start_frames = np.array([
+            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            for c in cs])
+        x_starts = start_frames * self.hop_size
+        c_starts = start_frames - self.aux_context_window
+        c_ends = start_frames + self.batch_max_frames + self.aux_context_window
+        y_batch = np.stack([x[s:s + self.batch_max_steps]
+                            for x, s in zip(xs, x_starts)]
+                           ).astype(np.float32)[..., None]  # (B, T, 1)
+        c_batch = np.stack([c[s:e] for c, s, e in zip(cs, c_starts, c_ends)]
+                           ).astype(np.float32)
+        out: dict = {"y": y_batch}
+        if self.use_noise_input:
+            z_batch = self.rng.standard_normal(y_batch.shape).astype(
+                np.float32)
+            out["x"] = (z_batch, c_batch)
+        else:
+            out["x"] = (c_batch,)
         return out

@@ -3,7 +3,8 @@
 features through ``<data_root>/<stage>/feats.scp``); for decoding
 ``ArtDataset`` over a dump directory or a feats.scp of .npy paths,
 ``MelSCPDataset`` / ``ArtSCPDataset`` over a feats.scp of hdf5 or npy
-values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input).
+values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input);
+``MelArtDataset``, the (mel, art) pairs of a2m / m2a / art training.
 They return numpy arrays."""
 
 from __future__ import annotations
@@ -37,6 +38,16 @@ def _stage_from_root(root_dir: str) -> str:
     return parts[-1]
 
 
+def _utt_id(path: str) -> str:
+    """``<utt>`` of ``<utt>-feats.npy``, ``<utt>-wave.npy`` or
+    ``<utt>.<ext>``."""
+    name = os.path.basename(path)
+    for suffix in ("-feats.npy", "-wave.npy"):
+        if name.endswith(suffix):
+            return name[: -len(suffix)]
+    return os.path.splitext(name)[0]
+
+
 def _read_wave(path: str) -> np.ndarray:
     return read_hdf5(path, "wave")
 
@@ -47,8 +58,9 @@ class SpeechDataset:
     files must pair with them one to one), articulatory features (.npy)
     through ``<data_root>/<stage>/feats.scp``. ``input_transform`` (default
     ``transform``) maps the features, ``output_transform`` the audio (no
-    default: ``bin/train.py`` decides it, as in the JAX package). The a2w
-    path only: speaker ids, phonemes and mel streams are not ported."""
+    default: ``bin/train.py`` decides it, as in the JAX package). The art
+    and audio streams only (a2w and w2a): speaker ids, phonemes and mel
+    streams are not ported."""
 
     def __init__(self, root_dir: str, audio_query: str = "*.h5",
                  mel_query: str = "*.h5", audio_load_fn=_read_wave,
@@ -100,6 +112,45 @@ class SpeechDataset:
         return len(self.audio_files)
 
 
+class MelArtDataset:
+    """(mel, art) pairs: mels from the dump directory, articulatory
+    features (.npy) through ``<data_root>/<stage>/feats.scp`` under the
+    utterance id (``<utt>`` of ``<utt>.h5`` or ``<utt>-feats.npy``; the
+    JAX package looks an npy dump up as ``<utt>-feats``); both cut to the
+    shorter."""
+
+    def __init__(self, root_dir: str, mel_query: str = "*.h5",
+                 mel_load_fn=None, allow_cache: bool = False,
+                 transform=None, data_root: str = "data"):
+        self.mel_load_fn = mel_load_fn or (lambda p: read_hdf5(p, "feats"))
+        mel_files = sorted(find_files(root_dir, mel_query))
+        if not mel_files:
+            raise FileNotFoundError(f"Not found any mel files in {root_dir}.")
+        self.mel_files = mel_files
+        self.utt_ids = [_utt_id(f) for f in mel_files]
+        scp = load_scp(os.path.join(data_root, _stage_from_root(root_dir),
+                                    "feats.scp"))
+        self.art_files = [scp[u] for u in self.utt_ids]
+        self.transform = transform
+        self.allow_cache = allow_cache
+        self.caches: dict[int, tuple] = {}
+
+    def __getitem__(self, idx: int) -> tuple:
+        if self.allow_cache and idx in self.caches:
+            return self.caches[idx]
+        mel = self.mel_load_fn(self.mel_files[idx])
+        art = np.load(self.art_files[idx])
+        if self.transform is not None:
+            art = self.transform(art)
+        items = (mel[: len(art)], art[: len(mel)])
+        if self.allow_cache:
+            self.caches[idx] = items
+        return items
+
+    def __len__(self) -> int:
+        return len(self.mel_files)
+
+
 class ArtDataset:
     """Articulatory (or any frame-rate) features from a dump directory
     (files matching ``query``; ``<utt>-feats.npy`` names give ``<utt>``) or a
@@ -112,11 +163,7 @@ class ArtDataset:
         self.load_fn = load_fn if load_fn is not None else np.load
         if os.path.isdir(feats_scp_or_dir):
             files = find_files(feats_scp_or_dir, query)
-            self.utt_ids = [
-                os.path.basename(f).replace("-feats.npy", "")
-                if f.endswith("-feats.npy")
-                else os.path.splitext(os.path.basename(f))[0]
-                for f in files]
+            self.utt_ids = [_utt_id(f) for f in files]
             self.art_files = files
         else:
             scp = load_scp(feats_scp_or_dir)

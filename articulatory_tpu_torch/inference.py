@@ -29,8 +29,17 @@ Weights may be stored as int8 (``LoadedModel.quantize_int8``) or bfloat16
 weights. Float64 inputs decode in float64 through ``ar_loop`` (with a
 ``.double()`` model), for parity checks.
 
+Every generator of the zoo decodes full utterances through
+``LoadedModel.inference``: a multi-band model (``out_channels > 1`` and
+``pqmf: true``, the JAX package's gate; a w2a model's channels are
+features, not sub-bands) is synthesised by ``ops/pqmf.py``; Parallel
+WaveGAN and StyleMelGAN draw their noise from the ``LoadedModel``'s
+``torch.Generator`` (seeded 0) through their ``inference`` methods.
+The chunked-AR loops run the AR generators (``use_ar``), as in the JAX
+package, whose ``ar_loop`` never applies PQMF.
+
 Not ported yet (they raise ``NotImplementedError``): multimodal decode,
-PQMF synthesis, int8 or bf16 storage of a ``BiGRU``.
+int8 or bf16 storage of any generator but the HiFi-GAN.
 """
 
 from __future__ import annotations
@@ -43,8 +52,13 @@ import torch
 from torch import nn
 
 from articulatory_tpu_torch.config import fix_generator_params, load_config
-from articulatory_tpu_torch.models import build_model
+from articulatory_tpu_torch.models import (
+    NOISE_DRIVEN_GENERATORS,
+    RNG_GENERATORS,
+    build_model,
+)
 from articulatory_tpu_torch.models.rnn import BiGRU
+from articulatory_tpu_torch.ops.pqmf import PQMF
 from articulatory_tpu_torch.utils.checkpoint import (
     generator_state_dict,
     load_checkpoint,
@@ -64,6 +78,10 @@ class LoadedModel:
     scale: np.ndarray | None = None
     quantized: bool = False  # int8 weights (see quantize_int8)
     graphs: dict = dataclasses.field(default_factory=dict, repr=False)
+    pqmf: PQMF | None = None  # multi-band synthesis
+    # PWG / StyleMelGAN noise, seeded 0 at first use
+    noise: torch.Generator | None = dataclasses.field(default=None,
+                                                      repr=False)
 
     def normalize(self, c: np.ndarray) -> np.ndarray:
         if self.mean is None:
@@ -77,8 +95,9 @@ class LoadedModel:
         self.graphs.clear()
 
     def _check_storage(self, kind: str) -> None:
-        if isinstance(self.model, BiGRU):
-            raise NotImplementedError(f"{kind} weight storage of a BiGRU is "
+        name = type(self.model).__name__
+        if name != "HiFiGANGenerator":
+            raise NotImplementedError(f"{kind} weight storage of a {name} is "
                                       "not ported yet")
 
     def quantize_int8(self) -> None:
@@ -120,6 +139,11 @@ class LoadedModel:
         c = torch.as_tensor(c, device=self.device)
         if c.is_floating_point() and c.dtype != torch.float64:
             c = c.float()
+        name = type(self.model).__name__
+        if name in NOISE_DRIVEN_GENERATORS or name in RNG_GENERATORS:
+            if self.noise is None:
+                self.noise = torch.Generator(self.device).manual_seed(0)
+            return self.model.inference(c, self.noise)
         if ar is None:
             return self.model(c)
         return self.model(c, torch.as_tensor(ar, device=self.device,
@@ -139,10 +163,12 @@ class LoadedModel:
                                           ck, masked)
         return self.graphs[key]
 
+    @torch.inference_mode()
     def inference(self, c: np.ndarray, normalize_before: bool = False,
                   bucket_frames: int | None = None) -> np.ndarray:
         """(T, in_feats) -> (T_out, out_channels), full utterance (a2w T *
-        prod(scales) samples; a BiGRU's T frames).
+        prod(scales) samples, multi-band ones synthesised; an inversion
+        model's frames).
 
         ``bucket_frames`` pads T up to a multiple before the forward and trims
         the output back, as the JAX package does to bound its compile count;
@@ -158,7 +184,10 @@ class LoadedModel:
             pad = (-t) % bucket_frames
             if pad:
                 c = np.pad(c, [(0, pad)] + [(0, 0)] * (c.ndim - 1))
-        out = self(c[None])[0].cpu().numpy()
+        out = self(c[None])
+        if self.pqmf is not None:
+            out = self.pqmf.synthesis(out)
+        out = out[0].cpu().numpy()
         if bucket_frames:
             out = out[: out.shape[0] * t // c.shape[0]]
         return out
@@ -191,10 +220,6 @@ def load_model(checkpoint: str, config: dict | str | None = None,
                          "implemented)")
     gen_type = config.get(f"{prefix}_type", "ParallelWaveGANGenerator")
     gen_params = fix_generator_params(config[f"{prefix}_params"])
-    # multiband synthesis only where the config asks for it: a w2a model's
-    # channels are EMA features
-    if gen_params.get("out_channels", 1) > 1 and config.get("pqmf", False):
-        raise NotImplementedError("PQMF synthesis is not ported yet")
     model = build_model(gen_type, gen_params)
     state = generator_state_dict(load_checkpoint(checkpoint), prefix,
                                  gen_params, gen_type)
@@ -220,8 +245,14 @@ def load_model(checkpoint: str, config: dict | str | None = None,
     mean = scale = None
     if stats is not None:
         mean, scale = _load_stats(stats)
+    # multiband synthesis only where the config asks for it: a w2a model's
+    # channels are EMA features
+    pqmf = None
+    if gen_params.get("out_channels", 1) > 1 and config.get("pqmf", False):
+        pqmf = PQMF(subbands=gen_params["out_channels"],
+                    **config.get("pqmf_params", {})).to(dev)
     loaded = LoadedModel(model=model, config=config, device=dev, mean=mean,
-                         scale=scale)
+                         scale=scale, pqmf=pqmf)
     if quant:
         loaded.quantize_int8()
     return loaded

@@ -24,8 +24,10 @@ in bfloat16, as the JAX package's layers define it, and cast to the compute
 dtype (its jitted forward lets XLA skip some of those bf16 roundings, so
 the two differ at bf16 rounding).
 Inits follow torch's defaults (U(+-1/sqrt(fan_in)) for kernel and bias), or
-N(0, std) for ``kernel_init="normal:<std>"``; random numbers come from the
-``generator`` passed in.
+N(0, std) for ``kernel_init="normal:<std>"``, N(0, sqrt(2 / fan_in)) for
+``"kaiming_normal_relu"`` and zero biases for ``bias_init="zeros"``; random
+numbers come from the ``generator`` passed in. ``Embed`` is
+``torch.nn.Embedding`` (N(0, 1) init, key ``weight``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.ops import conv as conv_ops
@@ -56,6 +59,9 @@ def _kernel_init(shape, fan_in: int, kernel_init: str,
     if kernel_init.startswith("normal:"):
         std = float(kernel_init.split(":", 1)[1])
         return torch.empty(shape).normal_(0.0, std, generator=generator)
+    if kernel_init == "kaiming_normal_relu":
+        return torch.empty(shape).normal_(0.0, math.sqrt(2.0 / fan_in),
+                                          generator=generator)
     raise ValueError(f"Unknown kernel init: {kernel_init}")
 
 
@@ -89,7 +95,8 @@ class _Conv(_Stored):
 
     def _make_params(self, shape, fan_in: int, out_channels: int, bias: bool,
                      use_weight_norm: bool, kernel_init: str,
-                     generator: torch.Generator | None) -> None:
+                     generator: torch.Generator | None,
+                     bias_init: str = "torch_default") -> None:
         generator = _default_generator(generator)
         self.use_weight_norm = use_weight_norm
         w = _kernel_init(shape, fan_in, kernel_init, generator)
@@ -99,8 +106,13 @@ class _Conv(_Stored):
                 dim=tuple(range(1, w.dim())), keepdim=True).sqrt())
         else:
             self.weight = nn.Parameter(w)
-        self.bias = (_uniform((out_channels,), 1.0 / math.sqrt(fan_in), generator)
-                     if bias else None)
+        if not bias:
+            self.bias = None
+        elif bias_init == "zeros":
+            self.bias = nn.Parameter(torch.zeros(out_channels))
+        else:
+            self.bias = _uniform((out_channels,), 1.0 / math.sqrt(fan_in),
+                                 generator)
         self._cache: dict | None = None  # dtype -> (kernel, bias) once folded
 
     def torch_weight(self) -> torch.Tensor:
@@ -145,6 +157,8 @@ class _Conv(_Stored):
 class Conv1d(_Conv):
     """PyTorch-semantics Conv1d over NLC input, optional weight norm.
 
+    ``pad_mode`` ``reflect`` or ``replicate`` pads the input that way (the
+    reference's pad layer before the conv) instead of with zeros.
     ``forward(x, dtype)``: with ``dtype`` the input, kernel and bias are cast
     to it; without, the layer computes in the input's dtype."""
 
@@ -152,13 +166,17 @@ class Conv1d(_Conv):
                  stride: int = 1, padding: int | tuple[int, int] = 0,
                  dilation: int = 1, groups: int = 1, bias: bool = True,
                  use_weight_norm: bool = False, kernel_init: str = "torch_default",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 pad_mode: str = "zeros", bias_init: str = "torch_default"):
         super().__init__()
+        if pad_mode not in ("zeros", "reflect", "replicate"):
+            raise ValueError(f"unsupported pad_mode {pad_mode!r}")
         self.stride, self.padding = stride, padding
         self.dilation, self.groups = dilation, groups
+        self.pad_mode = pad_mode
         shape = (out_channels, in_channels // groups, kernel_size)
         self._make_params(shape, shape[1] * kernel_size, out_channels, bias,
-                          use_weight_norm, kernel_init, generator)
+                          use_weight_norm, kernel_init, generator, bias_init)
 
     def _ops_kernel(self, w: torch.Tensor) -> torch.Tensor:
         return w.permute(2, 1, 0)  # (C_out, C_in, K) -> (K, C_in, C_out)
@@ -167,8 +185,14 @@ class Conv1d(_Conv):
                 ) -> torch.Tensor:
         dtype = dtype or x.dtype
         w, b = self.kernel(dtype)
+        padding = self.padding
+        if self.pad_mode != "zeros" and padding != 0:
+            lo, hi = (padding, padding) if isinstance(padding, int) else padding
+            x = F.pad(x.transpose(1, 2), (lo, hi), mode=self.pad_mode
+                      ).transpose(1, 2)
+            padding = 0
         return conv_ops.conv1d(x.to(dtype), w, b, stride=self.stride,
-                               padding=self.padding, dilation=self.dilation,
+                               padding=padding, dilation=self.dilation,
                                groups=self.groups)
 
 
@@ -254,3 +278,24 @@ class Dense(_Stored):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return torch.nn.functional.linear(x, self.stored("weight").to(x.dtype),
                                           b)
+
+
+class Embed(nn.Module):
+    """torch.nn.Embedding: ``weight`` (num_embeddings, features), N(0, 1)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features).normal_(
+            generator=_default_generator(generator)))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids]
+
+
+def remove_weight_norm(model: nn.Module) -> None:
+    """Freeze every conv of ``model``: each kernel is derived once per dtype
+    and cached from then on; outputs are unchanged."""
+    for m in model.modules():
+        if isinstance(m, _Conv):
+            m.remove_weight_norm()

@@ -1,7 +1,11 @@
-"""Model registry: YAML class names -> the port's modules.
+"""Model registry: YAML class names -> the port's modules, the 17 classes of
+the JAX package's registry (``articulatory_tpu/models/__init__.py``).
 
-Ported: ``HiFiGANGenerator``, the HiFi-GAN discriminators and the ``BiGRU``
-inversion model; other names raise ``NotImplementedError``.
+``NOISE_DRIVEN_GENERATORS`` take ``(noise, aux)`` (the legacy collater's
+batch), ``RNG_GENERATORS`` an explicit noise ``z``, and
+``RNG_DISCRIMINATORS`` explicit random-window offsets: the port's training
+step draws them from seeded ``torch.Generator``s where JAX draws from its
+rng streams.
 """
 
 from __future__ import annotations
@@ -9,14 +13,41 @@ from __future__ import annotations
 import torch
 
 from articulatory_tpu_torch.models import hifigan
+from articulatory_tpu_torch.models.gblock_gen import GBlockGenerator
+from articulatory_tpu_torch.models.melgan import (
+    MelGANDiscriminator,
+    MelGANGenerator,
+    MelGANMultiScaleDiscriminator,
+)
+from articulatory_tpu_torch.models.parallel_wavegan import (
+    ParallelWaveGANDiscriminator,
+    ParallelWaveGANGenerator,
+    ResidualParallelWaveGANDiscriminator,
+)
 from articulatory_tpu_torch.models.rnn import BiGRU
+from articulatory_tpu_torch.models.style_melgan import (
+    StyleMelGANDiscriminator,
+    StyleMelGANGenerator,
+)
+from articulatory_tpu_torch.models.transformer import Transformer
 
 _REGISTRY = {name: getattr(hifigan, name) for name in (
     "HiFiGANGenerator", "HiFiGANPeriodDiscriminator",
     "HiFiGANMultiPeriodDiscriminator", "HiFiGANScaleDiscriminator",
     "HiFiGANMultiScaleDiscriminator",
     "HiFiGANMultiScaleMultiPeriodDiscriminator")}
-_REGISTRY["BiGRU"] = BiGRU
+_REGISTRY.update({cls.__name__: cls for cls in (
+    MelGANGenerator, MelGANDiscriminator, MelGANMultiScaleDiscriminator,
+    ParallelWaveGANGenerator, ParallelWaveGANDiscriminator,
+    ResidualParallelWaveGANDiscriminator, StyleMelGANGenerator,
+    StyleMelGANDiscriminator, GBlockGenerator, BiGRU, Transformer)})
+
+# generators whose forward signature is (noise, aux) rather than (aux, ...)
+NOISE_DRIVEN_GENERATORS = {"ParallelWaveGANGenerator"}
+# generators that take an explicit noise z
+RNG_GENERATORS = {"StyleMelGANGenerator"}
+# discriminators that take explicit random-window offsets
+RNG_DISCRIMINATORS = {"StyleMelGANDiscriminator"}
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "fp32": torch.float32,
            "float32": torch.float32}
@@ -27,8 +58,8 @@ def build_model(name: str, params: dict | None, seed: int = 0):
     ``compute_dtype`` strings like "bfloat16" -> torch dtypes). ``seed``
     seeds the initial weights."""
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet; ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"Unknown model type: {name!r}. Known: "
+                       f"{sorted(_REGISTRY)}")
 
     def freeze(k, v):
         if isinstance(v, list):

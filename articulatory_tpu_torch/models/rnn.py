@@ -13,17 +13,20 @@ so reference torch pickles load straight in.
 are concatenated (the reference's meaning; the JAX package reads the width
 from the input instead). With ``use_ar`` the ``PastFCEncoder`` reads a carry
 of ``ar_input // out_channels`` frames of ``out_channels`` values.
-``scan_unroll`` (TPU codegen), ``ar_channels`` and ``dropout`` (training
-only) are accepted and ignored. Inference only: training mode (dropout,
-BatchNorm batch statistics) raises.
+``scan_unroll`` (TPU codegen) and ``ar_channels`` are accepted and
+ignored. In ``train()`` mode ``dropout`` follows each GRU and the FC, and
+the BatchNorm (``layers/norm.py``, flax's statistics) normalises with the
+batch's, as the JAX module with ``train=True``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.conv import Dense
+from articulatory_tpu_torch.layers.norm import BatchNorm
 from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 
 
@@ -37,7 +40,8 @@ class BiGRU(nn.Module):
                  spk_emb_hidden: int = 32, scan_unroll: int = 16,
                  seed: int = 0):
         super().__init__()
-        del dropout, ar_channels, scan_unroll
+        del ar_channels, scan_unroll
+        self.dropout = dropout
         generator = torch.Generator().manual_seed(seed)
         self.in_channels = in_channels
         self.use_ar = use_ar
@@ -59,7 +63,7 @@ class BiGRU(nn.Module):
                 p.uniform_(-bound, bound, generator=generator)
         self.fc1 = nn.Sequential(Dense(2 * hidden_size, 128,
                                        generator=generator))
-        self.bn = nn.BatchNorm1d(128, eps=1e-5)
+        self.bn = BatchNorm(128)
         fc2 = Dense(128, out_channels, generator=generator)
         self.fc2 = nn.Sequential(fc2, nn.Tanh()) if use_tanh else fc2
 
@@ -70,9 +74,6 @@ class BiGRU(nn.Module):
                 spk: torch.Tensor | None = None) -> torch.Tensor:
         """``x`` (B, T, F); ``ar`` (B, ar_input // out_channels,
         out_channels); ``spk`` (B, spk_emb_size) -> (B, T, out_channels)."""
-        if self.training:
-            raise NotImplementedError("BiGRU training (dropout, BatchNorm "
-                                      "batch statistics) is not ported yet")
         b, t = x.shape[:2]
         if self.use_ar:
             feats = self.ar_model(ar)
@@ -80,8 +81,12 @@ class BiGRU(nn.Module):
         if self.use_spk_emb:
             feats = self.spk_fc(spk)
             x = torch.cat([x, feats[:, None, :].expand(b, t, -1)], dim=-1)
-        x = self.gru1(x)[0]
-        x = self.gru2(x)[0]
-        x = self.fc1(x)
-        x = self.bn(x.reshape(b * t, -1)).reshape(b, t, -1)
-        return self.fc2(x)
+        x = self._drop(self.gru1(x)[0])
+        x = self._drop(self.gru2(x)[0])
+        x = self._drop(self.fc1(x))
+        return self.fc2(self.bn(x))
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dropout > 0.0 and self.training:
+            return F.dropout(x, self.dropout, training=True)
+        return x

@@ -51,7 +51,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         else:
             xc = F.pad(xc, (lo, hi))
             padding = 0
-    y = F.conv1d(xc, w.permute(2, 1, 0), b, stride=stride, padding=padding,
+    wt = w.permute(2, 1, 0)
+    if wt.device.type == "cpu":
+        # the CPU backward refuses a strided weight for some shapes
+        wt = wt.contiguous()
+    y = F.conv1d(xc, wt, b, stride=stride, padding=padding,
                  dilation=dilation, groups=groups)
     return y.transpose(1, 2)
 

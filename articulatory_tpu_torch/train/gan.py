@@ -3,14 +3,35 @@
 Per step, with the JAX package's semantics:
 
 1. generator loss: mel (or L1 in inversion modes) and/or multi-resolution
-   STFT losses times ``lambda_aux``, plus ``lambda_adv`` times (adversarial
-   + ``lambda_feat_match`` x feature matching) once
+   STFT losses, with ``use_subband_stft_loss`` half of them plus half the
+   subband STFT loss, times ``lambda_aux``; plus ``lambda_adv`` times
+   (adversarial + ``lambda_feat_match`` x feature matching) once
    ``steps > discriminator_train_start_steps``; the real pass for feature
    matching runs under ``torch.no_grad()``. The generator is updated when
    ``steps > generator_train_start_steps``;
 2. the fake is regenerated with the updated generator, without grad;
 3. the discriminator loss on (real, fake), updated when
    ``steps > discriminator_train_start_steps``.
+
+A multi-band generator (``out_channels > 1`` and ``pqmf: true``) is
+synthesised by ``ops/pqmf.py`` before the losses and the discriminator;
+the subband loss compares its bands with the PQMF analysis of y.
+
+The zoo's signatures: Parallel WaveGAN takes ``(noise, aux)``, the legacy
+collater's pair, or the aux alone, its noise then drawn for the step;
+StyleMelGAN takes its noise ``z`` and its discriminator the random-window
+offsets. ``RandomDraws`` draws them from seeded ``torch.Generator``s (JAX
+draws from its rng streams, which torch cannot reproduce): the generator
+and regeneration passes draw their own noise, the generator loss's fake
+and real discriminator passes share one set of windows, the
+discriminator's real and fake passes draw one each, as JAX's ``rng_w1``
+.. ``rng_w3``. ``fuse_disc_passes`` is refused for a random-window
+discriminator, as in JAX (the port never fuses the passes).
+
+BatchNorm (the Transformer, the BiGRU) follows JAX's masked updates: the
+generator pass moves the running statistics only when the generator is
+updated, and the regeneration runs in training mode (batch statistics,
+dropout) without moving them (``layers/norm.py::frozen_stats``).
 
 With ``use_ar`` the AR past (``ar2``, else ``ar``) is concatenated in front
 of y and y_ along time before the discriminator. Eager Python ``if``s take
@@ -19,17 +40,20 @@ optimizer state does not move. Metrics are detached tensors on the device,
 so a step does not wait for the card.
 
 Not ported (they raise ``NotImplementedError``): a cascade
-(``generator2_type``), PQMF multiband, PCD inputs and the phoneme loss.
+(``generator2_type``), PCD inputs and the phoneme loss.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+from typing import Sequence
 
 import torch
 from torch import nn
 
+from articulatory_tpu_torch.layers.norm import frozen_stats
 from articulatory_tpu_torch.losses import (
     DiscriminatorAdversarialLoss,
     FeatureMatchLoss,
@@ -37,9 +61,44 @@ from articulatory_tpu_torch.losses import (
     MelSpectrogramLoss,
     MultiResolutionSTFTLoss,
 )
+from articulatory_tpu_torch.models import (
+    NOISE_DRIVEN_GENERATORS,
+    RNG_DISCRIMINATORS,
+    RNG_GENERATORS,
+)
+from articulatory_tpu_torch.ops.pqmf import PQMF
 from articulatory_tpu_torch.train.optimizers import Optimizer
 
 INVERSION_MODES = ("art", "a2m", "w2a", "m2a", "ph2a", "ph2m")
+
+
+class RandomDraws:
+    """The step's random numbers, from generators seeded with ``seed``:
+    normal noise on the device of ``like`` and window offsets on the host
+    (Python ints, so drawing them waits for nothing). ``tag`` names the
+    pass a draw is for (``generator``, ``regeneration``,
+    ``generator_windows``, ``real_windows``, ``fake_windows``,
+    ``eval_*``); a test may replay another framework's draws by tag."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+        self._noise: dict[torch.device, torch.Generator] = {}
+        self._windows = torch.Generator().manual_seed(seed)
+
+    def normal(self, shape: Sequence[int], like: torch.Tensor,
+               tag: str) -> torch.Tensor:
+        del tag
+        gen = self._noise.get(like.device)
+        if gen is None:
+            gen = self._noise[like.device] = torch.Generator(
+                like.device).manual_seed(self.seed)
+        return torch.randn(tuple(shape), generator=gen, device=like.device,
+                           dtype=like.dtype)
+
+    def offsets(self, bounds: Sequence[int], tag: str) -> list[int]:
+        del tag
+        return [int(torch.randint(0, b, (1,), generator=self._windows))
+                for b in bounds]
 
 
 @dataclasses.dataclass
@@ -49,6 +108,7 @@ class GANTrainState:
     opt_g: Optimizer
     opt_d: Optimizer
     steps: int = 0
+    draws: RandomDraws = dataclasses.field(default_factory=RandomDraws)
 
 
 class GANCriterion:
@@ -58,10 +118,6 @@ class GANCriterion:
         gp = config.get("generator_params", {})
         for flag, what in ((config.get("generator2_type") is not None,
                             "a cascade (generator2_type)"),
-                           (gp.get("out_channels", 1) > 1
-                            and config.get("pqmf", False), "PQMF multiband"),
-                           (config.get("use_subband_stft_loss", False),
-                            "the subband STFT loss"),
                            (config.get("use_pcd", False), "PCD inputs"),
                            (gp.get("use_ph_loss", False), "the phoneme loss")):
             if flag:
@@ -75,6 +131,18 @@ class GANCriterion:
         if self.use_stft_loss:
             self.stft = MultiResolutionSTFTLoss(
                 **config.get("stft_loss_params", {}))
+        out_ch = gp.get("out_channels", 1)
+        self.multiband = out_ch > 1 and config.get("pqmf", False)
+        self.use_subband_stft_loss = config.get("use_subband_stft_loss",
+                                                False)
+        if self.use_subband_stft_loss:
+            if not self.multiband:
+                raise ValueError("use_subband_stft_loss needs a multi-band "
+                                 "generator (out_channels > 1, pqmf: true)")
+            self.sub_stft = MultiResolutionSTFTLoss(
+                **config.get("subband_stft_loss_params", {}))
+        self.pqmf = (PQMF(subbands=out_ch, **config.get("pqmf_params", {}))
+                     if self.multiband else None)
         self.use_feat_match_loss = config.get("use_feat_match_loss", False)
         if self.use_feat_match_loss:
             self.feat_match = FeatureMatchLoss(
@@ -109,8 +177,62 @@ def _squeeze_c(y: torch.Tensor) -> torch.Tensor:
     return y[..., 0] if y.dim() == 3 and y.shape[-1] == 1 else y
 
 
-def generate(generator: nn.Module, batch: dict) -> torch.Tensor:
-    return generator(*batch["x"], ar=batch.get("ar"))
+def _check_fuse_disc(config: dict) -> None:
+    """A random-window discriminator draws fresh windows for the real and
+    fake passes; a fused [real; fake] pass would share them, so it is
+    refused, as in the JAX package (``_check_fuse_disc``)."""
+    if config.get("fuse_disc_passes", False) and config.get(
+            "discriminator_type") in RNG_DISCRIMINATORS:
+        raise ValueError(
+            "fuse_disc_passes=true is incompatible with random-window "
+            "discriminators (StyleMelGANDiscriminator draws fresh windows "
+            "per pass; the fused pass would share one window RNG across "
+            "real and fake). Disable fuse_disc_passes for this config.")
+
+
+def generate(generator: nn.Module, batch: dict,
+             draws: RandomDraws | None = None,
+             tag: str = "generator") -> torch.Tensor:
+    """The generator's raw output on ``batch`` (sub-bands for a multi-band
+    model); noise for a Parallel WaveGAN without the legacy noise input and
+    StyleMelGAN's ``z`` come from ``draws``."""
+    x, name = batch["x"], type(generator).__name__
+    if name in NOISE_DRIVEN_GENERATORS:
+        if len(x) == 2:  # the legacy collater's (noise, aux)
+            return generator(*x)
+        y = batch["y"]
+        return generator(draws.normal((y.shape[0], y.shape[1], 1), x[0],
+                                      tag), x[0])
+    if name in RNG_GENERATORS:
+        c = x[0]
+        z = draws.normal((c.shape[0], c.shape[1]
+                          // generator.noise_upsample_factor,
+                          generator.in_channels), c, tag)
+        return generator(c, z)
+    if name == "MelGANGenerator":
+        return generator(*x)
+    return generator(*x, ar=batch.get("ar"))
+
+
+def discriminate(discriminator: nn.Module, x: torch.Tensor,
+                 offsets: list[int] | None = None):
+    """The discriminator's outputs; a random-window one reads ``offsets``."""
+    if type(discriminator).__name__ in RNG_DISCRIMINATORS:
+        return discriminator(x, offsets)
+    return discriminator(x)
+
+
+def _offsets(state: GANTrainState, x: torch.Tensor, tag: str):
+    d = state.discriminator
+    if type(d).__name__ not in RNG_DISCRIMINATORS:
+        return None
+    return state.draws.offsets(d.window_bounds(x.shape[1]), tag)
+
+
+def synthesize(criterion: GANCriterion, y_: torch.Tensor) -> torch.Tensor:
+    """The full-band waveform of a multi-band output; others unchanged."""
+    return criterion.pqmf.to(y_.device).synthesis(y_) if criterion.multiband \
+        else y_
 
 
 def _disc_inputs(config: dict, batch: dict, y: torch.Tensor,
@@ -124,13 +246,22 @@ def _disc_inputs(config: dict, batch: dict, y: torch.Tensor,
     return y, y_
 
 
-def _aux_loss(criterion: GANCriterion, y_, y, prefix: str) -> tuple:
+def _aux_loss(criterion: GANCriterion, y_, y, prefix: str,
+              y_mb_: torch.Tensor | None = None) -> tuple:
+    """Aux losses of the (synthesised) y_ against y; ``y_mb_`` the
+    sub-bands of a multi-band generator."""
     aux, metrics = 0.0, {}
     if criterion.use_stft_loss:
         sc, mag = criterion.stft(_squeeze_c(y_), _squeeze_c(y))
         metrics[f"{prefix}/spectral_convergence_loss"] = sc
         metrics[f"{prefix}/log_stft_magnitude_loss"] = mag
         aux = aux + sc + mag
+    if criterion.use_subband_stft_loss:
+        y_mb = criterion.pqmf.to(y.device).analysis(y)
+        sub_sc, sub_mag = criterion.sub_stft(y_mb_, y_mb)
+        metrics[f"{prefix}/sub_spectral_convergence_loss"] = sub_sc
+        metrics[f"{prefix}/sub_log_stft_magnitude_loss"] = sub_mag
+        aux = aux * 0.5 + 0.5 * (sub_sc + sub_mag)
     if criterion.use_mel_loss:
         mel_l = criterion.mel_loss(y_, y)
         metrics[f"{prefix}/mel_loss"] = mel_l
@@ -142,16 +273,19 @@ def generator_loss(state: GANTrainState, criterion: GANCriterion,
                    config: dict, batch: dict) -> tuple[torch.Tensor, dict]:
     """The generator's loss at ``state.steps`` and its metrics."""
     y = batch["y"]
-    y_ = generate(state.generator, batch)
-    aux, metrics = _aux_loss(criterion, y_, y, "train")
+    y_mb_ = generate(state.generator, batch, state.draws, "generator")
+    y_ = synthesize(criterion, y_mb_)
+    aux, metrics = _aux_loss(criterion, y_, y, "train", y_mb_)
     gen_loss = aux * criterion.lambda_aux
     disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
-    p_ = state.discriminator(disc_y_)
+    # the fake and the feature-matching real pass share their windows
+    offsets = _offsets(state, disc_y_, "generator_windows")
+    p_ = discriminate(state.discriminator, disc_y_, offsets)
     adv = criterion.gen_adv(p_)
     metrics["train/adversarial_loss"] = adv
     if criterion.use_feat_match_loss:
         with torch.no_grad():
-            p = state.discriminator(disc_y)
+            p = discriminate(state.discriminator, disc_y, offsets)
         fm = criterion.feat_match(p_, p)
         metrics["train/feature_matching_loss"] = fm
         adv = adv + criterion.lambda_feat_match * fm
@@ -166,8 +300,10 @@ def discriminator_loss(state: GANTrainState, criterion: GANCriterion,
                        ) -> tuple[torch.Tensor, dict]:
     """The discriminator's loss on the real batch and a fake y_."""
     disc_y, disc_y_ = _disc_inputs(config, batch, batch["y"], y_)
-    p = state.discriminator(disc_y)
-    p_ = state.discriminator(disc_y_)
+    p = discriminate(state.discriminator, disc_y,
+                     _offsets(state, disc_y, "real_windows"))
+    p_ = discriminate(state.discriminator, disc_y_,
+                      _offsets(state, disc_y_, "fake_windows"))
     real_l, fake_l = criterion.dis_adv(p_, p)
     dis_loss = real_l + fake_l
     return dis_loss, {"train/real_loss": real_l, "train/fake_loss": fake_l,
@@ -179,12 +315,16 @@ def make_train_step(criterion: GANCriterion, config: dict):
     state's modules and optimizers in place and advances ``state.steps``."""
     gen_start = int(config.get("generator_train_start_steps", 0))
     disc_start = int(config.get("discriminator_train_start_steps", 0))
+    _check_fuse_disc(config)
 
     def train_step(state: GANTrainState, batch: dict, lr_g: float,
                    lr_d: float) -> dict:
         gen_on = state.steps > gen_start
         disc_on = state.steps > disc_start
-        with torch.set_grad_enabled(gen_on):
+        # BatchNorm statistics move only with a generator update
+        keep = (contextlib.nullcontext() if gen_on
+                else frozen_stats(state.generator))
+        with torch.set_grad_enabled(gen_on), keep:
             gen_loss, metrics = generator_loss(state, criterion, config,
                                                batch)
         if gen_on:
@@ -195,8 +335,11 @@ def make_train_step(criterion: GANCriterion, config: dict):
             state.opt_g.step(lr_g)
             state.opt_g.zero_grad()
 
-        with torch.no_grad():  # the fake from the updated generator
-            y2_ = generate(state.generator, batch)
+        # the fake from the updated generator, in training mode, without
+        # moving the BatchNorm statistics
+        with torch.no_grad(), frozen_stats(state.generator):
+            y2_ = synthesize(criterion, generate(
+                state.generator, batch, state.draws, "regeneration"))
         with torch.set_grad_enabled(disc_on):
             dis_loss, dmetrics = discriminator_loss(state, criterion, config,
                                                     batch, y2_)
@@ -215,17 +358,28 @@ def make_train_step(criterion: GANCriterion, config: dict):
 
 def make_eval_step(criterion: GANCriterion, config: dict):
     """``eval_step(state, batch) -> (metrics, y_)``: the losses without
-    updates."""
+    updates, the generator in evaluation mode (BatchNorm running
+    statistics, no dropout)."""
+    _check_fuse_disc(config)
 
     @torch.no_grad()
     def eval_step(state: GANTrainState, batch: dict):
         y = batch["y"]
-        y_ = generate(state.generator, batch)
-        aux, metrics = _aux_loss(criterion, y_, y, "eval")
+        was_training = state.generator.training
+        state.generator.eval()
+        try:
+            y_mb_ = generate(state.generator, batch, state.draws,
+                             "eval_generator")
+        finally:
+            state.generator.train(was_training)
+        y_ = synthesize(criterion, y_mb_)
+        aux, metrics = _aux_loss(criterion, y_, y, "eval", y_mb_)
         gen_loss = aux * criterion.lambda_aux
         disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
-        p_ = state.discriminator(disc_y_)
-        p = state.discriminator(disc_y)
+        p_ = discriminate(state.discriminator, disc_y_,
+                          _offsets(state, disc_y_, "eval_fake_windows"))
+        p = discriminate(state.discriminator, disc_y,
+                         _offsets(state, disc_y, "eval_real_windows"))
         adv = criterion.gen_adv(p_)
         metrics["eval/adversarial_loss"] = adv
         if criterion.use_feat_match_loss:

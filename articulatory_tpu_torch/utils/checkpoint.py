@@ -11,8 +11,9 @@
   under ``.pkl`` names too.
 
 ``generator_state_dict`` / ``discriminator_state_dict`` turn either
-payload's model entries into the port's state dicts (a JAX ``BiGRU`` with
-its BatchNorm statistics from ``payload["mutables"]``). ``save_checkpoint``
+payload's model entries into the port's state dicts, for every generator
+and discriminator of the zoo (a JAX ``BiGRU`` or ``Transformer`` with its
+BatchNorm statistics from ``payload["mutables"]``). ``save_checkpoint``
 writes a training state as a torch pickle in the reference's layout,
 ``{"model": {"generator", "discriminator"}, "optimizer": {...},
 "scheduler": {...}, "steps", "epochs"}``, which ``load_model`` decodes from
@@ -29,9 +30,8 @@ import numpy as np
 import torch
 
 from articulatory_tpu_torch.utils.weights import (
-    jax_bigru_to_state_dict,
-    jax_msmpd_to_state_dict,
-    jax_params_to_state_dict,
+    discriminator_to_state_dict,
+    generator_to_state_dict,
 )
 
 _EXT_NDARRAY = 1
@@ -106,20 +106,17 @@ def generator_state_dict(payload: dict, generator_key: str,
                          generator_type: str = "HiFiGANGenerator"
                          ) -> dict[str, torch.Tensor]:
     """The port's state dict for ``payload["model"][generator_key]``: a JAX
-    param tree is converted (a ``BiGRU``'s with
+    param tree is converted (a ``BiGRU``'s or ``Transformer``'s with
     ``payload["mutables"][generator_key]``), a torch state dict is used as
     it is."""
     sd: Any = payload["model"][generator_key]
     if isinstance(sd, tuple):  # reference generator2 save quirk (train.py:165)
         sd = sd[0]
     if _is_jax_tree(sd):
-        if generator_type == "BiGRU":
-            mutables = (payload.get("mutables") or {}).get(generator_key)
-            if not mutables:
-                raise ValueError("a JAX BiGRU checkpoint without its "
-                                 "BatchNorm statistics (mutables)")
-            return jax_bigru_to_state_dict(sd, mutables, generator_params)
-        return jax_params_to_state_dict(sd, generator_params)
+        mutables = (payload.get("mutables") or {}).get(generator_key) or {}
+        return generator_to_state_dict(generator_type, sd, mutables,
+                                       generator_params,
+                                       int(payload.get("steps", 0)))
     return {k: torch.as_tensor(v) for k, v in sd.items()}
 
 
@@ -131,14 +128,12 @@ def discriminator_state_dict(payload: dict, discriminator_type: str,
                              discriminator_params: dict
                              ) -> dict[str, torch.Tensor]:
     """The port's state dict for ``payload["model"]["discriminator"]``: a
-    JAX MSMPD param tree is converted, a torch state dict used as it is."""
+    JAX param tree is converted, a torch state dict used as it is."""
     sd: Any = payload["model"]["discriminator"]
     if not _is_jax_tree(sd):
         return {k: torch.as_tensor(v) for k, v in sd.items()}
-    if discriminator_type != "HiFiGANMultiScaleMultiPeriodDiscriminator":
-        raise NotImplementedError(f"carrying a JAX {discriminator_type} is "
-                                  "not ported yet")
-    return jax_msmpd_to_state_dict(sd, discriminator_params)
+    return discriminator_to_state_dict(discriminator_type, sd,
+                                       discriminator_params)
 
 
 def _cpu(tree):
@@ -181,7 +176,8 @@ def restore_state(state, payload: dict, config: dict,
     torch pickle or a JAX msgpack file); otherwise ``--resume`` (weights,
     optimizers, steps and schedulers, from a checkpoint the port wrote)."""
     state.generator.load_state_dict(generator_state_dict(
-        payload, "generator", config["generator_params"]))
+        payload, "generator", config["generator_params"],
+        config["generator_type"]))
     state.discriminator.load_state_dict(discriminator_state_dict(
         payload, config["discriminator_type"],
         config.get("discriminator_params", {})))

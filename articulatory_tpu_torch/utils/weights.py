@@ -18,6 +18,15 @@
   ``bias``, ``running_mean``, ``running_var``;
 - weight-norm (g, v) -> ``weight_g`` / ``weight_v`` on torch's axes.
 
+The zoo's converters (``jax_melgan_generator_to_state_dict`` ...,
+dispatched by class name through ``generator_to_state_dict`` and
+``discriminator_to_state_dict``) give the keys of the JAX package's
+``utils/torch_export.py`` exporters: a PWG ``UpsampleNetwork`` Conv2d, an
+effective weight in JAX, becomes ``weight_v = w``, ``weight_g = ||w||``
+(``_unfold_conv2d_wn``); a ``Transformer``'s relative table gains the
+reference's trailing axis of 1; BatchNorm statistics come from the
+mutables, ``num_batches_tracked`` from the step count.
+
 ``fold_weight_norm`` is ``remove_weight_norm`` on a state dict: each
 ``weight_v`` becomes the effective weight and ``weight_g`` its norm, so the
 forward computes the same kernel from an exactly normalised v.
@@ -73,6 +82,21 @@ def _linear(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
         sd[f"{prefix}.bias"] = _tensor(p["b"])
 
 
+def _batch_norm(sd: dict, prefix: str, p: Mapping[str, Any],
+                stats: Mapping[str, Any], steps: int = 0) -> None:
+    sd[f"{prefix}.weight"] = _tensor(p["scale"])
+    sd[f"{prefix}.bias"] = _tensor(p["bias"])
+    sd[f"{prefix}.running_mean"] = _tensor(stats["mean"])
+    sd[f"{prefix}.running_var"] = _tensor(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(steps,
+                                                       dtype=torch.long)
+
+
+def _ar_model(sd: dict, params: Mapping[str, Any]) -> None:
+    for li, ti in enumerate([0, 2, 4, 6, 8]):
+        _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any],
                              generator_params: Mapping[str, Any]
                              ) -> dict[str, torch.Tensor]:
@@ -99,8 +123,7 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
                             block[f"convs2_{d}"])
     _conv1d(sd, "output_conv.1", params["output_conv"])
     if generator_params.get("use_ar", False):
-        for li, ti in enumerate([0, 2, 4, 6, 8]):
-            _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+        _ar_model(sd, params)
     return sd
 
 
@@ -120,16 +143,11 @@ def jax_bigru_to_state_dict(params: Mapping[str, Any],
                 sd[f"{name}.{dst}_l0{suffix}"] = _tensor(layer[src])
     _linear(sd, "fc1.0", params["fc1"])
     stats = mutables.get("batch_stats", mutables)["bn"]
-    sd["bn.weight"] = _tensor(params["bn"]["scale"])
-    sd["bn.bias"] = _tensor(params["bn"]["bias"])
-    sd["bn.running_mean"] = _tensor(stats["mean"])
-    sd["bn.running_var"] = _tensor(stats["var"])
-    sd["bn.num_batches_tracked"] = torch.tensor(0)
+    _batch_norm(sd, "bn", params["bn"], stats)
     _linear(sd, "fc2.0" if generator_params.get("use_tanh", False) else "fc2",
             params["fc2"])
     if generator_params.get("use_ar", False):
-        for li, ti in enumerate([0, 2, 4, 6, 8]):
-            _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
+        _ar_model(sd, params)
     if generator_params.get("use_spk_emb", False):
         _linear(sd, "spk_fc", params["spk_fc"])
     return sd
@@ -162,6 +180,272 @@ def jax_msmpd_to_state_dict(params: Mapping[str, Any],
             _conv2d(sd, f"mpd.discriminators.{i}.convs.{k}.0", disc[f"conv_{k}"])
         _conv2d(sd, f"mpd.discriminators.{i}.output_conv", disc["output_conv"])
     return sd
+
+
+def jax_melgan_generator_to_state_dict(params: Mapping[str, Any],
+                                       generator_params: Mapping[str, Any]
+                                       ) -> dict[str, torch.Tensor]:
+    """JAX ``MelGANGenerator`` -> ``melgan.{i}`` keys (``export_melgan_
+    generator``)."""
+    sd: dict[str, torch.Tensor] = {}
+    scales = generator_params.get("upsample_scales", (8, 8, 2, 2))
+    stacks = generator_params.get("stacks", 3)
+    _conv1d(sd, "melgan.1", params["first_conv"])
+    idx = 2
+    for i in range(len(scales)):
+        idx += 1  # the activation
+        _conv_transpose1d(sd, f"melgan.{idx}", params[f"upsample_{i}"])
+        idx += 1
+        for j in range(stacks):
+            stack = params[f"stack_{i}_{j}"]
+            _conv1d(sd, f"melgan.{idx}.stack.2", stack["conv_dilated"])
+            _conv1d(sd, f"melgan.{idx}.stack.4", stack["conv_out"])
+            _conv1d(sd, f"melgan.{idx}.skip_layer", stack["conv_skip"])
+            idx += 1
+    _conv1d(sd, f"melgan.{idx + 2}", params["last_conv"])
+    return sd
+
+
+def _wavenet_layers(sd: dict, params: Mapping[str, Any], layers: int,
+                    aux: bool) -> None:
+    for i in range(layers):
+        layer = params[f"conv_layer_{i}"]
+        names = ("conv", "conv1x1_aux", "conv1x1_skip", "conv1x1_out")
+        for name in names if aux else names[:1] + names[2:]:
+            _conv1d(sd, f"conv_layers.{i}.{name}", layer[name])
+    _conv1d(sd, "last_conv_layers.1", params["last_conv_0"])
+    _conv1d(sd, "last_conv_layers.3", params["last_conv_1"])
+
+
+def jax_pwg_generator_to_state_dict(params: Mapping[str, Any],
+                                    generator_params: Mapping[str, Any]
+                                    ) -> dict[str, torch.Tensor]:
+    """JAX ``ParallelWaveGANGenerator`` -> the reference's keys
+    (``export_pwg_generator``)."""
+    sd: dict[str, torch.Tensor] = {}
+    up = generator_params.get("upsample_params",
+                              {"upsample_scales": [4, 4, 4, 4]})
+    stride = 2 if up.get("nonlinear_activation") is None else 3
+    _conv1d(sd, "first_conv", params["first_conv"])
+    if generator_params.get("upsample_conditional_features", True):
+        net = params["upsample_net"]
+        ups = net["upsample"] if "upsample" in net else net
+        for i in range(len(up.get("upsample_scales", [4, 4, 4, 4]))):
+            # JAX keeps the effective weight: v = w, g = ||w||
+            w = np.transpose(np.asarray(ups[f"conv_{i}_w"]), (3, 2, 0, 1))
+            prefix = "upsample_net" + (".upsample" if "conv_in" in net
+                                       else "")
+            prefix += f".up_layers.{1 + i * stride}"
+            sd[f"{prefix}.weight_v"] = _tensor(w)
+            sd[f"{prefix}.weight_g"] = _tensor(np.sqrt(
+                (w ** 2).sum(axis=(1, 2, 3), keepdims=True)))
+        if "conv_in" in net:
+            _conv1d(sd, "upsample_net.conv_in", net["conv_in"])
+    _wavenet_layers(sd, params, generator_params.get("layers", 30), True)
+    return sd
+
+
+def jax_style_melgan_generator_to_state_dict(
+        params: Mapping[str, Any], generator_params: Mapping[str, Any]
+        ) -> dict[str, torch.Tensor]:
+    """JAX ``StyleMelGANGenerator`` -> the reference's keys
+    (``export_style_melgan_generator``)."""
+    sd: dict[str, torch.Tensor] = {}
+    noise_scales = generator_params.get("noise_upsample_scales",
+                                        (11, 2, 2, 2))
+    up_scales = generator_params.get("upsample_scales",
+                                     (2, 2, 2, 2, 2, 2, 2, 2, 1))
+    for i in range(len(noise_scales)):
+        _conv_transpose1d(sd, f"noise_upsample.{2 * i}",
+                          params[f"noise_upsample_{i}"])
+    for i in range(len(up_scales)):
+        blk = params[f"block_{i}"]
+        for tade in ("tade1", "tade2"):
+            for conv in ("aux_conv", "gated_conv"):
+                _conv1d(sd, f"blocks.{i}.{tade}.{conv}.0", blk[tade][conv])
+        _conv1d(sd, f"blocks.{i}.gated_conv1", blk["gated_conv1"])
+        _conv1d(sd, f"blocks.{i}.gated_conv2", blk["gated_conv2"])
+    _conv1d(sd, "output_conv.0", params["output_conv"])
+    return sd
+
+
+def jax_gblock_generator_to_state_dict(params: Mapping[str, Any],
+                                       generator_params: Mapping[str, Any]
+                                       ) -> dict[str, torch.Tensor]:
+    """JAX ``GBlockGenerator`` -> the reference's keys
+    (``export_gblock_generator``)."""
+    if generator_params.get("use_spk_id", False):
+        raise NotImplementedError("use_spk_id is not ported yet")
+    sd: dict[str, torch.Tensor] = {}
+    _conv1d(sd, "input_conv", params["input_conv"])
+    for i, scale in enumerate(generator_params.get("g_scales", (8, 8, 2, 2))):
+        off = 1 if scale > 1 else 0  # the Upsample layer shifts the keys
+        blk, r = params[f"resample_{i}"], f"resamples.{i}"
+        _conv1d(sd, f"{r}.conv1.{1 + off}", blk["conv1_a"])
+        _conv1d(sd, f"{r}.conv1.{3 + off}", blk["conv1_b"])
+        _conv1d(sd, f"{r}.res1.{off}", blk["res1"])
+        _conv1d(sd, f"{r}.conv2.1", blk["conv2_a"])
+        _conv1d(sd, f"{r}.conv2.3", blk["conv2_b"])
+    _conv1d(sd, "output_conv.1", params["output_conv"])
+    if generator_params.get("use_ar", False):
+        _ar_model(sd, params)
+    return sd
+
+
+def jax_transformer_to_state_dict(params: Mapping[str, Any],
+                                  mutables: Mapping[str, Any],
+                                  generator_params: Mapping[str, Any],
+                                  steps: int = 0
+                                  ) -> dict[str, torch.Tensor]:
+    """JAX ``Transformer`` params and ``batch_stats`` -> the reference's
+    keys (``export_transformer``)."""
+    sd: dict[str, torch.Tensor] = {}
+    stats = mutables.get("batch_stats", mutables)
+    base = 0
+    if generator_params.get("extra_art", False):
+        _conv1d(sd, "conv_blocks.0", params["front_conv"])
+        base = 1
+    for i in range(3):
+        p, s, prefix = params[f"res{i}"], stats[f"res{i}"], \
+            f"conv_blocks.{base + i}"
+        _conv1d(sd, f"{prefix}.conv1", p["conv1"])
+        _conv1d(sd, f"{prefix}.conv2", p["conv2"])
+        for bn in ("bn1", "bn2"):
+            _batch_norm(sd, f"{prefix}.{bn}", p[bn], s[bn], steps)
+        if "residual_path" in p:
+            _conv1d(sd, f"{prefix}.residual_path", p["residual_path"])
+            _batch_norm(sd, f"{prefix}.res_norm", p["res_norm"],
+                        s["res_norm"], steps)
+    _linear(sd, "w_raw_in", params["w_raw_in"])
+    for i in range(generator_params.get("elayers", 6)):
+        t, layer = f"transformer.layers.{i}", params[f"layer{i}"]
+        attn = layer["self_attn"]
+        for k in ("w_q", "w_k", "w_v", "w_o"):
+            sd[f"{t}.self_attn.{k}"] = _tensor(attn[k])
+        sd[f"{t}.self_attn.relative_positional.embeddings"] = _tensor(
+            np.asarray(attn["rel_embeddings"])[..., None])
+        _linear(sd, f"{t}.linear1", layer["linear1"])
+        _linear(sd, f"{t}.linear2", layer["linear2"])
+        for norm in ("norm1", "norm2"):
+            sd[f"{t}.{norm}.weight"] = _tensor(layer[norm]["scale"])
+            sd[f"{t}.{norm}.bias"] = _tensor(layer[norm]["bias"])
+    if "in_emb_mat" in params:
+        sd["in_emb_mat.weight"] = _tensor(params["in_emb_mat"]["w"])
+    _linear(sd, "w_out", params["w_out"])
+    return sd
+
+
+def _melgan_discriminator(sd: dict, prefix: str, disc: Mapping[str, Any],
+                          discriminator_params: Mapping[str, Any]) -> None:
+    n_down = len(discriminator_params.get("downsample_scales", (4, 4, 4, 4)))
+    _conv1d(sd, f"{prefix}layers.0.1", disc["layer_0"])
+    for k in range(1, n_down + 2):
+        _conv1d(sd, f"{prefix}layers.{k}.0", disc[f"layer_{k}"])
+    _conv1d(sd, f"{prefix}layers.{n_down + 2}", disc[f"layer_{n_down + 2}"])
+
+
+def jax_melgan_discriminator_to_state_dict(
+        params: Mapping[str, Any], discriminator_params: Mapping[str, Any]
+        ) -> dict[str, torch.Tensor]:
+    """JAX ``MelGANDiscriminator`` -> ``layers.{i}`` keys."""
+    sd: dict[str, torch.Tensor] = {}
+    _melgan_discriminator(sd, "", params, discriminator_params)
+    return sd
+
+
+def jax_melgan_msd_to_state_dict(params: Mapping[str, Any],
+                                 discriminator_params: Mapping[str, Any]
+                                 ) -> dict[str, torch.Tensor]:
+    """JAX ``MelGANMultiScaleDiscriminator`` -> the reference's keys
+    (``export_melgan_msd``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(discriminator_params.get("scales", 3)):
+        _melgan_discriminator(sd, f"discriminators.{i}.", params[f"disc_{i}"],
+                              discriminator_params)
+    return sd
+
+
+def jax_style_melgan_discriminator_to_state_dict(
+        params: Mapping[str, Any], discriminator_params: Mapping[str, Any]
+        ) -> dict[str, torch.Tensor]:
+    """JAX ``StyleMelGANDiscriminator`` -> the reference's keys
+    (``export_style_melgan_discriminator``)."""
+    sd: dict[str, torch.Tensor] = {}
+    inner = discriminator_params.get("discriminator_params", {})
+    n = len(discriminator_params.get("pqmf_params", ((1,),) * 4))
+    for i in range(n):
+        _melgan_discriminator(sd, f"discriminators.{i}.", params[f"disc_{i}"],
+                              inner)
+    return sd
+
+
+def jax_pwg_discriminator_to_state_dict(
+        params: Mapping[str, Any], discriminator_params: Mapping[str, Any]
+        ) -> dict[str, torch.Tensor]:
+    """JAX ``ParallelWaveGANDiscriminator`` -> ``conv_layers.{2 i}``
+    (``export_pwg_discriminator``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(discriminator_params.get("layers", 10)):
+        _conv1d(sd, f"conv_layers.{2 * i}", params[f"conv_{i}"])
+    return sd
+
+
+def jax_residual_pwg_discriminator_to_state_dict(
+        params: Mapping[str, Any], discriminator_params: Mapping[str, Any]
+        ) -> dict[str, torch.Tensor]:
+    """JAX ``ResidualParallelWaveGANDiscriminator`` -> the reference's keys
+    (``first_conv.0``, ``conv_layers.{i}``, ``last_conv_layers.{1,3}``; the
+    JAX package has no exporter for it)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv1d(sd, "first_conv.0", params["first_conv"])
+    _wavenet_layers(sd, params, discriminator_params.get("layers", 30), False)
+    return sd
+
+
+def generator_to_state_dict(generator_type: str, params: Mapping[str, Any],
+                            mutables: Mapping[str, Any],
+                            generator_params: Mapping[str, Any],
+                            steps: int = 0) -> dict[str, torch.Tensor]:
+    """Any ported JAX generator's params (and mutables) -> the port's state
+    dict."""
+    plain = {
+        "HiFiGANGenerator": jax_params_to_state_dict,
+        "MelGANGenerator": jax_melgan_generator_to_state_dict,
+        "ParallelWaveGANGenerator": jax_pwg_generator_to_state_dict,
+        "StyleMelGANGenerator": jax_style_melgan_generator_to_state_dict,
+        "GBlockGenerator": jax_gblock_generator_to_state_dict}
+    if generator_type in plain:
+        return plain[generator_type](params, generator_params)
+    if generator_type in ("BiGRU", "Transformer"):
+        if not mutables:
+            raise ValueError(f"a JAX {generator_type} checkpoint without its "
+                             "BatchNorm statistics (mutables)")
+        if generator_type == "BiGRU":
+            return jax_bigru_to_state_dict(params, mutables, generator_params)
+        return jax_transformer_to_state_dict(params, mutables,
+                                             generator_params, steps)
+    raise NotImplementedError(f"carrying a JAX {generator_type} is not "
+                              "ported")
+
+
+def discriminator_to_state_dict(discriminator_type: str,
+                                params: Mapping[str, Any],
+                                discriminator_params: Mapping[str, Any]
+                                ) -> dict[str, torch.Tensor]:
+    """Any ported JAX discriminator's params -> the port's state dict."""
+    converters = {
+        "HiFiGANMultiScaleMultiPeriodDiscriminator": jax_msmpd_to_state_dict,
+        "MelGANDiscriminator": jax_melgan_discriminator_to_state_dict,
+        "MelGANMultiScaleDiscriminator": jax_melgan_msd_to_state_dict,
+        "StyleMelGANDiscriminator":
+            jax_style_melgan_discriminator_to_state_dict,
+        "ParallelWaveGANDiscriminator": jax_pwg_discriminator_to_state_dict,
+        "ResidualParallelWaveGANDiscriminator":
+            jax_residual_pwg_discriminator_to_state_dict}
+    if discriminator_type not in converters:
+        raise NotImplementedError(f"carrying a JAX {discriminator_type} is "
+                                  "not ported")
+    return converters[discriminator_type](params, discriminator_params)
 
 
 def fold_weight_norm(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:

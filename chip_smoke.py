@@ -5,9 +5,10 @@ Drives the port's paths at the full width of
 ``egs/ema/voc1/conf/e2w_hifigan_car.yaml`` (141 input channels incl. 128 AR
 features, channels 512, upsample (5, 4, 2, 2), MRF kernels (3, 7, 11) x
 dilations (1, 3, 5), AR 512), in phase 7 of
-``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, and in phases 8-11 of the
+``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, in phases 8-11 of the
 inversion BiGRU of ``benchmarks/inversion_bench.py`` and the stream server,
-through their entry points:
+and in phases 12-13 of the generator zoo on
+``egs/ema/voc1/conf/e2w_hifigan.yaml``, through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -114,7 +115,25 @@ Phases, each raising on failure:
    by the profiler and its busy share beside a replay's device time over
    the round's p50, one stream's ms a chunk synced, pipelined and by
    ``synthesize_all`` (bit-equal); then the AR BiGRU on the same churn,
-   each client against its solo serve.
+   each client against its solo serve;
+12. mb-kernel / mb-head: ``resblock_pair`` at the multi-band HiFi-GAN's 27
+   shapes (B 32, 100 frames: C 256/128/64 at T 500/1000/2000) and
+   ``scale_disc_head`` at its MSD's three scales (B 32, T 8000/4001/2001,
+   stride 4), both as in phases 3 and 5;
+13. zoo-<family>: each family of the generator zoo at full width (the
+   configurations of ``zoo_configs``: e2w_hifigan.yaml's features, losses,
+   optimizers and B 32 x 8000 samples with the family's generator and
+   discriminator; the w2a Transformer and BiGRU on 13-d features in 400-row
+   windows): ``train(config)`` for ZOO_WARMUP_STEPS steps (launch counts:
+   54 pairs and 12 heads a multi-band step), one untimed and
+   ZOO_TIMED_STEPS timed steps
+   (finite losses, every parameter moved; the multi-band HiFi-GAN's
+   gradients with both kernels against both plain versions, as in phase
+   6), ``bin/decode.py`` on the written
+   checkpoint over ZOO_DECODE_UTTS x ZOO_DECODE_SECONDS s (27 pairs a
+   multi-band forward; finite outputs of the right length; samples/s,
+   RTF), the f32 generator against float64 on the card (ZOO_F64_TOL) and a
+   profiler window over ZOO_PROFILE_FORWARDS forwards.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -1808,6 +1827,356 @@ def phase_stream(port, seed: int, device_name: str, tmp: str) -> dict:
     return results
 
 
+# the generator zoo: egs/ema/voc1/conf/e2w_hifigan.yaml's features (13 EMA
+# at 200 Hz), 16 kHz, hop 80, losses, optimizers and B 32 x 8000 samples,
+# with each family's generator and discriminator at the JAX classes'
+# defaults; only scale lists change (to products of the recipe's hop 80),
+# none is autoregressive (use_ar false, the 13 features in). The w2a
+# inversion models read 13-d features and write the 12 EMA channels, both at
+# 200 rows a second (sampling_rate 200, hop 1: one output frame a row), in
+# windows of ZOO_W2A_ROWS rows
+E2W_RECIPE = os.path.join(ROOT, "egs", "ema", "voc1", "conf",
+                          "e2w_hifigan.yaml")
+ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS = 32, 3
+ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS = 2, 3  # the run's steps, then timed ones
+ZOO_DECODE_UTTS, ZOO_DECODE_SECONDS = 16, 10
+ZOO_W2A_ROWS = 400  # 2 s: a (32, 8, 400, 400) f32 logits tensor is 164 MB
+ZOO_F64_TOL = 1e-4  # f32 generator against float64 on the card, of max |y|
+ZOO_PROFILE_FORWARDS = 5
+# the pair's and the head's shapes on the multi-band path: B 32, 100 frames
+# (T x5, x10, x20); the MSD's three scales of 8000 samples, stride 4
+MB_BATCH, MB_FRAMES = 32, 100
+MB_HEAD_SHAPES = [(32, 8000, 4), (32, 4001, 4), (32, 2001, 4)]
+
+
+def zoo_configs() -> dict:
+    """Each family's full-width training config (see ZOO_* above)."""
+    import yaml
+    with open(E2W_RECIPE) as f:
+        base = yaml.safe_load(f)
+    base.update(format="npy", num_workers=2, train_max_steps=ZOO_WARMUP_STEPS,
+                save_interval_steps=ZOO_WARMUP_STEPS,
+                eval_interval_steps=200000, log_interval_steps=100)
+    msmpd = base["discriminator_params"]
+    ema = dict(msmpd, scale_discriminator_params=dict(
+        msmpd["scale_discriminator_params"], in_channels=12),
+        period_discriminator_params=dict(
+            msmpd["period_discriminator_params"], in_channels=12))
+    w2a = dict(base, dataset_mode="w2a", sampling_rate=200, hop_size=1,
+               batch_max_steps=ZOO_W2A_ROWS, discriminator_params=ema)
+    return {
+        "mb-hifigan": dict(
+            base, generator_params=dict(
+                base["generator_params"], in_channels=13, use_ar=False,
+                out_channels=4, upsample_scales=[5, 2, 2],
+                upsample_kernel_sizes=[10, 4, 4]),
+            pqmf=True, use_subband_stft_loss=True,
+            subband_stft_loss_params={"fft_sizes": [384, 683, 171],
+                                      "hop_sizes": [30, 60, 10],
+                                      "win_lengths": [150, 300, 60]}),
+        "melgan": dict(
+            base, generator_type="MelGANGenerator",
+            generator_params={"in_channels": 13, "out_channels": 1,
+                              "kernel_size": 7, "channels": 512,
+                              "upsample_scales": [5, 4, 2, 2], "stacks": 3},
+            discriminator_type="MelGANMultiScaleDiscriminator",
+            discriminator_params={}),
+        # its discriminator returns one logits tensor: no feature matching
+        "pwg": dict(
+            base, generator_type="ParallelWaveGANGenerator",
+            generator_params={"layers": 30, "stacks": 3,
+                              "residual_channels": 64, "gate_channels": 128,
+                              "skip_channels": 64, "aux_channels": 13,
+                              "aux_context_window": 2, "upsample_params": {
+                                  "upsample_scales": [5, 4, 2, 2]}},
+            discriminator_type="ParallelWaveGANDiscriminator",
+            discriminator_params={}, use_feat_match_loss=False),
+        # kernels 2 s + 1: a GBlock takes odd kernels only
+        "gblock": dict(
+            base, generator_type="GBlockGenerator",
+            generator_params={"in_channels": 13, "channels": 512,
+                              "kernel_size": 7, "g_scales": [5, 4, 2, 2],
+                              "g_kernel_sizes": [11, 9, 5, 5]}),
+        # the noise upsampling gives the 100 frames of a window
+        "style-melgan": dict(
+            base, generator_type="StyleMelGANGenerator",
+            generator_params={"in_channels": 128, "aux_channels": 13,
+                              "channels": 64, "kernel_size": 9,
+                              "noise_upsample_scales": [5, 5, 2, 2],
+                              "upsample_scales": [5, 2, 2, 2, 2, 1]},
+            discriminator_type="StyleMelGANDiscriminator",
+            discriminator_params={}),
+        "transformer": dict(
+            w2a, generator_type="Transformer",
+            generator_params={"in_channels": 13, "out_channels": 12,
+                              "hidden_dim": 768, "elayers": 6}),
+        # benchmarks/inversion_bench.py's model
+        "bigru": dict(
+            w2a, generator_type="BiGRU",
+            generator_params={"in_channels": 13, "hidden_size": 256,
+                              "out_channels": 12}),
+    }
+
+
+def _write_zoo_corpus(root: str, seed: int, config: dict, utts: int,
+                      seconds: float, stage: str, dev: int = 0) -> None:
+    """``dump/<stage>/norm/<utt>-{wave,feats}.npy`` and
+    ``data/<stage>/feats.scp``: a2w random waves and 13 features at 200
+    Hz; w2a 13 features in the wave stream and 12 EMA targets."""
+    rng = np.random.default_rng(seed)
+    w2a = config["dataset_mode"] == "w2a"
+    frames = int(seconds * 200)
+    for name, n in ((stage, utts), ("dev", dev)):
+        if not n:
+            continue
+        dump = os.path.join(root, "dump", name, "norm")
+        data = os.path.join(root, "data", name)
+        os.makedirs(dump)
+        os.makedirs(data)
+        lines = []
+        for i in range(n):
+            if w2a:
+                stream = rng.standard_normal((frames, 13))
+                art = rng.standard_normal((frames, 12))
+            else:
+                stream = 0.3 * rng.standard_normal(frames * 80)
+                art = rng.standard_normal((frames, 13))
+            np.save(os.path.join(dump, f"u{i}-wave.npy"),
+                    stream.astype(np.float32))
+            np.save(os.path.join(dump, f"u{i}-feats.npy"),
+                    art.astype(np.float32))
+            np.save(os.path.join(data, f"u{i}.npy"), art.astype(np.float32))
+            lines.append(f"u{i} {os.path.join(data, f'u{i}.npy')}\n")
+        with open(os.path.join(data, "feats.scp"), "w") as f:
+            f.writelines(lines)
+
+
+def _zoo_forward(model, x, z):
+    """One forward with explicit noise for the noise-driven families."""
+    name = type(model).__name__
+    if name == "ParallelWaveGANGenerator":
+        return model(z, x)
+    if name == "StyleMelGANGenerator":
+        return model(x, z)
+    return model(x)
+
+
+def _zoo_noise(model, x):
+    """The noise a forward of ``model`` on ``x`` reads, or None."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    name = type(model).__name__
+    if name == "ParallelWaveGANGenerator":
+        c = x.shape[1] - 2 * model.aux_context_window
+        return torch.randn((x.shape[0], c * model.upsample_factor, 1),
+                           generator=gen, device="cuda")
+    if name == "StyleMelGANGenerator":
+        return torch.randn((x.shape[0], x.shape[1]
+                            // model.noise_upsample_factor, model.in_channels),
+                           generator=gen, device="cuda")
+    return None
+
+
+def phase_zoo(port: dict, family: str, config: dict, seed: int,
+              device_name: str, tmp: str) -> dict:
+    """[zoo-<family>] ``bin/train.py::train`` for ZOO_WARMUP_STEPS steps on
+    a synthetic corpus (launch counts; the generator gated off, as the
+    recipe's ``generator_train_start_steps`` 1 has it), then one untimed
+    and ZOO_TIMED_STEPS timed steps of its train step with both models on
+    (median; finite losses; every parameter moved; for the multi-band
+    HiFi-GAN, one batch's gradients with both kernels against both plain
+    versions, as phase_train's (d)); ``bin/decode.py`` of the
+    written checkpoint on ZOO_DECODE_UTTS x ZOO_DECODE_SECONDS s (samples/s
+    and RTF, finite outputs of the right length); the f32 generator
+    against the same module in float64 on the card (the pair's plain
+    version there); and a profiler window over ZOO_PROFILE_FORWARDS
+    forwards of one utterance."""
+    train_cli, gan, decode = port["train"], port["gan"], port["decode"]
+    pair, head = port["resblock_pair"], port["scale_disc_head"]
+    split, head_split = port["split_tf32"], port["split_weights"]
+    tag = f"zoo-{family}"
+    w2a = config["dataset_mode"] == "w2a"
+    _write_zoo_corpus(tmp, seed, config, ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS,
+                      "tr", dev=8)
+    outdir = os.path.join(tmp, "exp")
+    pair.launches = head.launches = split.launches = head_split.launches = 0
+    start = time.perf_counter()
+    trainer = train_cli.train(
+        config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
+        dev_dumpdir=os.path.join(tmp, "dump/dev/norm"), outdir=outdir,
+        data_root=os.path.join(tmp, "data"), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - start
+    launches = {"resblock_pair": pair.launches,
+                "scale_disc_head": head.launches,
+                "split_tf32": split.launches,
+                "split_weights": head_split.launches}
+    if family == "mb-hifigan":
+        # 27 pairs a generator forward, two forwards a step; 3 scales x 4
+        # discriminator passes
+        expected = {"resblock_pair": 54 * ZOO_WARMUP_STEPS,
+                    "scale_disc_head": 12 * ZOO_WARMUP_STEPS,
+                    "split_tf32": 54 * ZOO_WARMUP_STEPS,
+                    "split_weights": 12 * ZOO_WARMUP_STEPS}
+        if launches != expected:
+            raise AssertionError(f"[{tag}] launches {launches}, expected "
+                                 f"{expected}")
+    state = trainer.state
+    lr = config["generator_optimizer_params"]["lr"]
+    batch = port["to_device"](next(iter(trainer.data_loader["train"])),
+                              trainer.device)
+    # one untimed step with both models on (the generator's optimizer
+    # state is made in its first update), then the timed ones
+    trainer.train_step(state, batch, lr, lr)
+    step_s, metrics = [], {}
+    for _ in range(ZOO_TIMED_STEPS):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        metrics = trainer.train_step(state, batch, lr, lr)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - begin)
+    losses = {k: float(v) for k, v in metrics.items()}
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"[{tag}] losses not finite: {losses}")
+    grad_gaps = {}
+    if family == "mb-hifigan":  # (d) of phase_train on the multi-band path
+        criterion = gan.GANCriterion(trainer.config)
+        params = (list(state.generator.parameters()),
+                  list(state.discriminator.parameters()))
+        with torch.no_grad():
+            fake = gan.synthesize(criterion, gan.generate(
+                state.generator, batch, state.draws))
+
+        def both_grads():
+            gen_loss, _ = gan.generator_loss(state, criterion, config, batch)
+            dis_loss, _ = gan.discriminator_loss(state, criterion, config,
+                                                 batch, fake)
+            return _grads(gen_loss, params[0]), _grads(dis_loss, params[1])
+
+        kernel_grads = both_grads()
+        with swapped(port["residual"], "resblock_pair",
+                     port["resblock_pair_plain"]), \
+                swapped(port["hifigan"], "scale_disc_head",
+                        port["scale_disc_head_plain"]):
+            plain_grads = both_grads()
+        for name, got, want in zip(("generator", "discriminator"),
+                                   kernel_grads, plain_grads):
+            pooled, per = _grad_gaps(got, want)
+            grad_gaps[name] = {"pooled_rel_l2": pooled,
+                               "worst_tensor_rel_l2": per}
+            if pooled > GRAD_TOL[0] or per > GRAD_TOL[1]:
+                raise AssertionError(
+                    f"[{tag}] {name} gradients with the kernels differ from "
+                    f"plain by {pooled:.3e} pooled, {per:.3e} worst tensor "
+                    f"> {GRAD_TOL}")
+        log(f"[{tag}] kernel vs plain gradients, relative L2 pooled / worst "
+            f"tensor: " + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} / "
+                                    f"{v['worst_tensor_rel_l2']:.3e}"
+                                    for k, v in grad_gaps.items())
+            + f" (limits {GRAD_TOL})")
+    for model, name, model_seed in (
+            (state.generator, "generator", seed),
+            (state.discriminator, "discriminator", seed + 1)):
+        initial = port["build_model"](config[f"{name}_type"],
+                                      config[f"{name}_params"],
+                                      seed=model_seed).state_dict()
+        # a WaveNet stack's last residual output feeds nothing (only its
+        # skip does), in the JAX package and the reference alike
+        dead = (f"conv_layers.{len(model.conv_layers) - 1}.conv1x1_out."
+                if type(model).__name__ == "ParallelWaveGANGenerator"
+                else None)
+        still = [k for k, p in model.named_parameters()
+                 if torch.equal(p.detach().cpu(), initial[k])
+                 and not (dead and k.startswith(dead))]
+        if still:
+            raise AssertionError(f"[{tag}] {name} parameters never moved: "
+                                 f"{still[:5]}")
+    step_ms = 1e3 * float(np.median(step_s))
+    log(f"[{tag}] {config['generator_type']} + {config['discriminator_type']}"
+        f", B {config['batch_size']} x {config['batch_max_steps']}: "
+        f"{ZOO_WARMUP_STEPS} steps through bin/train.py in "
+        f"{run_seconds:.3f} s (build and warm-up included), launches "
+        f"{launches}; step median {step_ms:.3f} ms [range "
+        f"{1e3 * min(step_s):.3f}, {1e3 * max(step_s):.3f}] over "
+        f"{ZOO_TIMED_STEPS}; losses "
+        + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items()))
+
+    # the decode CLI on the written checkpoint
+    ckpt = os.path.join(outdir, f"checkpoint-{ZOO_WARMUP_STEPS}steps.ckpt")
+    dec_root = os.path.join(tmp, "decode")
+    _write_zoo_corpus(dec_root, seed + 3, config, ZOO_DECODE_UTTS,
+                      ZOO_DECODE_SECONDS, "eval")
+    pair.launches = 0
+    result = decode.decode(config, ckpt, os.path.join(dec_root, "out"),
+                           dumpdir=os.path.join(dec_root, "dump/eval/norm"),
+                           device="cuda")
+    decode_pairs = pair.launches
+    frames = ZOO_DECODE_SECONDS * 200
+    for i in range(ZOO_DECODE_UTTS):
+        if w2a:
+            y = np.load(os.path.join(dec_root, "out", f"u{i}_gen.npy"))
+            want = (frames, 12)
+        else:
+            y, _ = port["read_wav"](os.path.join(dec_root, "out",
+                                                 f"u{i}_gen.wav"))
+            want = (frames * 80,)
+        if y.shape != want or not np.isfinite(y).all():
+            raise AssertionError(f"[{tag}] decode u{i}: {y.shape}, not "
+                                 f"finite or not {want}")
+    rate = result["seconds_audio"] * 16000 / result["seconds_elapsed"]
+    log(f"[{tag}] bin/decode.py: {ZOO_DECODE_UTTS} x {ZOO_DECODE_SECONDS} s "
+        f"in {result['seconds_elapsed']:.3f} s, {rate:.1f} samples/s of "
+        f"16 kHz audio, mean RTF {result['rtf']:.6f}; resblock_pair launches "
+        f"{decode_pairs}")
+
+    # the f32 generator against float64, and a profiler window
+    model = port["inference"].load_model(ckpt, config, device="cuda")
+    gen = model.model
+    x = torch.from_numpy(np.load(os.path.join(
+        dec_root, "dump/eval/norm", "u0-" + ("wave" if w2a else "feats")
+        + ".npy"))).cuda()[None]
+    if type(gen).__name__ == "ParallelWaveGANGenerator":
+        x = torch.nn.functional.pad(x.transpose(1, 2), (2, 2),
+                                    mode="replicate").transpose(1, 2)
+    z = _zoo_noise(gen, x)
+    with torch.inference_mode():
+        y = _zoo_forward(gen, x, z)
+        with swapped(port["residual"], "resblock_pair",
+                     port["resblock_pair_plain"]):
+            y64 = _zoo_forward(copy.deepcopy(gen).double(), x.double(),
+                               None if z is None else z.double())
+    err = ((y.double() - y64).abs().max() / y64.abs().max()).item()
+    if not torch.isfinite(y).all() or err > ZOO_F64_TOL:
+        raise AssertionError(f"[{tag}] f32 generator {err:.3e} of max |y| "
+                             f"from float64 (limit {ZOO_F64_TOL}) or not "
+                             f"finite")
+    with torch.inference_mode():
+        prof = profile_device(lambda: [_zoo_forward(gen, x, z)
+                                       for _ in range(ZOO_PROFILE_FORWARDS)])
+    busy = ("not measured" if prof["busy_share"] is None else
+            f"{100 * prof['busy_share']:.1f} % of {prof['span_ms']:.3f} ms")
+    log(f"[{tag}] f32 generator against float64 on the card: {err:.3e} of "
+        f"max |y| (limit {ZOO_F64_TOL}); profiler over "
+        f"{ZOO_PROFILE_FORWARDS} forwards of one {ZOO_DECODE_SECONDS} s "
+        f"utterance on {device_name}: device busy {busy}, "
+        f"{prof['device_ops']} device ops, pair kernels "
+        f"{prof['kernel_counts']['resblock_pair_wgmma']}; top: "
+        + "; ".join(f"{o['name'][:60]} {o['ms']:.3f} ms x{o['calls']}"
+                    for o in prof["top_ops"][:4]))
+    if family == "mb-hifigan" and (
+            prof["kernel_counts"]["resblock_pair_wgmma"]
+            != 27 * ZOO_PROFILE_FORWARDS
+            or decode_pairs != 27 * ZOO_DECODE_UTTS):
+        raise AssertionError(f"[{tag}] pair kernels: "
+                             f"{prof['kernel_counts']} in the profile, "
+                             f"{decode_pairs} in the decode")
+    return {"run_seconds": run_seconds, "launches": launches,
+            "grad_gaps": grad_gaps, "step_ms_median": step_ms,
+            "step_ms": [1e3 * s for s in step_s], "losses": losses,
+            "decode": dict(result, samples_per_s=rate,
+                           pair_launches=decode_pairs),
+            "f64_rel_err": err, "profile": prof}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1837,7 +2206,7 @@ def main() -> int:
     from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
     from articulatory_tpu_torch.utils.device import set_float32_parity
-    from articulatory_tpu_torch.utils.io import write_wav
+    from articulatory_tpu_torch.utils.io import read_wav, write_wav
 
     set_float32_parity()
     build_seconds = phase_build(_build)
@@ -1945,6 +2314,34 @@ def main() -> int:
         w2a_cli = phase_w2a_cli(port, args.seed, tmp)
         stream = phase_stream(port, args.seed, device_name, tmp)
 
+    # the zoo: the multi-band shapes of both kernels, then each family
+    mb = zoo_configs()
+    mb_gp = mb["mb-hifigan"]["generator_params"]
+    mb_rows = phase_kernel(resblock_pair, resblock_pair_plain, splits,
+                           args.seed, MB_BATCH, MB_FRAMES, gp=mb_gp)
+    mb_sums, mb_stages = kernel_sums(mb_rows), stage_sums(mb_rows)
+    for dtype, sums in mb_sums.items():
+        log(f"[mb-kernel] {dtype}: 27 multi-band shapes at B={MB_BATCH}, "
+            f"{MB_FRAMES} frames: {sum_line(dtype, sums)}")
+    log_stage_sums(mb_stages, MB_BATCH)
+    mb_head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
+                                     (split_weights, split_weights_plain),
+                                     args.seed, shapes=MB_HEAD_SHAPES)
+    for r in mb_head_rows:
+        log(f"[mb-head] B{r['B']} T{r['T']} s{r['stride']} {r['dtype']}: "
+            f"kernel {r['kernel_ms']:.4f} ms (weight split "
+            f"{r['split_ms']:.4f} ms of it), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['kernel_ms']:.1f} % of the bound, "
+            f"max rel err {r['max_rel_err']:.2e}, error against float64 "
+            f"{r['f64_rel_err']:.3e}")
+    zoo_port = dict(train_port, decode=decode, read_wav=read_wav)
+    zoo = {}
+    for family, config in mb.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo[family] = phase_zoo(zoo_port, family, config, args.seed,
+                                    device_name, tmp)
+
     f32 = by_dtype["float32"]
     pair_entry = {
         "name": "resblock_pair", "route": "cuda",
@@ -2013,6 +2410,19 @@ def main() -> int:
         "launches_stream_profiled": {
             mode: stream[mode]["pair_launches_profiled"]
             for mode in ("f32", "hybrid_bf16")},
+        # the multi-band HiFi-GAN path (27 pairs a forward): its training
+        # run, its decode, its profiled forwards; its 27 shapes (B 32, 100
+        # frames: C 256/128/64 at T 500/1000/2000)
+        "launches_multiband_train": zoo["mb-hifigan"]["launches"][
+            "resblock_pair"],
+        "launches_multiband_decode": zoo["mb-hifigan"]["decode"][
+            "pair_launches"],
+        "launches_multiband_profiled": zoo["mb-hifigan"]["profile"][
+            "kernel_counts"]["resblock_pair_wgmma"],
+        **{f"multiband_shapes_{key}": {d: mb_sums[d][key]
+                                       for d in ("float32", "bfloat16")}
+           for key in ("kernel_ms", "plain_ms", "bound_ms")},
+        "multiband_shapes_f64_max_rel_err": mb_sums["float32"]["f64_rel_err"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -2055,6 +2465,14 @@ def main() -> int:
                                         if r["dtype"] == d)
                                  for d in ("float32", "bfloat16")}
            for key in ("kernel_ms", "plain_ms", "bound_ms")},
+        # the multi-band HiFi-GAN training run (3 scales x 4 passes a
+        # step) and its three scales (B 32, T 8000/4001/2001, stride 4)
+        "launches_multiband_train": zoo["mb-hifigan"]["launches"][
+            "scale_disc_head"],
+        **{f"multiband_shapes_{key}": {d: sum(r[key] for r in mb_head_rows
+                                              if r["dtype"] == d)
+                                       for d in ("float32", "bfloat16")}
+           for key in ("kernel_ms", "plain_ms", "bound_ms")},
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2072,6 +2490,9 @@ def main() -> int:
                    "mri_head_shapes": mri_head_rows, "mri": mri_results,
                    "mri_train": mri_train, "w2a": w2a, "w2a_ar": w2a_ar,
                    "w2a_cli": w2a_cli, "stream": stream,
+                   "mb_kernel_shapes": mb_rows, "mb_kernel_totals": mb_sums,
+                   "mb_kernel_stages": mb_stages,
+                   "mb_head_shapes": mb_head_rows, "zoo": zoo,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

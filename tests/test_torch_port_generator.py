@@ -143,4 +143,4 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         build_model("HiFiGANGenerator", dict(GP, use_spk_id=True, num_spk=2))
     with pytest.raises(NotImplementedError):
-        build_model("MelGANGenerator", {})
+        build_model("MelGANGenerator", {"use_causal_conv": True})

@@ -521,3 +521,76 @@ def test_dispatched_chunks_survive_later_replays(cuda):
     for out, want in zip(inflight, synced):
         assert out.data_ptr() != graph.static_out.data_ptr()
         assert torch.equal(out.cpu(), torch.from_numpy(want))
+
+
+# multi-band HiFi-GAN (upsample (5, 2, 2), 4 bands): its three stages'
+# pairs at 100 frames, B 4 (T x5, x10, x20)
+MULTIBAND = [(4, t, c, k, d) for c, t in ((256, 500), (128, 1000),
+                                         (64, 2000))
+             for k, d in ((3, 1), (7, 3), (11, 5))]
+
+
+@pytest.mark.parametrize("b,t,c,k,d", MULTIBAND)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_at_multiband_shapes(cuda, b, t, c, k, d, dtype,
+                                                  tol):
+    args = _pair_args(cuda, b, t, c, k, dtype, seed=1)
+    before = resblock_pair.launches
+    y = resblock_pair(*args, dilation=d)
+    assert resblock_pair.launches == before + 1
+    ref = resblock_pair_plain(*args, dilation=d)
+    err = (y.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= tol
+
+
+def test_multiband_train_step_kernels_match_plain(cuda, monkeypatch):
+    """One multi-band HiFi-GAN loss pair (PQMF, subband STFT loss, the
+    MSMPD's scale head) with both kernels against both plain versions:
+    gradients in relative L2 pooled per model <= 1e-3."""
+    from articulatory_tpu_torch.layers import residual
+    from articulatory_tpu_torch.models import hifigan
+    from articulatory_tpu_torch.train import gan
+
+    gp = dict(in_channels=13, out_channels=4, channels=128,
+              upsample_scales=[5, 2, 2], upsample_kernel_sizes=[10, 4, 4])
+    dp = dict(scales=2, scale_discriminator_params=dict(
+        channels=128, max_downsample_channels=256,
+        downsample_scales=[4, 4, 1]), periods=[2, 3])
+    config = dict(generator_type="HiFiGANGenerator", generator_params=gp,
+                  discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+                  discriminator_params=dp, pqmf=True,
+                  use_subband_stft_loss=True,
+                  subband_stft_loss_params=dict(fft_sizes=[128],
+                                                hop_sizes=[32],
+                                                win_lengths=[64]),
+                  use_feat_match_loss=True, lambda_aux=45.0)
+    gen = build_model("HiFiGANGenerator", gp).to(cuda)
+    disc = build_model(config["discriminator_type"], dp, seed=1).to(cuda)
+    state = gan.GANTrainState(generator=gen, discriminator=disc, opt_g=None,
+                              opt_d=None, steps=1)
+    criterion = gan.GANCriterion(config)
+    g = torch.Generator().manual_seed(2)
+    batch = {"x": (torch.randn(2, 20, 13, generator=g).to(cuda),),
+             "y": (0.3 * torch.randn(2, 1600, 1, generator=g)).to(cuda)}
+    with torch.no_grad():
+        fake = gan.synthesize(criterion, gan.generate(gen, batch))
+
+    def grads():
+        gl, _ = gan.generator_loss(state, criterion, config, batch)
+        dl, _ = gan.discriminator_loss(state, criterion, config, batch, fake)
+        return (torch.autograd.grad(gl, list(gen.parameters())),
+                torch.autograd.grad(dl, list(disc.parameters())))
+
+    pairs, heads = resblock_pair.launches, scale_disc_head.launches
+    kernel = grads()
+    # 27 pairs (3 stages x 3 blocks x 3 dilations); 2 scales x 4 passes
+    assert resblock_pair.launches - pairs == 27
+    assert scale_disc_head.launches - heads == 8
+    monkeypatch.setattr(residual, "resblock_pair", resblock_pair_plain)
+    monkeypatch.setattr(hifigan, "scale_disc_head", scale_disc_head_plain)
+    plain = grads()
+    for got, want in zip(kernel, plain):
+        gap = torch.stack([(a - b).norm() for a, b in zip(got, want)]).norm()
+        norm = torch.stack([b.norm() for b in want]).norm()
+        assert (gap / norm).item() <= 1e-3

@@ -266,15 +266,10 @@ def test_decode_cli_bf16_weights_exclusive_with_int8(ckpt_dir, tmp_path):
 
 
 def test_unported_decode_modes_raise(ckpt_dir):
-    """Multimodal decode and PQMF synthesis raise (w2a decodes since the
-    BiGRU port: tests/test_torch_port_w2a.py)."""
+    """Multimodal decode raises (w2a decodes since the BiGRU port:
+    tests/test_torch_port_w2a.py; PQMF synthesis since the zoo's:
+    tests/test_torch_port_pqmf.py)."""
     model = load_model(_checkpoint(ckpt_dir, 64), _config(64), device="cpu")
     x = np.zeros((10, 13), np.float32)
     with pytest.raises(NotImplementedError):
         ar_loop(model, x, _config(64), modality=0)
-    config = _config(64)
-    config["pqmf"] = True
-    config["generator_params"] = dict(config["generator_params"],
-                                      out_channels=4)
-    with pytest.raises(NotImplementedError, match="PQMF"):
-        load_model(_checkpoint(ckpt_dir, 64), config, device="cpu")

@@ -4,6 +4,7 @@ need them; entry points run on CUDA unless asked for the CPU, and raise
 without a card instead of dropping to the CPU."""
 
 import ast
+import json
 import pathlib
 
 import numpy as np
@@ -69,6 +70,20 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         decode_cli.decode(config, str(tmp_path / "missing.pkl"),
                           str(tmp_path / "out"), dumpdir=str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_ab_phase_fails_without_cuda(monkeypatch, tmp_path):
+    """The A/B runner's runs exit without a card; it records each failed
+    run and returns 1."""
+    from articulatory_tpu_torch.bin import ab_phase
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    out = tmp_path / "ab.json"
+    assert ab_phase.main([str(ROOT), str(ROOT), "--out", str(out)]) == 1
+    runs = json.loads(out.read_text())
+    assert [r["tree"] for r in runs] == ["parent", "change", "change",
+                                         "parent"]
+    assert all(r["exit"] == 1 for r in runs)
 
 
 def test_resblock_pair_rejects_other_devices():

@@ -249,9 +249,11 @@ def test_decode_cli_w2a(tmp_path):
 
 
 def test_decode_cli_w2a_needs_a_wav_scp(ckpts, tmp_path):
-    with pytest.raises(ValueError, match="wav.scp"):
+    # a wav.scp or, since the zoo's port, a dump directory's input stream
+    # (<utt>-wave.npy; tests/test_torch_port_zoo_train.py); not neither
+    with pytest.raises(ValueError, match="either --dumpdir or --feats-scp"):
         decode_cli.decode(_config(16), ckpts[16], str(tmp_path / "o"),
-                          dumpdir=str(tmp_path), device="cpu")
+                          device="cpu")
     assert "w2a" not in decode_cli._NOT_PORTED_MODES
 
 
