@@ -5,7 +5,11 @@ and the generic x2y modes such as the MRI recipe's; ``art`` and ``a2m``
 write features; ``w2a`` inverts the waves of a wav.scp (``--feats-scp``),
 or the input stream of a dump directory (``--dumpdir``: ``<utt>-wave.npy``
 or the hdf5 ``wave``, e.g. frame-rate MFCCs), into EMA trajectories with
-an inversion model, a ``BiGRU`` or the ``Transformer``).
+an inversion model, a ``BiGRU`` or the ``Transformer``; ``ph2a`` and
+``ph2m`` read integer phoneme ids from the dump or feats.scp into the
+model's embedding and write features; ``a2w_mult`` reads a 3-column
+feats.scp, ``fid path modality``, and decodes each utterance through
+``ar_loop(modality=...)``, the input of an ``in_list`` model).
 Every generator of the zoo decodes: the chunked-AR loops run the AR ones,
 ``LoadedModel.inference`` (full utterance; PQMF synthesis for multi-band
 models, seeded noise for Parallel WaveGAN and StyleMelGAN) the others.
@@ -15,8 +19,9 @@ Writes ``<utt>_gen.wav`` per utterance (``<utt>_<i>_gen.wav`` and
 output) and logs the real-time factor (w2a: of the input audio). AR
 generators decode chunk by chunk (``ar_loop``), or ``--decode-batch-size``
 utterances at a time (``ar_loop_batched``); ``--ar-scan`` runs either
-through the captured chunk step (a CUDA graph on a card). Others decode in
-one forward.
+through the captured chunk step (a CUDA graph on a card); ``a2w_mult``
+and ``a2w_pcd`` decode sequentially through the eager loop, as in the JAX
+package. Others decode in one forward.
 ``--int8-weights`` / ``--bf16-weights`` store the weights as int8 or
 bfloat16. Input transforms (``transform`` / ``input_transform``) apply to
 the features.
@@ -42,6 +47,7 @@ from articulatory_tpu_torch.data.datasets import (
     AudioSCPDataset,
     MelSCPDataset,
 )
+from articulatory_tpu_torch.data.multimodal import ArtSCPMultDataset
 from articulatory_tpu_torch.data.transforms import get_transform
 from articulatory_tpu_torch.inference import (
     ar_loop,
@@ -51,15 +57,22 @@ from articulatory_tpu_torch.inference import (
 )
 from articulatory_tpu_torch.utils.io import read_hdf5, write_wav
 
-_NOT_PORTED_MODES = ("a2w_mult", "ph2a", "ph2m")
+# decoded one utterance at a time through the eager loop (JAX
+# bin/decode.py:211, :244)
+_SEQUENTIAL_MODES = ("a2w_mult", "a2w_pcd")
+_PHONEME_MODES = ("ph2a", "ph2m")
 
 
 def _dataset(config: dict, dumpdir: str | None, feats_scp: str | None):
     if (feats_scp is not None) == (dumpdir is not None):
         raise ValueError("Please specify either --dumpdir or --feats-scp.")
     mode = config.get("dataset_mode", "default")
-    if mode in _NOT_PORTED_MODES:
-        raise NotImplementedError(f"dataset_mode {mode!r} is not ported yet")
+    if mode == "a2w_mult":
+        if feats_scp is None:
+            raise ValueError("dataset_mode a2w_mult reads a 3-column "
+                             "--feats-scp (fid path modality)")
+        return ArtSCPMultDataset(feats_scp, return_utt_id=True,
+                                 transform=config.get("transform"))
     if mode == "w2a":
         if feats_scp is not None:
             return AudioSCPDataset(feats_scp, return_utt_id=True,
@@ -117,12 +130,16 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
     # the chunked-AR loops: wave decode and w2a inversion
     ar_chunked = use_ar and not do_wsola and (is_wave or w2a)
     sr, hop = config["sampling_rate"], config["hop_size"]
-    items = [(utt_id, np.asarray(c, np.float32)) for utt_id, c in dataset]
+    # phoneme ids feed an embedding (reference decode.py:346)
+    dtype = np.int32 if mode in _PHONEME_MODES else np.float32
+    items = [(item[0], np.asarray(item[1], dtype),
+              item[2] if mode == "a2w_mult" else None) for item in dataset]
     total_time = total_len = total_rtf = 0.0
+    sequential = mode in _SEQUENTIAL_MODES
 
-    if decode_batch_size > 1 and ar_chunked:
+    if decode_batch_size > 1 and ar_chunked and not sequential:
         for i in range(0, len(items), decode_batch_size):
-            group = items[i:i + decode_batch_size]
+            group = [item[:2] for item in items[i:i + decode_batch_size]]
             start = time.perf_counter()
             # --ar-scan: each lane group is one run of the captured step
             outs = ar_loop_batched(model, [c for _, c in group], config,
@@ -145,17 +162,18 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
         return {"utterances": len(items), "seconds_audio": total_len,
                 "seconds_elapsed": total_time, "rtf": rtf}
 
-    if ar_scan and not ar_chunked:
+    if ar_scan and (sequential or not ar_chunked):
         logging.warning("--ar-scan ignored: the captured chunk loop covers "
                         "plain chunked-AR wave decode and w2a inversion (no "
-                        "wsola/non-AR).")
+                        "wsola/multimodal/non-AR).")
         ar_scan = False
-    for utt_id, c in items:
+    for utt_id, c, modality in items:
         start = time.perf_counter()
         if ar_scan:
             out = ar_loop_scan(model, c, config, chunk_bucket=ar_scan_bucket)
         elif use_ar:
-            out = ar_loop(model, c, config, do_wsola=do_wsola)
+            out = ar_loop(model, c, config, do_wsola=do_wsola,
+                          modality=modality)
         else:
             out = model.inference(c, normalize_before=normalize_before,
                                   bucket_frames=bucket_frames or None)

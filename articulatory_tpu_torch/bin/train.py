@@ -2,11 +2,18 @@
 """Train a GAN vocoder or an inversion model on the GPU (port of
 ``articulatory_tpu/bin/train.py``): ``SpeechDataset`` + ``SpeechCollater``
 random windows for a2w (and the generic x2y modes such as the MRI
-recipe's) and w2a, ``MelArtDataset`` + ``CollaterMelArt`` for art, a2m and
-m2a; the named input/output transforms; every generator and
-discriminator of the zoo; ``train/gan.py``'s step (its noise and window
-draws seeded from ``--seed``). The top-level ``time_packing`` key, a TPU
-layout option, is accepted and ignored.
+recipe's), w2a, ph2a and ph2m, with speaker ids (``use_spk_id``, checked
+against ``num_spk``) and phoneme ids (``use_ph``, ``use_ph_loss``, the
+ph modes) where the generator asks for them; ``MelArtDataset`` +
+``CollaterMelArt`` for art, a2m and m2a; the named input/output
+transforms; every generator and discriminator of the zoo; a cascade
+(``generator2_type``: a frozen second generator, whose weights and the
+discriminator's ``--pretrain2`` loads from a second checkpoint);
+``train/gan.py``'s step (its noise and window draws seeded from
+``--seed``). The top-level ``time_packing`` key, a TPU layout option, is
+accepted and ignored. ``use_pcd`` raises: no collater makes the pitch and
+periodicity tracks its step reads (the JAX package's CLI fails on the
+missing batch key).
 
     python -m articulatory_tpu_torch.bin.train --device cuda \\
         --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
@@ -48,7 +55,12 @@ from articulatory_tpu_torch.train.gan import (
 from articulatory_tpu_torch.train.optimizers import build_optimizer
 from articulatory_tpu_torch.train.schedulers import build_scheduler
 from articulatory_tpu_torch.train.trainer import Trainer
-from articulatory_tpu_torch.utils.checkpoint import load_checkpoint, restore_state
+from articulatory_tpu_torch.utils.checkpoint import (
+    discriminator_state_dict,
+    generator_state_dict,
+    load_checkpoint,
+    restore_state,
+)
 from articulatory_tpu_torch.utils.device import resolve_device
 from articulatory_tpu_torch.utils.io import read_hdf5
 
@@ -65,6 +77,11 @@ def _check_config(config: dict) -> None:
         asked.append("remove_short_samples")
     if asked:
         raise NotImplementedError(f"config keys not ported yet: {asked}")
+    if config.get("use_pcd", False):
+        raise ValueError(
+            "use_pcd: no collater makes the 'pitch' and 'periodicity' batch "
+            "keys the PCD discriminator inputs read; build batches with them "
+            "and call train/gan.py's step directly")
 
 
 def _transforms(config: dict) -> dict:
@@ -116,17 +133,28 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
             gp.get("aux_context_window", 0), ar_len=ar_len,
             dataset_mode=mode, rng=rng)
         return datasets[0], datasets[1], collater, collater
-    datasets = [SpeechDataset(root_dir=d, data_root=data_root,
-                              allow_cache=config.get("allow_cache", False),
-                              **_transforms(config), **kwargs)
-                for d in (train_dumpdir, dev_dumpdir)]
+    use_spk_id = gp.get("use_spk_id", False)
+    use_ph = (gp.get("use_ph", False) or gp.get("use_ph_loss", False)
+              or mode in ("ph2a", "ph2m"))
+    common = dict(data_root=data_root, mel_load_fn=mel_load_fn,
+                  allow_cache=config.get("allow_cache", False),
+                  use_spk_id=use_spk_id, use_ph=use_ph, dataset_mode=mode,
+                  **_transforms(config), **kwargs)
+    train_set = SpeechDataset(root_dir=train_dumpdir, **common)
+    if use_spk_id and len(train_set.spks) != gp["num_spk"]:
+        raise ValueError(f"{len(train_set.spks)} speakers in the training "
+                         f"set but num_spk is {gp['num_spk']}")
+    # the dev set numbers its speakers as the training set does
+    datasets = [train_set, SpeechDataset(root_dir=dev_dumpdir,
+                                         spks=train_set.spks, **common)]
 
     def collater():
         return SpeechCollater(
             batch_max_steps=config["batch_max_steps"],
             hop_size=config["hop_size"],
             aux_context_window=gp.get("aux_context_window", 0),
-            dataset_mode=mode, config=config, rng=rng)
+            dataset_mode=mode, use_spk_id=use_spk_id, use_ph=use_ph,
+            config=config, rng=rng)
 
     return datasets[0], datasets[1], collater(), collater()
 
@@ -140,15 +168,19 @@ def dump_config(config: dict, outdir: str) -> None:
 
 
 def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
-          data_root: str = "data", pretrain: str = "", resume: str = "",
-          seed: int = 0, device=None) -> Trainer:
+          data_root: str = "data", pretrain: str = "", pretrain2: str = "",
+          resume: str = "", seed: int = 0, device=None) -> Trainer:
     """Train from ``config`` on ``device`` (default cuda; raises without a
-    card) until ``train_max_steps``."""
+    card) until ``train_max_steps``. ``pretrain`` loads the models'
+    weights, ``pretrain2`` a cascade's generator2 and the discriminator
+    from another checkpoint's generator and discriminator, ``resume`` the
+    whole state, in that order."""
     dev = resolve_device(device)
     _check_config(config)
     config = dict(config, train_dumpdir=train_dumpdir, dev_dumpdir=dev_dumpdir,
                   outdir=outdir, data_root=data_root, pretrain=pretrain,
-                  resume=resume, seed=seed, version="0.1.0-torch")
+                  pretrain2=pretrain2, resume=resume, seed=seed,
+                  version="0.1.0-torch")
     dump_config(config, outdir)
 
     train_set, dev_set, train_collater, dev_collater = build_datasets(
@@ -172,6 +204,12 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
     discriminator = build_model(config["discriminator_type"],
                                 config.get("discriminator_params", {}),
                                 seed=seed + 1).to(dev)
+    generator2 = None
+    if config.get("generator2_type") is not None:
+        # frozen: no optimizer holds it (reference train.py:1760-1769)
+        generator2 = build_model(config["generator2_type"],
+                                 config["generator2_params"],
+                                 seed=seed + 2).to(dev).requires_grad_(False)
     logging.info(f"generator params: "
                  f"{sum(p.numel() for p in generator.parameters()):,}")
     logging.info(f"discriminator params: "
@@ -189,12 +227,24 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
             config.get(f"{name}_scheduler_params", {}))
     state = GANTrainState(generator=generator, discriminator=discriminator,
                           opt_g=opts["generator"], opt_d=opts["discriminator"],
-                          draws=RandomDraws(seed))
+                          draws=RandomDraws(seed), generator2=generator2)
     epochs = 0
     if pretrain:
         restore_state(state, load_checkpoint(pretrain), config,
                       load_only_params=True)
         logging.info(f"Successfully loaded parameters from {pretrain}.")
+    if pretrain2 and generator2 is not None:
+        # the second stage and the discriminator from the second
+        # checkpoint's generator and discriminator (reference
+        # train.py:178-214)
+        payload = load_checkpoint(pretrain2)
+        generator2.load_state_dict(generator_state_dict(
+            payload, "generator", config["generator2_params"],
+            config["generator2_type"]))
+        discriminator.load_state_dict(discriminator_state_dict(
+            payload, config["discriminator_type"],
+            config.get("discriminator_params", {})))
+        logging.info(f"Successfully loaded stage-2 from {pretrain2}.")
     if resume:
         epochs = restore_state(state, load_checkpoint(resume), config,
                                schedulers=schedulers)
@@ -220,6 +270,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-root", default="data", type=str,
                         help="root holding <stage>/feats.scp maps")
     parser.add_argument("--pretrain", default="", type=str, nargs="?")
+    parser.add_argument("--pretrain2", default="", type=str, nargs="?",
+                        help="a checkpoint whose generator and discriminator "
+                             "become a cascade's frozen generator2 and the "
+                             "discriminator")
     parser.add_argument("--resume", default="", type=str, nargs="?")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--verbose", type=int, default=1)
@@ -251,7 +305,8 @@ def main(argv: list[str] | None = None) -> None:
     train(load_config(args.config), train_dumpdir=args.train_dumpdir,
           dev_dumpdir=args.dev_dumpdir, outdir=args.outdir,
           data_root=args.data_root, pretrain=args.pretrain,
-          resume=args.resume, seed=args.seed, device=args.device)
+          pretrain2=args.pretrain2, resume=args.resume, seed=args.seed,
+          device=args.device)
 
 
 if __name__ == "__main__":

@@ -4,20 +4,25 @@ NLC layout (port of ``articulatory_tpu/data/collate.py``).
 ``SpeechCollater`` carries ``package_mode: random_window`` (a random
 fixed-size crop per utterance, drawn from the collater's numpy generator in
 the JAX package's order, so one seed gives both packages the same crops)
-over the art and audio streams, in both directions:
+over the streams of its dataset mode:
 
 - a2w (``a2w``, ``default`` and the generic x2y modes, the MRI recipe's
-  among them): x = (art window,), y = audio (B, T, 1), and with ``use_ar``
-  the waveform past ``ar`` (B, ar_input, 1);
-- w2a: x = (audio window,), y = art (B, T', C), and with ``use_ar`` the
-  feature past ``ar`` (B, ar_input // out_channels, C).
+  among them): x = (art window,), y = audio (B, T, 1);
+- w2a: x = (audio window,), y = art (B, T', C);
+- ph2a and ph2m: x = (phoneme ids (B, T'),), y = art or mel (B, T', C),
+  the phoneme and mel streams windowed with the art frames.
 
-AR pasts are zero-padded at the start of an utterance. An audio stream of
-frame-rate features, ``(T, F)`` per utterance (the w2a recipes' MFCCs, with
-``hop_size`` 1), is batched as ``(B, T, F)``; the JAX package's collater
-appends an axis to it too, a 4-D batch no model reads. Other dataset modes
-(mel and phoneme streams), package modes, speaker ids and phonemes raise
-``NotImplementedError``.
+``use_spk_id`` adds ``spk_id`` (B,) int32, ``use_ph`` the phoneme window
+``ph`` (B, T') int32. With the generator's ``use_ar`` the AR past of the
+output stream is ``ar``: waveform samples (B, ar_input, 1) or feature
+frames (B, ar_input // out_channels, C); in a cascade (``generator2_type``)
+``ar`` is the feature past and ``ar2`` the waveform past of
+``generator2_params``' length, as the JAX package batches them. AR pasts
+are zero-padded at the start of an utterance. An audio stream of
+frame-rate features, ``(T, F)`` per utterance (the w2a recipes' MFCCs,
+with ``hop_size`` 1), is batched as ``(B, T, F)``; the JAX package's
+collater appends an axis to it too, a 4-D batch no model reads. m2w and
+the other package modes raise ``NotImplementedError``.
 
 ``CollaterMelArt`` is the a2m / m2a / art crop of (mel, art) pairs, and
 ``Collater`` the legacy Parallel WaveGAN (audio, mel) crop, with
@@ -100,49 +105,62 @@ def is_wave_output_mode(dataset_mode: str) -> bool:
 class SpeechCollater:
     def __init__(self, batch_max_steps: int = 20480, hop_size: int = 256,
                  aux_context_window: int = 0, dataset_mode: str = "a2w",
+                 use_spk_id: bool = False, use_ph: bool = False,
                  config: dict | None = None,
                  rng: np.random.Generator | None = None):
         if batch_max_steps % hop_size != 0:
             raise ValueError("batch_max_steps must be a multiple of hop_size")
         config = config or {}
         gp = config.get("generator_params", {})
-        x_key, y_key = parse_dataset_mode(dataset_mode)[:2]
-        if {x_key, y_key} != {"art", "audio"}:
-            raise NotImplementedError(f"training dataset_mode {dataset_mode!r} "
-                                      f"({x_key} to {y_key}) is not ported "
-                                      "yet")
+        (self.x_key, self.y_key, self.use_audio, self.use_mel,
+         self.use_art) = parse_dataset_mode(dataset_mode)
+        if self.x_key == "mel":
+            raise NotImplementedError(f"training dataset_mode {dataset_mode!r}"
+                                      " (mel to audio) is not ported yet")
         package_mode = config.get("package_mode", "random_window")
         if package_mode != "random_window":
             raise NotImplementedError(f"package_mode {package_mode!r} is not "
                                       "ported yet")
-        if "generator2_params" in config or gp.get("use_spk_id") or gp.get(
-                "use_ph") or gp.get("use_ph_loss"):
-            raise NotImplementedError("cascades, speaker ids and phonemes are "
-                                      "not ported yet")
         self.batch_max_steps = batch_max_steps
         self.batch_max_frames = batch_max_steps // hop_size
         self.hop_size = hop_size
         self.aux_context_window = aux_context_window
+        self.use_spk_id, self.use_ph = use_spk_id, use_ph
         self.rng = rng or np.random.default_rng()
-        self.x_key, self.y_key = x_key, y_key
-        # the AR past of the output stream: waveform samples (a2w) or
-        # feature frames (w2a)
-        self.ar_len = (int(gp.get("ar_input", 512) / gp.get("out_channels", 1))
-                       if gp.get("use_ar", False) else None)
+        # the AR pasts: ``ar`` of the output stream, waveform samples (a2w)
+        # or feature frames (w2a, ph2a), and in a cascade ``ar2``, the
+        # waveform past of generator2
+        self.has_generator2 = "generator2_type" in config
+        self.use_ar = gp.get("use_ar", False)
+        self.ar_len = self.ar2_len = None
+        if self.use_ar:
+            self.ar_len = int(gp.get("ar_input", 512)
+                              / gp.get("out_channels", 1))
+            if "generator2_params" in config:
+                g2 = config["generator2_params"]
+                self.ar2_len = int(g2.get("ar_input", 512)
+                                   / g2.get("out_channels", 1))
+            elif self.y_key == "audio":
+                self.ar2_len, self.ar_len = self.ar_len, None
         self.start_offset = aux_context_window
         self.end_offset = -(self.batch_max_frames + aux_context_window)
 
     def __call__(self, batch: list[dict]) -> dict:
-        audios, arts = [], []
+        kept = []
         for d in batch:
             art = d["art"][: int(len(d["audio"]) / self.hop_size)]
             if len(art) + self.end_offset > self.start_offset:
-                audios.append(d["audio"])
-                arts.append(art)
-        if len(arts) < len(batch):
-            logging.warning(f"collater dropped {len(batch) - len(arts)} "
+                kept.append((d, art))
+        if len(kept) < len(batch):
+            logging.warning(f"collater dropped {len(batch) - len(kept)} "
                             f"utterances shorter than the "
                             f"{self.batch_max_frames}-frame window")
+        audios = [d["audio"] for d, _ in kept]
+        arts = [art for _, art in kept]
+        out: dict = {}
+        if self.use_spk_id:
+            out["spk_id"] = np.asarray([d["spk_id"] for d, _ in kept],
+                                       dtype=np.int32)
         start_frames = np.array([
             self.rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in arts])
@@ -150,28 +168,42 @@ class SpeechCollater:
         art_starts = start_frames - self.aux_context_window
         art_ends = (start_frames + self.batch_max_frames
                     + self.aux_context_window)
+
+        def frames(streams, dtype):  # the art window of each utterance
+            return np.stack([a[s:e] for a, s, e in zip(
+                streams, art_starts, art_ends)]).astype(dtype)
+
         audio = np.stack([a[s:s + self.batch_max_steps]
                           for a, s in zip(audios, wav_starts)]
                          ).astype(np.float32)
         if audio.ndim == 2:
             audio = audio[..., None]  # (B, T, 1)
-        art = np.stack([a[s:e] for a, s, e in zip(arts, art_starts, art_ends)]
-                       ).astype(np.float32)  # (B, T', C)
-        out = {"audio": audio, "art": art}
+        if self.use_audio:
+            out["audio"] = audio
+        if self.use_art:
+            out["art"] = frames(arts, np.float32)  # (B, T', C)
+        if self.use_ph:
+            out["ph"] = frames([d["ph"] for d, _ in kept], np.int32)
+        if self.use_mel:
+            out["mel"] = frames([d["mel"] for d, _ in kept], np.float32)
         out["x"], out["y"] = (out[self.x_key],), out[self.y_key]
+        ar = ar2 = None
         if self.ar_len is not None:
             windows = []
-            if self.y_key == "audio":
-                for wav, start in zip(audios, wav_starts):
-                    w = wav[max(0, start - self.ar_len): start]
-                    windows.append(np.pad(w, (self.ar_len - len(w), 0)))
-                out["ar"] = np.stack(windows).astype(np.float32)[..., None]
-            else:
-                for a, start in zip(arts, art_starts):
-                    w = a[max(0, start - self.ar_len): start]
-                    windows.append(np.pad(w, ((self.ar_len - len(w), 0),
-                                              (0, 0))))
-                out["ar"] = np.stack(windows).astype(np.float32)
+            for a, start in zip(arts, art_starts):
+                w = a[max(0, start - self.ar_len): start]
+                windows.append(np.pad(w, ((self.ar_len - len(w), 0), (0, 0))))
+            ar = np.stack(windows).astype(np.float32)  # (B, P, C)
+        if self.ar2_len is not None:
+            windows = []
+            for wav, start in zip(audios, wav_starts):
+                w = wav[max(0, start - self.ar2_len): start]
+                windows.append(np.pad(w, (self.ar2_len - len(w), 0)))
+            ar2 = np.stack(windows).astype(np.float32)[..., None]  # (B, P, 1)
+        if self.use_ar and self.has_generator2:
+            out["ar"], out["ar2"] = ar, ar2
+        elif self.use_ar:
+            out["ar"] = ar if ar is not None else ar2
         return out
 
 

@@ -1,6 +1,7 @@
 """Feature datasets (port of ``articulatory_tpu/data/datasets.py``):
 ``SpeechDataset`` for training (audio from a dump directory, articulatory
-features through ``<data_root>/<stage>/feats.scp``); for decoding
+features through ``<data_root>/<stage>/feats.scp``, and speaker ids,
+phoneme ids and mels where asked); for decoding
 ``ArtDataset`` over a dump directory or a feats.scp of .npy paths,
 ``MelSCPDataset`` / ``ArtSCPDataset`` over a feats.scp of hdf5 or npy
 values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input);
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import logging
 import os
+from typing import Sequence
 
 import numpy as np
 
@@ -53,19 +55,26 @@ def _read_wave(path: str) -> np.ndarray:
 
 
 class SpeechDataset:
-    """Training pairs ``{"art", "audio"}``: audio from the dump directory
-    (``audio_query`` files through ``audio_load_fn``; the ``mel_query``
-    files must pair with them one to one), articulatory features (.npy)
-    through ``<data_root>/<stage>/feats.scp``. ``input_transform`` (default
-    ``transform``) maps the features, ``output_transform`` the audio (no
-    default: ``bin/train.py`` decides it, as in the JAX package). The art
-    and audio streams only (a2w and w2a): speaker ids, phonemes and mel
-    streams are not ported."""
+    """Training utterances ``{"art", "audio"}``: audio from the dump
+    directory (``audio_query`` files through ``audio_load_fn``; the
+    ``mel_query`` files must pair with them one to one), articulatory
+    features (.npy) through ``<data_root>/<stage>/feats.scp``.
+    ``input_transform`` (default ``transform``) maps the features,
+    ``output_transform`` the audio (no default: ``bin/train.py`` decides
+    it, as in the JAX package). With ``dataset_mode`` ph2m an item
+    holds ``mel`` too (``mel_load_fn`` of the ``mel_query`` file, cut to the
+    art's frames); with ``use_spk_id`` its ``spk_id``, the index of its
+    speaker in ``spks`` (default: the sorted speakers of ``utt2spk`` /
+    ``spk2utt`` under ``<data_root>/<stage>/``; a dev set takes the training
+    set's); with ``use_ph`` its phoneme ids ``ph`` (.npy through
+    ``<data_root>/<stage>/ph.scp``)."""
 
     def __init__(self, root_dir: str, audio_query: str = "*.h5",
                  mel_query: str = "*.h5", audio_load_fn=_read_wave,
-                 allow_cache: bool = False, transform=None,
+                 mel_load_fn=None, allow_cache: bool = False, transform=None,
                  input_transform=None, output_transform=None,
+                 spks: Sequence[str] | None = None, use_spk_id: bool = False,
+                 use_ph: bool = False, dataset_mode: str | None = None,
                  data_root: str = "data"):
         audio_files = sorted(find_files(root_dir, audio_query))
         mel_files = sorted(find_files(root_dir, mel_query))
@@ -74,20 +83,40 @@ class SpeechDataset:
         if len(audio_files) != len(mel_files):
             raise ValueError(f"{root_dir}: {len(audio_files)} audio files but "
                              f"{len(mel_files)} feature files")
-        self.audio_files = audio_files
+        self.audio_files, self.mel_files = audio_files, mel_files
         self.audio_load_fn = audio_load_fn
+        self.mel_load_fn = mel_load_fn or (lambda p: read_hdf5(p, "feats"))
         if ".npy" in audio_query:
             self.utt_ids = [os.path.basename(f).replace("-wave.npy", "")
                             for f in audio_files]
         else:
             self.utt_ids = [os.path.splitext(os.path.basename(f))[0]
                             for f in audio_files]
-        feats_path = os.path.join(data_root, _stage_from_root(root_dir),
-                                  "feats.scp")
+        stage_dir = os.path.join(data_root, _stage_from_root(root_dir))
+        feats_path = os.path.join(stage_dir, "feats.scp")
         if not os.path.exists(feats_path):
             raise FileNotFoundError(f"missing {feats_path}")
         fid_to_artp = load_scp(feats_path)
         self.art_files = [fid_to_artp[fid] for fid in self.utt_ids]
+
+        self.utt2spk, self.spk2utt = _speakers(stage_dir)
+        if spks is None and self.spk2utt is not None:
+            spks = sorted(self.spk2utt)
+        self.spks = spks
+        self.spk2id = ({s: i for i, s in enumerate(spks)}
+                       if spks is not None else None)
+        self.use_spk_id = use_spk_id
+        if use_spk_id and (self.utt2spk is None or self.spk2id is None):
+            raise FileNotFoundError(f"use_spk_id needs {stage_dir}/utt2spk "
+                                    f"or spk2utt")
+        self.use_ph = use_ph
+        if use_ph:
+            ph_path = os.path.join(stage_dir, "ph.scp")
+            if not os.path.exists(ph_path):
+                raise FileNotFoundError(f"use_ph needs {ph_path}")
+            fid_to_php = load_scp(ph_path)
+            self.ph_files = [fid_to_php[fid] for fid in self.utt_ids]
+        self.use_mel = dataset_mode == "ph2m"  # m2w training is not ported
         self.input_transform = (input_transform if input_transform is not None
                                 else transform)
         self.output_transform = output_transform
@@ -104,12 +133,39 @@ class SpeechDataset:
         if self.output_transform is not None:
             audio = self.output_transform(audio)
         items = {"art": art, "audio": audio}
+        if self.use_mel:
+            items["mel"] = self.mel_load_fn(self.mel_files[idx])[: len(art)]
+        if self.use_spk_id:
+            items["spk_id"] = self.spk2id[self.utt2spk[self.utt_ids[idx]]]
+        if self.use_ph:
+            items["ph"] = np.load(self.ph_files[idx])
         if self.allow_cache:
             self.caches[idx] = items
         return items
 
     def __len__(self) -> int:
         return len(self.audio_files)
+
+
+def _speakers(stage_dir: str) -> tuple[dict | None, dict | None]:
+    """``(utt2spk, spk2utt)`` of a data stage from whichever of its
+    ``utt2spk`` and ``spk2utt`` files exist, each derived from the other
+    where missing; ``(None, None)`` without either."""
+    spk2utt = utt2spk = None
+    path = os.path.join(stage_dir, "spk2utt")
+    if os.path.exists(path):
+        with open(path) as f:
+            spk2utt = {ls[0]: ls[1:] for ls in map(str.split, f) if ls}
+    path = os.path.join(stage_dir, "utt2spk")
+    if os.path.exists(path):
+        utt2spk = dict(load_scp(path).items())
+    if spk2utt is None and utt2spk is not None:
+        spk2utt = {}
+        for utt, spk in utt2spk.items():
+            spk2utt.setdefault(spk, []).append(utt)
+    if utt2spk is None and spk2utt is not None:
+        utt2spk = {u: s for s, us in spk2utt.items() for u in us}
+    return utt2spk, spk2utt
 
 
 class MelArtDataset:

@@ -38,8 +38,22 @@ WaveGAN and StyleMelGAN draw their noise from the ``LoadedModel``'s
 The chunked-AR loops run the AR generators (``use_ar``), as in the JAX
 package, whose ``ar_loop`` never applies PQMF.
 
-Not ported yet (they raise ``NotImplementedError``): multimodal decode,
-int8 or bf16 storage of any generator but the HiFi-GAN.
+A generator with a phoneme head (``use_ph_loss``) decodes like any other:
+every forward of ``LoadedModel`` and of the captured chunk step keeps its
+waveform and drops the phoneme logits, as the JAX package's ``LoadedModel``
+does. As there, the loops pass no speaker or phoneme ids: a generator
+conditioned on them (``use_spk_id``, ``use_ph``) does not decode through
+them. ``load_model(generator2=True)`` loads a cascade's second stage.
+
+The multimodal decode (``ar_loop(modality=m)``, the ``a2w_mult`` mode):
+each chunk of modality ``m``'s frames is linearly interpolated onto the
+common frame rate (``ops/interp.py``) and handed to the model as the
+``m``-th entry of a per-modality list (``None`` elsewhere), an ``in_list``
+model's input; the carry moves as in the plain loop. No model of the
+registry reads such a list, in the JAX package or here.
+
+Not ported yet (it raises ``NotImplementedError``): int8 or bf16 storage
+of any generator but the HiFi-GAN.
 """
 
 from __future__ import annotations
@@ -53,11 +67,13 @@ from torch import nn
 
 from articulatory_tpu_torch.config import fix_generator_params, load_config
 from articulatory_tpu_torch.models import (
+    MODEL_CLASSES,
     NOISE_DRIVEN_GENERATORS,
     RNG_GENERATORS,
     build_model,
 )
 from articulatory_tpu_torch.models.rnn import BiGRU
+from articulatory_tpu_torch.ops.interp import interpolate_linear_scale
 from articulatory_tpu_torch.ops.pqmf import PQMF
 from articulatory_tpu_torch.utils.checkpoint import (
     generator_state_dict,
@@ -132,22 +148,39 @@ class LoadedModel:
         self.model.to(torch.bfloat16)
         self.graphs.clear()
 
-    @torch.inference_mode()
-    def __call__(self, c, ar=None) -> torch.Tensor:
-        """(B, T, C) features [and (B, P, C_out) AR carry] -> (B, T_out,
-        C_out) on the model's device."""
+    def _input(self, c) -> torch.Tensor:
+        """Features as a float32 (float64 kept) tensor on the device; ids
+        (integers) as they are."""
         c = torch.as_tensor(c, device=self.device)
         if c.is_floating_point() and c.dtype != torch.float64:
             c = c.float()
+        return c
+
+    @torch.inference_mode()
+    def __call__(self, c, ar=None) -> torch.Tensor:
+        """(B, T, C) features (or a per-modality list of them, None where a
+        modality is absent) [and (B, P, C_out) AR carry] -> (B, T_out,
+        C_out) on the model's device."""
+        if isinstance(c, (list, tuple)):
+            if isinstance(self.model, MODEL_CLASSES):
+                raise ValueError(
+                    f"{type(self.model).__name__} takes one feature tensor, "
+                    f"not a per-modality list: the multimodal decode needs "
+                    f"an in_list model, and the registry has none")
+            c = [None if x is None else self._input(x) for x in c]
+            dtype = next(x.dtype for x in c if x is not None)
+        else:
+            c = self._input(c)
+            dtype = c.dtype
         name = type(self.model).__name__
         if name in NOISE_DRIVEN_GENERATORS or name in RNG_GENERATORS:
             if self.noise is None:
                 self.noise = torch.Generator(self.device).manual_seed(0)
             return self.model.inference(c, self.noise)
         if ar is None:
-            return self.model(c)
-        return self.model(c, torch.as_tensor(ar, device=self.device,
-                                             dtype=c.dtype))
+            return waveform(self.model(c))
+        return waveform(self.model(c, torch.as_tensor(
+            ar, device=self.device, dtype=dtype)))
 
     def chunk_graph(self, batch: int, feat_dim: int, ck: Chunking,
                     masked: bool = False) -> ChunkGraph:
@@ -174,9 +207,12 @@ class LoadedModel:
         the output back, as the JAX package does to bound its compile count;
         only the last receptive-field window can differ from an exact-length
         forward."""
-        c = np.asarray(c, np.float32)
-        if c.ndim == 1:  # a raw wave into an inversion model
-            c = c[:, None]
+        c = np.asarray(c)
+        # integers are phoneme ids into an embedding (ph2a, ph2m)
+        if not np.issubdtype(c.dtype, np.integer):
+            c = c.astype(np.float32)
+            if c.ndim == 1:  # a raw wave into an inversion model
+                c = c[:, None]
         if normalize_before:
             c = self.normalize(c)
         t = c.shape[0]
@@ -193,6 +229,11 @@ class LoadedModel:
         return out
 
 
+def waveform(out):
+    """A generator's output without a phoneme head's logits."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _load_stats(stats: str) -> tuple[np.ndarray, np.ndarray]:
     if stats.endswith(".h5"):
         return (read_hdf5(stats, "mean").reshape(-1),
@@ -206,7 +247,9 @@ def load_model(checkpoint: str, config: dict | str | None = None,
                device: str | torch.device | None = None) -> LoadedModel:
     """Rebuild a generator (or a ``BiGRU`` inversion model) from its config
     and a checkpoint (a JAX-package msgpack file or a reference torch
-    pickle) on ``device`` (default cuda; raises without a card).
+    pickle) on ``device`` (default cuda; raises without a card); with
+    ``generator2`` a cascade's second stage (``generator2_type``,
+    ``generator2_params``, ``model.generator2``).
     ``weight_quant: int8`` stores the weights as int8."""
     dev = resolve_device(device)
     prefix = "generator2" if generator2 else "generator"
@@ -339,9 +382,12 @@ class ChunkGraph:
                                        device=device) if masked else None)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
+        def forward(c, prev):
+            return waveform(model(c, prev))
+
         with torch.cuda.stream(stream):
             for _ in range(WARMUP_STEPS):
-                chunk_step(model, self.static_in, self.static_prev, ck,
+                chunk_step(forward, self.static_in, self.static_prev, ck,
                            self.static_mask)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
@@ -349,7 +395,7 @@ class ChunkGraph:
             with torch.cuda.graph(self.graph, stream=stream):
                 # a fresh carry first: the shift register reads the old one
                 self.static_out, new_prev = chunk_step(
-                    model, self.static_in, self.static_prev, ck,
+                    forward, self.static_in, self.static_prev, ck,
                     self.static_mask)
                 self.static_prev.copy_(new_prev)
         except RuntimeError as e:
@@ -425,13 +471,15 @@ def ar_loop(model: LoadedModel, x: np.ndarray, config: dict,
     C_out)); w2a: input rows (T, F) (a raw wave may be 1-D) -> trajectories
     (T', C_out). float64 input decodes in float64 (the model must be float64
     too). ``do_wsola`` (a2w): 50 %-overlap windows instead, -> (list of each
-    window's waveform, list of its input frames)."""
-    if modality is not None:
-        raise NotImplementedError("multimodal decode is not ported yet")
+    window's waveform, list of its input frames). ``modality`` (a2w): x
+    holds that modality's frames; each chunk, interpolated onto the common
+    frame rate, goes to the model in a per-modality list."""
     ck = chunking(config, generator2)
     x = np.asarray(x)
     # float64 kept for parity decodes; everything else computes in float32
     x = x if x.dtype == np.float64 else x.astype(np.float32)
+    forward = (model if modality is None
+               else _in_list(model, config, modality, generator2))
     if x.ndim == 1:
         x = x[:, None]
     if do_wsola:
@@ -445,13 +493,32 @@ def ar_loop(model: LoadedModel, x: np.ndarray, config: dict,
                        device=model.device)
     outs = []
     for i in range(0, t, ck.in_chunk_len):
-        cout, prev = chunk_step(model, xt[None, i:i + ck.in_chunk_len], prev,
-                                ck)
+        cout, prev = chunk_step(forward, xt[None, i:i + ck.in_chunk_len],
+                                prev, ck)
         outs.append(cout[0])
     if not outs:
         return ck.empty()
     out = torch.cat(outs, dim=0).cpu().numpy()
     return out[:, 0] if not ck.w2a and out.shape[1] == 1 else out
+
+
+def _in_list(model, config: dict, modality: int, generator2: bool):
+    """``forward(cin, prev)`` of the multimodal decode (reference
+    decode.py:52-53, 67-71): the chunk of ``modality``'s frames,
+    interpolated onto the common frame rate, as that entry of the in-list
+    model's per-modality input."""
+    gp = config["generator2_params" if generator2 else "generator_params"]
+    scale = (config["sampling_rate"] / config["hop_size"]
+             * config["hop_sizes"][modality]
+             / config["sampling_rates"][modality])
+    n_modalities = len(gp["in_list"])
+
+    def forward(cin: torch.Tensor, prev: torch.Tensor):
+        cin_list = [None] * n_modalities
+        cin_list[modality] = interpolate_linear_scale(cin, scale)
+        return model(cin_list, prev)
+
+    return forward
 
 
 def _wsola(model: LoadedModel, x: np.ndarray, config: dict, params_key: str,

@@ -8,7 +8,10 @@ returns ``(y, c)``. Keys ``aux_conv.0``, ``gated_conv.0`` (weight norm).
 ``TADEResBlock``: two TADE layers, each followed by a gated conv and
 ``gate(a) * tanh(b)`` (``softmax`` over channels or ``sigmoid``), plus the
 upsampled residual. Keys ``tade1``, ``gated_conv1``, ``tade2``,
-``gated_conv2``. Only ``upsample_mode: nearest`` is ported.
+``gated_conv2``. ``upsample_mode`` is ``nearest`` (repetition) or
+``linear`` (``ops/interp.py``); as in the JAX package, a ``TADEResBlock``
+applies it to its residual only, its two TADE layers upsampling by
+repetition.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from torch import nn
 
 from articulatory_tpu_torch.layers.conv import Conv1d
 from articulatory_tpu_torch.layers.residual import nearest_upsample
+from articulatory_tpu_torch.ops.interp import interpolate_linear
 
 
 def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -27,9 +31,15 @@ def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def _check_mode(mode: str) -> None:
-    if mode != "nearest":
-        raise NotImplementedError(f"upsample_mode {mode!r} is not ported yet "
-                                  "(nearest is)")
+    if mode not in ("nearest", "linear"):
+        raise ValueError(f"unsupported upsample_mode {mode!r} (supported: "
+                         f"nearest, linear)")
+
+
+def _upsample(x: torch.Tensor, factor: int, mode: str) -> torch.Tensor:
+    if mode == "nearest":
+        return nearest_upsample(x, factor)
+    return interpolate_linear(x, x.shape[1] * factor)
 
 
 class TADELayer(nn.Module):
@@ -39,7 +49,7 @@ class TADELayer(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         _check_mode(upsample_mode)
-        self.upsample_factor = upsample_factor
+        self.upsample_factor, self.upsample_mode = upsample_factor, upsample_mode
         conv = dict(padding=(kernel_size - 1) // 2, bias=bias,
                     use_weight_norm=True, generator=generator)
         self.aux_conv = nn.ModuleList([Conv1d(aux_channels, in_channels,
@@ -50,9 +60,10 @@ class TADELayer(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         x = instance_norm_time(x)
-        c = self.aux_conv[0](nearest_upsample(c, self.upsample_factor))
+        f, mode = self.upsample_factor, self.upsample_mode
+        c = self.aux_conv[0](_upsample(c, f, mode))
         g1, g2 = self.gated_conv[0](c).chunk(2, dim=-1)
-        return g1 * nearest_upsample(x, self.upsample_factor) + g2, c
+        return g1 * _upsample(x, f, mode) + g2, c
 
 
 class TADEResBlock(nn.Module):
@@ -64,15 +75,18 @@ class TADEResBlock(nn.Module):
         super().__init__()
         if gated_function not in ("softmax", "sigmoid"):
             raise ValueError(f"{gated_function} is not supported.")
+        _check_mode(upsample_mode)
         self.gated_function = gated_function
-        self.upsample_factor = upsample_factor
+        self.upsample_factor, self.upsample_mode = upsample_factor, upsample_mode
+        # the JAX package builds both TADE layers with their default
+        # (nearest) mode; only the residual reads upsample_mode
         self.tade1 = TADELayer(in_channels, aux_channels, kernel_size, bias,
-                               1, upsample_mode, generator)
+                               1, "nearest", generator)
         self.gated_conv1 = Conv1d(in_channels, in_channels * 2, kernel_size,
                                   padding=(kernel_size - 1) // 2, bias=bias,
                                   use_weight_norm=True, generator=generator)
         self.tade2 = TADELayer(in_channels, in_channels, kernel_size, bias,
-                               upsample_factor, upsample_mode, generator)
+                               upsample_factor, "nearest", generator)
         self.gated_conv2 = Conv1d(in_channels, in_channels * 2, kernel_size,
                                   dilation=dilation,
                                   padding=(kernel_size - 1) // 2 * dilation,
@@ -92,4 +106,5 @@ class TADEResBlock(nn.Module):
         x = self._gate(self.gated_conv1(x))
         x, c = self.tade2(x, c)
         x = self._gate(self.gated_conv2(x))
-        return nearest_upsample(residual, self.upsample_factor) + x, c
+        return _upsample(residual, self.upsample_factor,
+                         self.upsample_mode) + x, c

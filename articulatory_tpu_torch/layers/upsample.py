@@ -1,7 +1,7 @@
 """Aux-feature upsampling for Parallel WaveGAN (port of
 ``articulatory_tpu/layers/upsample.py``), over NLC ``(B, T, C)``.
 
-``UpsampleNetwork``: per scale, a nearest stretch along time, then a
+``UpsampleNetwork``: per scale, a stretch along time, then a
 ``(freq_axis_kernel_size, 2 * scale + 1)`` smoothing Conv2d over the
 (features x time) image of one channel, no bias, initialised to
 ``1 / prod(kernel)``; optionally an activation. Keys ``up_layers.{i}``, the
@@ -14,7 +14,8 @@ on load.
 ``ConvInUpsampleNetwork``: an unpadded ``2 * aux_context_window + 1``
 context Conv1d (``conv_in``) then ``upsample``.
 
-Only ``interpolate_mode: nearest`` and non-causal convs are ported.
+``interpolate_mode`` stretches by ``nearest`` repetition or ``linear``
+interpolation (``ops/interp.py``); only non-causal convs are ported.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from articulatory_tpu_torch.layers.conv import (
     weight_norm_weight,
 )
 from articulatory_tpu_torch.layers.residual import nearest_upsample, no_causal
+from articulatory_tpu_torch.ops.interp import interpolate_linear
 
 
 class _FoldedConv2d(Conv2d):
@@ -54,9 +56,11 @@ class UpsampleNetwork(nn.Module):
                  use_causal_conv: bool = False):
         super().__init__()
         no_causal(use_causal_conv)
-        if interpolate_mode != "nearest":
-            raise NotImplementedError(f"interpolate_mode {interpolate_mode!r} "
-                                      "is not ported yet (nearest is)")
+        if interpolate_mode not in ("nearest", "linear"):
+            raise ValueError(f"unsupported interpolate_mode "
+                             f"{interpolate_mode!r} (supported: nearest, "
+                             f"linear)")
+        self.interpolate_mode = interpolate_mode
         if (freq_axis_kernel_size - 1) % 2:
             raise ValueError("freq_axis_kernel_size must be odd")
         self.scales = tuple(upsample_scales)
@@ -75,7 +79,10 @@ class UpsampleNetwork(nn.Module):
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         for scale, conv in zip(self.scales, self.up_layers.values()):
-            c = nearest_upsample(c, scale)  # the JAX stretch_time
+            if self.interpolate_mode == "nearest":
+                c = nearest_upsample(c, scale)  # the JAX stretch_time
+            else:
+                c = interpolate_linear(c, c.shape[1] * scale)
             # (B, T, C) -> an image (B, C, T, 1): features x time, 1 channel
             c = conv(c.transpose(1, 2)[..., None])[..., 0].transpose(1, 2)
             if self.act is not None:

@@ -41,6 +41,8 @@ _REGISTRY.update({cls.__name__: cls for cls in (
     ParallelWaveGANGenerator, ParallelWaveGANDiscriminator,
     ResidualParallelWaveGANDiscriminator, StyleMelGANGenerator,
     StyleMelGANDiscriminator, GBlockGenerator, BiGRU, Transformer)})
+# every class of the registry: none reads a per-modality input list
+MODEL_CLASSES = tuple(_REGISTRY.values())
 
 # generators whose forward signature is (noise, aux) rather than (aux, ...)
 NOISE_DRIVEN_GENERATORS = {"ParallelWaveGANGenerator"}

@@ -5,9 +5,11 @@ Input conv -> one ``GBlock`` per ``g_scales`` entry on the reference's
 fixed channel schedule (channels, channels, channels / 2 x 4, channels / 4
 x 2, channels / 8 x 2) -> LeakyReLU(0.01) -> output conv -> tanh. With
 ``use_ar`` the ``PastFCEncoder`` vector is tiled over time and concatenated
-to the features (``in_channels`` counts it). Keys ``input_conv``,
-``resamples.{i}``, ``output_conv.1``, ``ar_model``. Speaker ids are not
-ported yet and raise.
+to the features (``in_channels`` counts it); with ``use_spk_id`` the
+speaker's embedding (``spk_emb_mat``, ``num_spk`` x ``spk_emb_size``)
+through ``spk_fc`` (to ``in_channels``) is added to them at every frame.
+Keys ``input_conv``, ``resamples.{i}``, ``output_conv.1``, ``ar_model``,
+``spk_emb_mat``, ``spk_fc``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from articulatory_tpu_torch.layers.conv import Conv1d, remove_weight_norm
+from articulatory_tpu_torch.layers.conv import (
+    Conv1d,
+    Dense,
+    Embed,
+    remove_weight_norm,
+)
 from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 from articulatory_tpu_torch.layers.residual import GBlock
 
@@ -34,9 +41,8 @@ class GBlockGenerator(nn.Module):
                  use_spk_id: bool = False, num_spk: int | None = None,
                  spk_emb_size: int = 32, seed: int = 0):
         super().__init__()
-        del num_spk, spk_emb_size
-        if use_spk_id:
-            raise NotImplementedError("use_spk_id is not ported yet")
+        if use_spk_id and num_spk is None:
+            raise ValueError("use_spk_id needs num_spk")
         if kernel_size % 2 != 1:
             raise ValueError("Kernel size must be odd number.")
         if len(g_scales) != len(g_kernel_sizes):
@@ -46,6 +52,7 @@ class GBlockGenerator(nn.Module):
         g_out = [ch, ch, ch // 2, ch // 2, ch // 2, ch // 2, ch // 4, ch // 4,
                  ch // 8, ch // 8]
         self.use_ar, self.use_tanh = use_ar, use_tanh
+        self.use_spk_id = use_spk_id
         # with weight norm off the reference's post-norm N(0, 0.01) reset of
         # the input and output convs is effective
         kinit = "torch_default" if use_weight_norm else "normal:0.01"
@@ -66,13 +73,21 @@ class GBlockGenerator(nn.Module):
             c_in, out_channels, kernel_size, padding=(kernel_size - 1) // 2,
             use_weight_norm=use_weight_norm, kernel_init=kinit,
             generator=generator)})
+        if use_spk_id:  # built last, as in HiFiGANGenerator
+            self.spk_emb_mat = Embed(num_spk, spk_emb_size, generator)
+            self.spk_fc = Dense(spk_emb_size, in_channels, generator=generator)
 
-    def forward(self, c: torch.Tensor, ar: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, c: torch.Tensor, ar: torch.Tensor | None = None,
+                spk_id: torch.Tensor | None = None,
+                ph: torch.Tensor | None = None) -> torch.Tensor:
+        """``ph`` is accepted and unused, as in the reference."""
+        del ph
         if self.use_ar:
             feats = self.ar_model(ar)
             c = torch.cat([c, feats[:, None, :].expand(
                 c.shape[0], c.shape[1], feats.shape[-1])], dim=-1)
+        if self.use_spk_id:
+            c = c + self.spk_fc(self.spk_emb_mat(spk_id))[:, None, :]
         c = self.input_conv(c)
         for block in self.resamples:
             c = block(c)

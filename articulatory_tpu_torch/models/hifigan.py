@@ -14,9 +14,26 @@ residual blocks) -> LeakyReLU(0.01) -> output conv -> tanh, over NLC
   last stage and the output conv (the path that feeds the AR carry) stay f32.
   The AR encoder always runs f32 and the output is always f32.
 
+Conditioning, as in the JAX package:
+
+- ``use_spk_id``: ``spk_emb_mat`` (``num_spk`` x ``spk_emb_size``) then
+  ``spk_fc`` (to ``in_channels``, the width after the AR concat), added to
+  the features at every frame;
+- ``use_ph``: ``ph_emb_mat`` (``num_ph`` x ``ph_emb_size``) of the frame's
+  phoneme id, concatenated to the features (the input conv takes
+  ``in_channels + ph_emb_size``);
+- ``use_ph_loss``: a phoneme head, ``ph_fc`` on the last stage's
+  activation, average-pooled back to the frame rate (kernel 2 x
+  prod(scales), stride prod(scales), padding prod(scales) / 2, padding
+  counted); the forward then returns ``(wave, ph_logits)``.
+
+The conditioning (embeddings, ``spk_fc``, ``ph_fc``) runs in f32 whatever
+``compute_dtype`` is, as JAX's f32 parameters make it run there.
+
 Module names follow the reference's state-dict keys: ``input_conv``,
-``upsamples.{i}.1``, ``blocks.{i*n+j}``, ``output_conv.1``, ``ar_model``.
-``time_packing``, ``final_scale`` and ``extra_art`` are accepted and ignored.
+``upsamples.{i}.1``, ``blocks.{i*n+j}``, ``output_conv.1``, ``ar_model``,
+``spk_emb_mat``, ``spk_fc``, ``ph_emb_mat``, ``ph_fc``. ``time_packing``,
+``final_scale`` and ``extra_art`` are accepted and ignored.
 
 The discriminators return lists of feature maps, each cast back to f32 when
 ``compute_dtype`` is bf16 (the last entry of each list is the logits):
@@ -41,12 +58,19 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.activations import get_activation
-from articulatory_tpu_torch.layers.conv import Conv1d, Conv2d, ConvTranspose1d
+from articulatory_tpu_torch.layers.conv import (
+    Conv1d,
+    Conv2d,
+    ConvTranspose1d,
+    Dense,
+    Embed,
+)
 from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 from articulatory_tpu_torch.layers.residual import HiFiGANResidualBlock
 from articulatory_tpu_torch.ops.conv import avg_pool1d, leaky_relu
@@ -55,8 +79,9 @@ from articulatory_tpu_torch.ops.scale_disc_head import scale_disc_head
 
 class HiFiGANGenerator(nn.Module):
     """Input ``c``: (B, T, in_channels - ar_output if use_ar else in_channels);
-    ``ar``: (B, ar_input, 1). Output: (B, T * prod(upsample_scales),
-    out_channels), float32."""
+    ``ar``: (B, ar_input, 1); ``spk_id`` (B,) and ``ph`` (B, T) integer ids.
+    Output: (B, T * prod(upsample_scales), out_channels), float32; with
+    ``use_ph_loss`` also the phoneme logits (B, T, num_ph)."""
 
     def __init__(self, in_channels: int = 80, out_channels: int = 1,
                  channels: int = 512, kernel_size: int = 7,
@@ -80,11 +105,15 @@ class HiFiGANGenerator(nn.Module):
                  time_packing: Any = None, final_scale: Any = None,
                  extra_art: Any = None, seed: int = 0):
         super().__init__()
-        del time_packing, final_scale, extra_art, spk_emb_size, num_spk
-        del num_ph, ph_emb_size
-        if use_spk_id or use_ph or use_ph_loss:
-            raise NotImplementedError(
-                "use_spk_id / use_ph / use_ph_loss are not ported yet")
+        del time_packing, final_scale, extra_art
+        if use_spk_id and num_spk is None:
+            raise ValueError("use_spk_id needs num_spk")
+        if (use_ph or use_ph_loss) and num_ph is None:
+            raise ValueError("use_ph and use_ph_loss need num_ph")
+        scale = int(np.prod(upsample_scales))
+        if use_ph_loss and scale % 2:
+            raise ValueError(f"use_ph_loss pools by prod(upsample_scales), "
+                             f"which must be even, got {scale}")
         if kernel_size % 2 != 1:
             raise ValueError("Kernel size must be odd number.")
         if len(upsample_scales) != len(upsample_kernel_sizes):
@@ -101,6 +130,8 @@ class HiFiGANGenerator(nn.Module):
         act_params = nonlinear_activation_params or {"negative_slope": 0.1}
         self.act = get_activation(nonlinear_activation, act_params)
         self.use_ar = use_ar
+        self.use_spk_id, self.use_ph = use_spk_id, use_ph
+        self.ph_pool = scale if use_ph_loss else None
         self.use_tanh = use_tanh
         self.compute_dtype = compute_dtype
         self.hybrid_precision = hybrid_precision
@@ -112,7 +143,8 @@ class HiFiGANGenerator(nn.Module):
         if use_ar:
             self.ar_model = PastFCEncoder(ar_input, ar_hidden, ar_output,
                                           generator=generator)
-        self.input_conv = Conv1d(in_channels, channels, kernel_size,
+        self.input_conv = Conv1d(in_channels + (ph_emb_size if use_ph else 0),
+                                 channels, kernel_size,
                                  padding=(kernel_size - 1) // 2,
                                  use_weight_norm=use_weight_norm,
                                  kernel_init=kinit, generator=generator)
@@ -142,13 +174,28 @@ class HiFiGANGenerator(nn.Module):
                    kernel_size, padding=(kernel_size - 1) // 2,
                    use_weight_norm=use_weight_norm, kernel_init=kinit,
                    generator=generator))
+        # built last: the other modules draw the same initial weights with
+        # the hooks on or off
+        if use_spk_id:
+            self.spk_emb_mat = Embed(num_spk, spk_emb_size, generator)
+            self.spk_fc = Dense(spk_emb_size, in_channels, generator=generator)
+        if use_ph:
+            self.ph_emb_mat = Embed(num_ph, ph_emb_size, generator)
+        if use_ph_loss:
+            self.ph_fc = Dense(channels // (2 ** len(upsample_scales)), num_ph,
+                               generator=generator)
 
-    def forward(self, c: torch.Tensor, ar: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, c: torch.Tensor, ar: torch.Tensor | None = None,
+                spk_id: torch.Tensor | None = None,
+                ph: torch.Tensor | None = None):
         if self.use_ar:
             ar_feats = self.ar_model(ar)  # (B, ar_output), f32
             c = torch.cat([c, ar_feats[:, None, :].expand(
                 c.shape[0], c.shape[1], ar_feats.shape[-1])], dim=-1)
+        if self.use_spk_id:
+            c = c + self.spk_fc(self.spk_emb_mat(spk_id))[:, None, :]
+        if self.use_ph:
+            c = torch.cat([c, self.ph_emb_mat(ph)], dim=-1)
         head_dt = None if self.hybrid_precision else self.compute_dtype
         c = self.input_conv(c, head_dt)
         n_up = len(self.upsamples)
@@ -167,7 +214,12 @@ class HiFiGANGenerator(nn.Module):
         out = self.output_conv[1](leaky_relu(c, 0.01), head_dt)
         if self.use_tanh:
             out = torch.tanh(out)
-        return out.float() if out.dtype != torch.float64 else out
+        out = _f32(out)
+        if self.ph_pool is None:
+            return out
+        s = self.ph_pool
+        ph_out = avg_pool1d(self.ph_fc(_f32(c)), 2 * s, s, s // 2)
+        return out, ph_out
 
     def remove_weight_norm(self) -> None:
         """Freeze every conv's kernel (computed once per dtype from then on)."""

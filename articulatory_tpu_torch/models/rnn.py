@@ -71,9 +71,14 @@ class BiGRU(nn.Module):
         """No weight norm here (``bin/decode.py`` calls it on every model)."""
 
     def forward(self, x: torch.Tensor, ar: torch.Tensor | None = None,
-                spk: torch.Tensor | None = None) -> torch.Tensor:
+                spk: torch.Tensor | None = None,
+                spk_id: torch.Tensor | None = None,
+                ph: torch.Tensor | None = None) -> torch.Tensor:
         """``x`` (B, T, F); ``ar`` (B, ar_input // out_channels,
-        out_channels); ``spk`` (B, spk_emb_size) -> (B, T, out_channels)."""
+        out_channels); ``spk`` (B, spk_emb_size) -> (B, T, out_channels).
+        ``spk_id`` and ``ph`` are accepted and unused, as in the
+        reference."""
+        del spk_id, ph
         b, t = x.shape[:2]
         if self.use_ar:
             feats = self.ar_model(ar)

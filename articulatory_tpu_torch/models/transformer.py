@@ -59,12 +59,14 @@ class Transformer(nn.Module):
             for _ in range(elayers)])
         self.w_out = Dense(hidden_dim, out_channels, generator=generator)
 
-    def forward(self, x: torch.Tensor, ar: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ar: torch.Tensor | None = None,
+                spk_id: torch.Tensor | None = None,
+                ph: torch.Tensor | None = None) -> torch.Tensor:
         """x (B, T, in_channels) features, or (B, T) phoneme ids with
-        ``num_ph``; ``ar`` is accepted and unused -> (B, T', out_channels),
-        T' = T - 1 with ``extra_art``."""
-        del ar
+        ``num_ph``; ``ar``, ``spk_id`` and ``ph`` are accepted and unused,
+        as in the reference -> (B, T', out_channels), T' = T - 1 with
+        ``extra_art``."""
+        del ar, spk_id, ph
         if hasattr(self, "in_emb_mat"):
             x = self.in_emb_mat(x)
         for block in self.conv_blocks:

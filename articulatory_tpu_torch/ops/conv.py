@@ -66,10 +66,24 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
                      dilation: int = 1) -> torch.Tensor:
     """x ``(B, T, C_in)``, pre-flipped w ``(K, C_in, C_out)``, b ``(C_out,)``.
     Returns ``(B, (T-1)*stride - 2*padding + dilation*(K-1) + 1
-    + output_padding, C_out)``, as ``torch.nn.ConvTranspose1d``."""
-    y = F.conv_transpose1d(x.transpose(1, 2), w.permute(1, 2, 0).flip(-1), b,
-                           stride=stride, padding=padding,
-                           output_padding=output_padding, dilation=dilation)
+    + output_padding, C_out)``, as ``torch.nn.ConvTranspose1d``. An
+    ``output_padding`` of at least both stride and dilation, which torch
+    refuses and the JAX package computes (a stride-1 upsampling, scale 1,
+    pads by 1), is the full transposed convolution cropped as torch's
+    definition crops it."""
+    xc, wt = x.transpose(1, 2), w.permute(1, 2, 0).flip(-1)
+    if output_padding < max(stride, dilation):
+        y = F.conv_transpose1d(xc, wt, b, stride=stride, padding=padding,
+                               output_padding=output_padding,
+                               dilation=dilation)
+        return y.transpose(1, 2)
+    y = F.conv_transpose1d(xc, wt, None, stride=stride, dilation=dilation)
+    end = y.shape[-1] - padding + output_padding
+    if end > y.shape[-1]:
+        y = F.pad(y, (0, end - y.shape[-1]))
+    y = y[..., padding:end]
+    if b is not None:
+        y = y + b[:, None]
     return y.transpose(1, 2)
 
 

@@ -34,13 +34,23 @@ updated, and the regeneration runs in training mode (batch statistics,
 dropout) without moving them (``layers/norm.py::frozen_stats``).
 
 With ``use_ar`` the AR past (``ar2``, else ``ar``) is concatenated in front
-of y and y_ along time before the discriminator. Eager Python ``if``s take
+of y and y_ along time before the discriminator; with ``use_pcd`` the
+batch's ``pitch`` and ``periodicity`` (B, frames, 1), linearly interpolated
+to ``batch_max_steps``, are concatenated to y and y_ along channels
+instead. ``use_ph_loss`` (on ``generator_params``, or on
+``generator2_params`` in a cascade) adds ``lambda_ph`` x the mean softmax
+cross-entropy of the phoneme head's logits against the batch's ``ph`` to
+the generator loss. A speaker- or phoneme-conditioned generator reads the
+batch's ``spk_id`` and ``ph``.
+
+A cascade (``generator2_type``) chains the trained generator into
+``state.generator2``, frozen (no gradient of its own, held by no optimizer;
+its BatchNorm statistics never move), through which the generator's
+gradient flows; the target is then the generator's input ``x[0]``
+(reference train.py:261-263). Eager Python ``if``s take
 the place of JAX's masked updates: a gated-off update is not taken, and its
 optimizer state does not move. Metrics are detached tensors on the device,
 so a step does not wait for the card.
-
-Not ported (they raise ``NotImplementedError``): a cascade
-(``generator2_type``), PCD inputs and the phoneme loss.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import logging
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.norm import frozen_stats
@@ -66,6 +77,7 @@ from articulatory_tpu_torch.models import (
     RNG_DISCRIMINATORS,
     RNG_GENERATORS,
 )
+from articulatory_tpu_torch.ops.interp import interpolate_linear
 from articulatory_tpu_torch.ops.pqmf import PQMF
 from articulatory_tpu_torch.train.optimizers import Optimizer
 
@@ -109,6 +121,8 @@ class GANTrainState:
     opt_d: Optimizer
     steps: int = 0
     draws: RandomDraws = dataclasses.field(default_factory=RandomDraws)
+    # a cascade's second stage, frozen (``requires_grad_(False)``)
+    generator2: nn.Module | None = None
 
 
 class GANCriterion:
@@ -116,13 +130,6 @@ class GANCriterion:
 
     def __init__(self, config: dict):
         gp = config.get("generator_params", {})
-        for flag, what in ((config.get("generator2_type") is not None,
-                            "a cascade (generator2_type)"),
-                           (config.get("use_pcd", False), "PCD inputs"),
-                           (gp.get("use_ph_loss", False), "the phoneme loss")):
-            if flag:
-                raise NotImplementedError(f"training with {what} is not "
-                                          "ported yet")
         self.gen_adv = GeneratorAdversarialLoss(
             **config.get("generator_adv_loss_params", {}))
         self.dis_adv = DiscriminatorAdversarialLoss(
@@ -162,14 +169,27 @@ class GANCriterion:
         if config.get("use_inter_loss", False):
             logging.warning("use_inter_loss is disabled (no inter criterion), "
                             "as in the reference and the JAX package")
+        # in a cascade the phoneme head may sit on generator2
+        self.use_ph_loss = gp.get("use_ph_loss", False) or (
+            config.get("generator2_type") is not None
+            and config.get("generator2_params", {}).get("use_ph_loss", False))
         self.lambda_aux = config.get("lambda_aux", 1.0)
         self.lambda_adv = config.get("lambda_adv", 1.0)
         self.lambda_feat_match = config.get("lambda_feat_match", 1.0)
+        self.lambda_ph = config.get("lambda_ph", 1.0)
 
     def mel_loss(self, y_: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if self.mel_is_l1:
             return torch.mean(torch.abs(y_ - y))
         return self.mel(_squeeze_c(y_), _squeeze_c(y))
+
+
+def ph_cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                     ) -> torch.Tensor:
+    """Mean softmax cross-entropy of logits (B, T, C) against integer
+    targets (B, T)."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
 
 
 def _squeeze_c(y: torch.Tensor) -> torch.Tensor:
@@ -190,12 +210,11 @@ def _check_fuse_disc(config: dict) -> None:
             "real and fake). Disable fuse_disc_passes for this config.")
 
 
-def generate(generator: nn.Module, batch: dict,
-             draws: RandomDraws | None = None,
-             tag: str = "generator") -> torch.Tensor:
-    """The generator's raw output on ``batch`` (sub-bands for a multi-band
-    model); noise for a Parallel WaveGAN without the legacy noise input and
-    StyleMelGAN's ``z`` come from ``draws``."""
+def _forward(generator: nn.Module, batch: dict,
+             draws: RandomDraws | None, tag: str):
+    """The generator's raw output on ``batch``: noise for a Parallel
+    WaveGAN without the legacy noise input and StyleMelGAN's ``z`` come
+    from ``draws``; a conditioned generator reads ``spk_id`` and ``ph``."""
     x, name = batch["x"], type(generator).__name__
     if name in NOISE_DRIVEN_GENERATORS:
         if len(x) == 2:  # the legacy collater's (noise, aux)
@@ -211,7 +230,43 @@ def generate(generator: nn.Module, batch: dict,
         return generator(c, z)
     if name == "MelGANGenerator":
         return generator(*x)
-    return generator(*x, ar=batch.get("ar"))
+    return generator(*x, **_conditioning(batch, "ar"))
+
+
+def _conditioning(batch: dict, ar_key: str) -> dict:
+    """The AR past (``batch[ar_key]``) and the batch's speaker and phoneme
+    ids: the keywords every AR-capable generator's forward takes (HiFi-GAN,
+    GBlock, the BiGRU and the Transformer; those without a hook ignore
+    them, as the reference's do)."""
+    return {"ar": batch.get(ar_key), "spk_id": batch.get("spk_id"),
+            "ph": batch.get("ph")}
+
+
+def generate_ph(generator: nn.Module, batch: dict,
+                draws: RandomDraws | None = None, tag: str = "generator",
+                generator2: nn.Module | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(y_, ph_logits)``: the generator's output on ``batch`` (sub-bands
+    for a multi-band model) through ``generator2`` in a cascade, and the
+    phoneme head's logits, or None without one."""
+    out = _forward(generator, batch, draws, tag)
+    if generator2 is not None:
+        with frozen_stats(generator2):
+            out = generator2(out, **_conditioning(batch, "ar2"))
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def generate(generator: nn.Module, batch: dict,
+             draws: RandomDraws | None = None, tag: str = "generator",
+             generator2: nn.Module | None = None) -> torch.Tensor:
+    """The output of ``generate_ph`` without the phoneme logits."""
+    return generate_ph(generator, batch, draws, tag, generator2)[0]
+
+
+def target(state: GANTrainState, batch: dict) -> torch.Tensor:
+    """What the output is held to: ``y``, or in a cascade the generator's
+    input ``x[0]`` (reference train.py:261-263)."""
+    return batch["x"][0] if state.generator2 is not None else batch["y"]
 
 
 def discriminate(discriminator: nn.Module, x: torch.Tensor,
@@ -237,7 +292,14 @@ def synthesize(criterion: GANCriterion, y_: torch.Tensor) -> torch.Tensor:
 
 def _disc_inputs(config: dict, batch: dict, y: torch.Tensor,
                  y_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The AR past in front of y and y_ along time (use_ar)."""
+    """PCD's pitch and periodicity beside y and y_ along channels
+    (use_pcd), else the AR past in front of them along time (use_ar)."""
+    if config.get("use_pcd", False):
+        n = int(config.get("batch_max_steps", 0))
+        extra = [interpolate_linear(batch[k], n)
+                 for k in ("pitch", "periodicity")]
+        return (torch.cat([y, *extra], dim=-1),
+                torch.cat([y_, *extra], dim=-1))
     if config.get("generator_params", {}).get("use_ar", False):
         past = batch.get("ar2")
         if past is None:
@@ -272,11 +334,16 @@ def _aux_loss(criterion: GANCriterion, y_, y, prefix: str,
 def generator_loss(state: GANTrainState, criterion: GANCriterion,
                    config: dict, batch: dict) -> tuple[torch.Tensor, dict]:
     """The generator's loss at ``state.steps`` and its metrics."""
-    y = batch["y"]
-    y_mb_ = generate(state.generator, batch, state.draws, "generator")
+    y = target(state, batch)
+    y_mb_, ph_ = generate_ph(state.generator, batch, state.draws,
+                             "generator", state.generator2)
     y_ = synthesize(criterion, y_mb_)
     aux, metrics = _aux_loss(criterion, y_, y, "train", y_mb_)
     gen_loss = aux * criterion.lambda_aux
+    if criterion.use_ph_loss:
+        ph_l = ph_cross_entropy(ph_, batch["ph"])
+        metrics["train/ph_loss"] = ph_l
+        gen_loss = gen_loss + criterion.lambda_ph * ph_l
     disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
     # the fake and the feature-matching real pass share their windows
     offsets = _offsets(state, disc_y_, "generator_windows")
@@ -299,7 +366,7 @@ def discriminator_loss(state: GANTrainState, criterion: GANCriterion,
                        config: dict, batch: dict, y_: torch.Tensor
                        ) -> tuple[torch.Tensor, dict]:
     """The discriminator's loss on the real batch and a fake y_."""
-    disc_y, disc_y_ = _disc_inputs(config, batch, batch["y"], y_)
+    disc_y, disc_y_ = _disc_inputs(config, batch, target(state, batch), y_)
     p = discriminate(state.discriminator, disc_y,
                      _offsets(state, disc_y, "real_windows"))
     p_ = discriminate(state.discriminator, disc_y_,
@@ -339,7 +406,8 @@ def make_train_step(criterion: GANCriterion, config: dict):
         # moving the BatchNorm statistics
         with torch.no_grad(), frozen_stats(state.generator):
             y2_ = synthesize(criterion, generate(
-                state.generator, batch, state.draws, "regeneration"))
+                state.generator, batch, state.draws, "regeneration",
+                state.generator2))
         with torch.set_grad_enabled(disc_on):
             dis_loss, dmetrics = discriminator_loss(state, criterion, config,
                                                     batch, y2_)
@@ -364,17 +432,25 @@ def make_eval_step(criterion: GANCriterion, config: dict):
 
     @torch.no_grad()
     def eval_step(state: GANTrainState, batch: dict):
-        y = batch["y"]
-        was_training = state.generator.training
-        state.generator.eval()
+        y = target(state, batch)
+        models = [m for m in (state.generator, state.generator2)
+                  if m is not None]
+        modes = [m.training for m in models]
+        for m in models:
+            m.eval()
         try:
-            y_mb_ = generate(state.generator, batch, state.draws,
-                             "eval_generator")
+            y_mb_, ph_ = generate_ph(state.generator, batch, state.draws,
+                                     "eval_generator", state.generator2)
         finally:
-            state.generator.train(was_training)
+            for m, mode in zip(models, modes):
+                m.train(mode)
         y_ = synthesize(criterion, y_mb_)
         aux, metrics = _aux_loss(criterion, y_, y, "eval", y_mb_)
         gen_loss = aux * criterion.lambda_aux
+        if criterion.use_ph_loss:
+            ph_l = ph_cross_entropy(ph_, batch["ph"])
+            metrics["eval/ph_loss"] = ph_l
+            gen_loss = gen_loss + criterion.lambda_ph * ph_l
         disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
         p_ = discriminate(state.discriminator, disc_y_,
                           _offsets(state, disc_y_, "eval_fake_windows"))

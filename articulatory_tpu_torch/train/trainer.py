@@ -29,9 +29,10 @@ import torch
 
 from articulatory_tpu_torch.utils.checkpoint import save_checkpoint
 
-# keys the train step consumes; the collater's aliases (audio/art duplicate
-# x/y) would otherwise be copied to the device every step
-_STEP_BATCH_KEYS = ("x", "y", "ar", "ar2")
+# keys the train step consumes; the collater's aliases (audio/art/mel
+# duplicate x/y) would otherwise be copied to the device every step
+_STEP_BATCH_KEYS = ("x", "y", "ar", "ar2", "spk_id", "ph", "pitch",
+                    "periodicity")
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

@@ -13,12 +13,13 @@
 ``generator_state_dict`` / ``discriminator_state_dict`` turn either
 payload's model entries into the port's state dicts, for every generator
 and discriminator of the zoo (a JAX ``BiGRU`` or ``Transformer`` with its
-BatchNorm statistics from ``payload["mutables"]``). ``save_checkpoint``
+BatchNorm statistics from ``payload["mutables"]``; a cascade's
+``generator2``, which the reference saves as a 1-tuple). ``save_checkpoint``
 writes a training state as a torch pickle in the reference's layout,
-``{"model": {"generator", "discriminator"}, "optimizer": {...},
-"scheduler": {...}, "steps", "epochs"}``, which ``load_model`` decodes from
-and ``restore_state`` resumes from. Orbax checkpoint directories are not
-read by the port.
+``{"model": {"generator", "discriminator"[, "generator2"]}, "optimizer":
+{...}, "scheduler": {...}, "steps", "epochs"}``, which ``load_model``
+decodes from and ``restore_state`` resumes from. Orbax checkpoint
+directories are not read by the port.
 """
 
 from __future__ import annotations
@@ -150,9 +151,12 @@ def save_checkpoint(path: str, state, schedulers: dict | None = None,
                     epochs: int = 0) -> None:
     """Write a ``train/gan.py::GANTrainState`` (and the host schedulers) as
     one torch pickle, atomically."""
+    model = {"generator": state.generator.state_dict(),
+             "discriminator": state.discriminator.state_dict()}
+    if getattr(state, "generator2", None) is not None:
+        model["generator2"] = state.generator2.state_dict()
     payload = _cpu({
-        "model": {"generator": state.generator.state_dict(),
-                  "discriminator": state.discriminator.state_dict()},
+        "model": model,
         "optimizer": {"generator": state.opt_g.state_dict(),
                       "discriminator": state.opt_d.state_dict()},
         "scheduler": {k: v.state_dict() for k, v in (schedulers or {}).items()},
@@ -181,6 +185,11 @@ def restore_state(state, payload: dict, config: dict,
     state.discriminator.load_state_dict(discriminator_state_dict(
         payload, config["discriminator_type"],
         config.get("discriminator_params", {})))
+    if "generator2" in payload["model"] and getattr(
+            state, "generator2", None) is not None:
+        state.generator2.load_state_dict(generator_state_dict(
+            payload, "generator2", config["generator2_params"],
+            config["generator2_type"]))
     if load_only_params:
         return 0
     if _is_jax_tree(payload["model"]["generator"]):

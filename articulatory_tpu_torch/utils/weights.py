@@ -11,7 +11,8 @@
 - Conv2d (Kh, Kw, C_in, C_out) -> (C_out, C_in, Kh, Kw);
 - ConvTranspose1d (K, C_in, C_out), time-flipped -> (C_in, C_out, K),
   un-flipped;
-- Dense (in, out) -> (out, in);
+- Dense (in, out) -> (out, in); an embedding table as it is (the
+  conditioning's ``spk_emb_mat`` and ``ph_emb_mat``);
 - GRU ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` (torch's packing already) ->
   ``weight_ih_l0`` ... , ``_reverse`` for the backward direction;
 - BatchNorm scale, bias and the running mean and variance -> ``weight``,
@@ -25,7 +26,9 @@ dispatched by class name through ``generator_to_state_dict`` and
 effective weight in JAX, becomes ``weight_v = w``, ``weight_g = ||w||``
 (``_unfold_conv2d_wn``); a ``Transformer``'s relative table gains the
 reference's trailing axis of 1; BatchNorm statistics come from the
-mutables, ``num_batches_tracked`` from the step count.
+mutables, ``num_batches_tracked`` from the step count. A cascade's
+``generator2`` tree goes through the same converters under its own
+``generator2_type`` (``utils/checkpoint.py::generator_state_dict``).
 
 ``fold_weight_norm`` is ``remove_weight_norm`` on a state dict: each
 ``weight_v`` becomes the effective weight and ``weight_g`` its norm, so the
@@ -97,13 +100,24 @@ def _ar_model(sd: dict, params: Mapping[str, Any]) -> None:
         _linear(sd, f"ar_model.model.{ti}", params["ar_model"][f"fc{li}"])
 
 
+def _embedding(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _tensor(p["w"])
+
+
+def _speaker(sd: dict, params: Mapping[str, Any],
+             generator_params: Mapping[str, Any]) -> None:
+    """``spk_emb_mat`` and ``spk_fc`` of a ``use_spk_id`` generator."""
+    if generator_params.get("use_spk_id", False):
+        _embedding(sd, "spk_emb_mat", params["spk_emb_mat"])
+        _linear(sd, "spk_fc", params["spk_fc"])
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any],
                              generator_params: Mapping[str, Any]
                              ) -> dict[str, torch.Tensor]:
-    """JAX ``HiFiGANGenerator`` params -> the port's state dict."""
-    for flag in ("use_spk_id", "use_ph", "use_ph_loss"):
-        if generator_params.get(flag, False):
-            raise NotImplementedError(f"{flag} is not ported yet")
+    """JAX ``HiFiGANGenerator`` params -> the port's state dict (the keys
+    of the JAX package's ``export_hifigan_generator``, the conditioning
+    leaves included)."""
     sd: dict[str, torch.Tensor] = {}
     num_ups = len(generator_params.get("upsample_scales", (8, 8, 2, 2)))
     rks = generator_params.get("resblock_kernel_sizes", (3, 7, 11))
@@ -124,6 +138,11 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     _conv1d(sd, "output_conv.1", params["output_conv"])
     if generator_params.get("use_ar", False):
         _ar_model(sd, params)
+    _speaker(sd, params, generator_params)
+    if generator_params.get("use_ph", False):
+        _embedding(sd, "ph_emb_mat", params["ph_emb_mat"])
+    if generator_params.get("use_ph_loss", False):
+        _linear(sd, "ph_fc", params["ph_fc"])
     return sd
 
 
@@ -274,8 +293,6 @@ def jax_gblock_generator_to_state_dict(params: Mapping[str, Any],
                                        ) -> dict[str, torch.Tensor]:
     """JAX ``GBlockGenerator`` -> the reference's keys
     (``export_gblock_generator``)."""
-    if generator_params.get("use_spk_id", False):
-        raise NotImplementedError("use_spk_id is not ported yet")
     sd: dict[str, torch.Tensor] = {}
     _conv1d(sd, "input_conv", params["input_conv"])
     for i, scale in enumerate(generator_params.get("g_scales", (8, 8, 2, 2))):
@@ -289,6 +306,7 @@ def jax_gblock_generator_to_state_dict(params: Mapping[str, Any],
     _conv1d(sd, "output_conv.1", params["output_conv"])
     if generator_params.get("use_ar", False):
         _ar_model(sd, params)
+    _speaker(sd, params, generator_params)
     return sd
 
 
@@ -330,7 +348,7 @@ def jax_transformer_to_state_dict(params: Mapping[str, Any],
             sd[f"{t}.{norm}.weight"] = _tensor(layer[norm]["scale"])
             sd[f"{t}.{norm}.bias"] = _tensor(layer[norm]["bias"])
     if "in_emb_mat" in params:
-        sd["in_emb_mat.weight"] = _tensor(params["in_emb_mat"]["w"])
+        _embedding(sd, "in_emb_mat", params["in_emb_mat"])
     _linear(sd, "w_out", params["w_out"])
     return sd
 

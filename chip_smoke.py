@@ -7,8 +7,9 @@ features, channels 512, upsample (5, 4, 2, 2), MRF kernels (3, 7, 11) x
 dilations (1, 3, 5), AR 512), in phase 7 of
 ``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, in phases 8-11 of the
 inversion BiGRU of ``benchmarks/inversion_bench.py`` and the stream server,
-and in phases 12-13 of the generator zoo on
-``egs/ema/voc1/conf/e2w_hifigan.yaml``, through their entry points:
+in phases 12-13 of the generator zoo on
+``egs/ema/voc1/conf/e2w_hifigan.yaml``, and in phases 14-18 of its
+conditioned, chained and multimodal forms, through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -133,7 +134,29 @@ Phases, each raising on failure:
    checkpoint over ZOO_DECODE_UTTS x ZOO_DECODE_SECONDS s (27 pairs a
    multi-band forward; finite outputs of the right length; samples/s,
    RTF), the f32 generator against float64 on the card (ZOO_F64_TOL) and a
-   profiler window over ZOO_PROFILE_FORWARDS forwards.
+   profiler window over ZOO_PROFILE_FORWARDS forwards;
+14. cond-train: the EMA HiFi-CAR with speaker ids (COND_SPEAKERS), phoneme
+   inputs and the phoneme head (COND_PHONEMES, COND_LAMBDA_PH) through
+   ``train(config)`` on the phase 6 corpus with utt2spk and ph.scp:
+   checks (a)-(d) of phase 6 (72 pairs and 12 heads a step; the
+   conditioning's gradients printed apart), ``train/ph_loss`` finite and
+   above 0; then one PCD step (random pitch and periodicity, a 3-channel
+   MSMPD on plain convs: 72 pairs, no head);
+15. cond-decode: a phoneme-head checkpoint decoded as in phase 4 (f32 and
+   hybrid; eager launch counts, chunks against plain pairs, the graph run
+   bit-equal to the eager one), phase 4's [graph] checks on it, and
+   ``bin/decode.py`` eager and ``--ar-scan`` at batch UTTS writing the
+   same wav files;
+16. cascade: the w2a cycle of ``tests/test_cascade.py`` at full width, the
+   [zoo-bigru] BiGRU into a frozen HiFi-GAN (CASCADE_GP2) loaded by
+   ``--pretrain2`` from a checkpoint the phase writes: 18 pairs a step, no
+   head, generator2 bit for bit as loaded, the generator's gradients with
+   the pair kernel against the plain pair, the step median;
+17. ph2a: the [zoo-transformer] Transformer on phoneme ids, 2 steps through
+   ``train(config)`` and ``bin/decode.py`` on integer ids;
+18. mult: ``ar_loop(modality=...)`` with an in-list callable around the
+   full-width f32 HiFi-CAR on MRI-rate frames (36 pairs a chunk), chunks
+   against the same callable on the CPU from the card's carry.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -1236,17 +1259,17 @@ def _grad_gaps(got, want) -> tuple[float, float]:
 
 
 def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
-                corpus: tuple = (TRAIN_UTTS, TRAIN_SECONDS, N_FEATS),
                 grads: bool = True, tag: str = "train") -> dict:
-    """``train(config)`` for its ``train_max_steps`` on a synthetic corpus
-    of ``corpus`` = (utterances, seconds, features), the checks (a)-(e) of
-    the module's docstring ((d), the gradients, with ``grads``), and the
-    step's time; logged under ``[tag]``."""
+    """``train(config)`` for its ``train_max_steps`` on the synthetic corpus
+    the caller wrote under ``tmp`` (``_write_corpus``), the checks (a)-(e)
+    of the module's docstring ((d), the gradients, with ``grads``, each
+    generator tensor's gap kept apart; (e), the decode, not for a speaker-
+    or phoneme-input model, which neither package decodes), and the step's
+    time; logged under ``[tag]``."""
     train_cli, gan, inference = port["train"], port["gan"], port["inference"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
     split, head_split = port["split_tf32"], port["split_weights"]
     steps = config["train_max_steps"]
-    _write_corpus(tmp, seed, config, *corpus)
     outdir = os.path.join(tmp, "exp")
     pair.launches = head.launches = split.launches = head_split.launches = 0
     start = time.perf_counter()
@@ -1330,6 +1353,10 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                                     f"{v['worst_tensor_rel_l2']:.3e}"
                                     for k, v in grad_gaps.items())
             + f" (limits {GRAD_TOL})")
+        names = [k for k, _ in state.generator.named_parameters()]
+        grad_gaps["generator_tensors"] = {
+            key: _grad_gaps([got], [want])[0] for key, got, want in zip(
+                names, kernel_grads[0], plain_grads[0])}
 
     # step time, and its parts apart
     lr = config["generator_optimizer_params"]["lr"]
@@ -1355,6 +1382,16 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
         f"{STEP_ROUNDS}; " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       part_ms.items()))
 
+    result = {"run_seconds": run_seconds, "launches": launches,
+              "launches_per_step": {k: v // steps
+                                    for k, v in launches.items()},
+              "mean_losses": losses, "grad_gaps": grad_gaps,
+              "step_ms_median": 1e3 * float(np.median(step_s)),
+              "step_ms_range": [1e3 * min(step_s), 1e3 * max(step_s)],
+              **part_ms}
+    gp = config["generator_params"]
+    if gp.get("use_spk_id") or gp.get("use_ph"):
+        return result
     # (e) decode one chunk from the written checkpoint
     ckpt = os.path.join(outdir, f"checkpoint-{steps}steps.ckpt")
     model = inference.load_model(ckpt, config, device="cuda")
@@ -1370,13 +1407,7 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                                  f"({config['batch_max_steps']},)")
     log(f"[{tag}] decoded one chunk of 4 utterances from "
         f"{os.path.basename(ckpt)}")
-    return {"run_seconds": run_seconds, "launches": launches,
-            "launches_per_step": {k: v // steps
-                                  for k, v in launches.items()},
-            "mean_losses": losses, "grad_gaps": grad_gaps,
-            "step_ms_median": 1e3 * float(np.median(step_s)),
-            "step_ms_range": [1e3 * min(step_s), 1e3 * max(step_s)],
-            **part_ms}
+    return result
 
 
 def numpy_bigru_params(gp: dict, seed: int) -> tuple[dict, dict]:
@@ -2177,6 +2208,464 @@ def phase_zoo(port: dict, family: str, config: dict, seed: int,
             "f64_rel_err": err, "profile": prof}
 
 
+# conditioning and cascades: the EMA HiFi-CAR of e2w_hifigan_car.yaml
+# conditioned on COND_SPEAKERS speakers (the Haskins Production Rate
+# Comparison corpus's 8 talkers) and COND_PHONEMES phoneme ids (the 39
+# ARPAbet phonemes of CMUdict and a silence), with the phoneme head at the
+# JAX package's default weight; the tables are small beside the conv stack,
+# so no width changes (spk_fc maps 32 -> 141, the input conv reads 141 + 8)
+COND_SPEAKERS, COND_PHONEMES, COND_LAMBDA_PH = 8, 40, 1.0
+COND_GP = dict(GENERATOR_PARAMS, use_spk_id=True, num_spk=COND_SPEAKERS,
+               use_ph=True, num_ph=COND_PHONEMES, use_ph_loss=True)
+COND_TRAIN_CONFIG = dict(TRAIN_CONFIG, generator_params=COND_GP,
+                         lambda_ph=COND_LAMBDA_PH)
+# the conditioning's leaves, whose kernel-vs-plain gradients print apart
+COND_REPORT = ("spk_emb_mat.weight", "spk_fc.weight", "ph_emb_mat.weight",
+               "ph_fc.weight")
+# the decode of a phoneme-head checkpoint: the LoadedModel passes no
+# speaker or phoneme ids (as the JAX package's), so only the head decodes
+PH_GP = dict(GENERATOR_PARAMS, use_ph_loss=True, num_ph=COND_PHONEMES)
+# the cascade's frozen second stage: a HiFi-GAN from the 12 EMA channels to
+# the 13 input features, channels 512, MRF 3/7/11 x 1/3/5, scale 1
+CASCADE_GP2 = {"in_channels": 12, "out_channels": 13, "channels": 512,
+               "kernel_size": 7, "upsample_scales": [1],
+               "upsample_kernel_sizes": [2],
+               "resblock_kernel_sizes": [3, 7, 11],
+               "resblock_dilations": [[1, 3, 5]] * 3, "use_ar": False}
+# the multimodal decode: the EMA frames (200 Hz) and an MRI-like modality
+# (hop 240 at 20 kHz, 83.3 frames a second: each chunk interpolated by 2.4)
+MULT_HOPS, MULT_RATES = [80, 240], [16000, 20000]
+MULT_CHUNKS_CHECKED = 3
+
+
+def _cond_corpus(root: str, speakers: int, phonemes: int, seed: int) -> None:
+    """utt2spk (utterance i is speaker i mod ``speakers``) and ph.scp
+    (random ids, one a frame) beside each stage's feats.scp under root."""
+    rng = np.random.default_rng(seed)
+    for stage in ("tr", "dev"):
+        data = os.path.join(root, "data", stage)
+        utts = [line.split()[0] for line in open(
+            os.path.join(data, "feats.scp"))]
+        spk, ph = [], []
+        for i, utt in enumerate(utts):
+            frames = len(np.load(os.path.join(data, f"{utt}.npy")))
+            path = os.path.join(data, f"{utt}-ph.npy")
+            np.save(path, rng.integers(0, phonemes, frames).astype(np.int32))
+            spk.append(f"{utt} s{i % speakers}\n")
+            ph.append(f"{utt} {path}\n")
+        with open(os.path.join(data, "utt2spk"), "w") as f:
+            f.writelines(spk)
+        with open(os.path.join(data, "ph.scp"), "w") as f:
+            f.writelines(ph)
+
+
+def phase_cond_train(port: dict, seed: int, tmp: str) -> dict:
+    """[cond-train] ``bin/train.py`` on the conditioned HiFi-CAR (speaker
+    ids, phoneme inputs, the phoneme head), phase_train's checks (a)-(d)
+    with the conditioning's gradients apart and ``train/ph_loss`` finite
+    and above 0; then one ``make_train_step`` with PCD inputs (random pitch
+    and periodicity, the MSMPD on 3 channels: its scale discriminators on
+    plain convs, no head launch)."""
+    gan = port["gan"]
+    pair, head = port["resblock_pair"], port["scale_disc_head"]
+    _write_corpus(tmp, seed, COND_TRAIN_CONFIG)
+    _cond_corpus(tmp, COND_SPEAKERS, COND_PHONEMES, seed + 4)
+    out = phase_train(port, seed, tmp, config=COND_TRAIN_CONFIG,
+                      tag="cond-train")
+    gaps = out["grad_gaps"]["generator_tensors"]
+    log("[cond-train] the conditioning's gradients, kernel vs plain, "
+        "relative L2: " + ", ".join(f"{k} {gaps[k]:.3e}"
+                                    for k in COND_REPORT))
+    ph_loss = out["mean_losses"].get("train/ph_loss")
+    if ph_loss is None or not np.isfinite(ph_loss) or ph_loss <= 0:
+        raise AssertionError(f"[cond-train] train/ph_loss {ph_loss}")
+
+    # PCD: one step of the recipe's model on pitch-conditioned
+    # discriminator inputs
+    dp = copy.deepcopy(TRAIN_CONFIG["discriminator_params"])
+    for key in ("scale_discriminator_params", "period_discriminator_params"):
+        dp[key]["in_channels"] = 3
+    config = dict(TRAIN_CONFIG, use_pcd=True, discriminator_params=dp)
+    build, optimizer = port["build_model"], port["build_optimizer"]
+    generator = build("HiFiGANGenerator", GENERATOR_PARAMS, seed=seed).cuda()
+    discriminator = build(config["discriminator_type"], dp,
+                          seed=seed + 1).cuda()
+    opt = {k: optimizer("Adam", {"lr": 1e-4, "betas": [0.5, 0.9]}, -1,
+                        m.parameters())
+           for k, m in (("g", generator), ("d", discriminator))}
+    state = gan.GANTrainState(generator=generator, discriminator=discriminator,
+                              opt_g=opt["g"], opt_d=opt["d"], steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    b, n = config["batch_size"], config["batch_max_steps"]
+    frames = n // config["hop_size"]
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    batch = {"x": (randn(b, frames, N_FEATS),), "y": randn(b, n, 1, scale=0.3),
+             "ar": randn(b, GENERATOR_PARAMS["ar_input"], 1, scale=0.3),
+             "pitch": randn(b, frames, 1), "periodicity": randn(b, frames, 1)}
+    step = gan.make_train_step(gan.GANCriterion(config), config)
+    pair.launches = head.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = step(state, batch, 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    pcd_ms = 1e3 * (time.perf_counter() - start)
+    pcd = {"launches": {"resblock_pair": pair.launches,
+                        "scale_disc_head": head.launches},
+           "losses": {k: float(v) for k, v in metrics.items()},
+           "first_step_ms": pcd_ms}
+    if pcd["launches"] != {"resblock_pair": 72, "scale_disc_head": 0} or \
+            not all(np.isfinite(v) for v in pcd["losses"].values()):
+        raise AssertionError(f"[cond-train] PCD step: {pcd}")
+    log(f"[cond-train] PCD step (3-channel MSMPD, B {b} x {n}): launches "
+        f"{pcd['launches']}, first step {pcd_ms:.3f} ms, losses "
+        + ", ".join(f"{k.split('/')[-1]} {v:.4f}"
+                    for k, v in pcd["losses"].items()))
+    out["pcd"] = pcd
+    return out
+
+
+def phase_cond_decode(port, seed: int, device_name: str, tmp: str) -> dict:
+    """[cond-decode] a phoneme-head checkpoint of the recipe (random, from
+    ``seed``) decoded UTTS x SECONDS s: eager in f32 and hybrid (36 pairs a
+    chunk; chunks 0, 1 and the last against the plain pairs under the run's
+    carry), phase_graph's captured loop (36 pairs a replay, chunks against
+    eager), the graph and eager runs bit for bit, and ``bin/decode.py``
+    eager and ``--ar-scan`` at batch UTTS (the same wav files)."""
+    inference, residual, resblock_pair, plain, weights, decode = (
+        port[k] for k in ("inference", "residual", "resblock_pair", "plain",
+                          "weights", "decode"))
+    tree = numpy_generator_params(PH_GP, seed)
+    rng = np.random.default_rng(seed + 6)
+    width = GENERATOR_PARAMS["channels"] // 2 ** len(
+        GENERATOR_PARAMS["upsample_scales"])
+    bound = 1.0 / np.sqrt(width)
+    tree["ph_fc"] = {
+        "w": rng.uniform(-bound, bound, (width, COND_PHONEMES)
+                         ).astype(np.float32),
+        "b": rng.uniform(-bound, bound, COND_PHONEMES).astype(np.float32)}
+    ckpt = os.path.join(tmp, "ph_generator.pth")
+    torch.save({"model": {"generator": weights.jax_params_to_state_dict(
+        tree, PH_GP)}}, ckpt)
+    config = dict(CONFIG, generator_params=PH_GP)
+    modes = {"f32": config, "hybrid_bf16": dict(config, generator_params=dict(
+        PH_GP, compute_dtype="bfloat16", hybrid_precision=True))}
+    hop, chunk_len = CONFIG["hop_size"], CONFIG["batch_max_steps"]
+    n_frames = int(SECONDS * CONFIG["sampling_rate"] / hop)
+    n_chunks = -(-n_frames // CHUNK_FRAMES)
+    xs = [rng.standard_normal((n_frames, N_FEATS)).astype(np.float32)
+          for _ in range(UTTS)]
+    models, results = {}, {}
+    for mode, cfg in modes.items():
+        model = models[mode] = inference.load_model(ckpt, cfg, device="cuda")
+        model.remove_weight_norm()
+        inference.ar_loop_batched(model, [x[:CHUNK_FRAMES] for x in xs], cfg)
+    # the capture first (phase_graph counts its launches), then the eager
+    # runs, and the graph runs replaying the cached capture
+    results["graph"] = phase_graph(port, models, modes, xs, "cond-decode",
+                                   CHUNK_FRAMES, PH_GP["ar_input"],
+                                   device_name)
+    for mode, cfg in modes.items():
+        model = models[mode]
+        resblock_pair.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        eager = inference.ar_loop_batched(model, xs, cfg)
+        seconds = time.perf_counter() - start
+        launches = resblock_pair.launches
+        if launches != 36 * n_chunks or any(
+                o.shape != (n_frames * hop,) or not np.isfinite(o).all()
+                for o in eager):
+            raise AssertionError(f"[cond-decode] {mode}: {launches} pair "
+                                 f"launches (expected {36 * n_chunks}) or "
+                                 f"outputs not finite of the right length")
+        checks = _chunk_checks(model, xs, eager, residual, plain, mode,
+                               n_chunks, chunk_len, timings=False)
+        graph = inference.ar_loop_batched(model, xs, cfg, scan=True)
+        same = all(np.array_equal(g, e) for g, e in zip(graph, eager))
+        if not same:
+            raise AssertionError(
+                f"[cond-decode] {mode}: graph and eager differ by "
+                f"{max(float(np.abs(g - e).max()) for g, e in zip(graph, eager)):.3e}")
+        results[mode] = {"launches": launches, "eager_seconds": seconds,
+                         "samples_per_s": UTTS * n_frames * hop / seconds,
+                         "graph_equals_eager": same, **checks}
+        log(f"[cond-decode] {mode}: {UTTS} x {SECONDS} s, {n_chunks} chunks "
+            f"eager in {seconds:.3f} s = "
+            f"{results[mode]['samples_per_s']:.1f} samples/s on "
+            f"{device_name}; resblock_pair launches {launches}; chunk max "
+            f"abs err vs plain {checks['chunk_max_abs_err']:.3e} (tol "
+            f"{CHUNK_TOL[mode]}); graph run bit-equal to eager")
+    dump = os.path.join(tmp, "dump")
+    os.makedirs(dump)
+    for n, x in enumerate(xs):
+        np.save(os.path.join(dump, f"utt{n}-feats.npy"), x)
+    wavs = {}
+    for name, kwargs in (("eager", {}), ("ar_scan", {"ar_scan": True})):
+        outdir = os.path.join(tmp, name)
+        resblock_pair.launches = 0
+        r = decode.decode(config, ckpt, outdir, dumpdir=dump, device="cuda",
+                          decode_batch_size=UTTS, **kwargs)
+        wavs[name] = [port["read_wav"](os.path.join(outdir, f"utt{n}_gen.wav"))
+                      [0] for n in range(UTTS)]
+        results[f"cli_{name}"] = dict(r, pair_launches=resblock_pair.launches)
+        log(f"[cond-decode] bin/decode.py {kwargs or 'eager'}, batch {UTTS}: "
+            f"{r['utterances']} utterances in {r['seconds_elapsed']:.3f} s, "
+            f"RTF {r['rtf']:.6f}; resblock_pair launches "
+            f"{resblock_pair.launches}")
+    if results["cli_eager"]["pair_launches"] != 36 * n_chunks or not all(
+            w.shape == (n_frames * hop,) and np.array_equal(w, v)
+            for w, v in zip(wavs["ar_scan"], wavs["eager"])):
+        raise AssertionError("[cond-decode] the decode CLI's eager and "
+                             "--ar-scan runs differ, or the eager run "
+                             "launched other than 36 pairs a chunk")
+    return results
+
+
+def phase_cascade(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """[cascade] the w2a cycle of ``tests/test_cascade.py`` at full width:
+    the [zoo-bigru] BiGRU (13 -> 12) into a frozen HiFi-GAN (12 -> 13,
+    CASCADE_GP2) that ``--pretrain2`` loads, with the discriminator, from a
+    checkpoint this phase writes; ``bin/train.py`` for ZOO_WARMUP_STEPS
+    steps, judged against the input features: 18 pair launches a step (9
+    in the generator pass, whose backward asks the frozen stage for its
+    input gradient alone, 9 in the regeneration), no head launch (13
+    channels); generator2 bit for bit as loaded after every step; one
+    batch's generator gradients with the pair kernel against the plain
+    pair (pooled relative L2 <= GRAD_TOL[0]); the step median."""
+    train_cli, gan = port["train"], port["gan"]
+    pair, head = port["resblock_pair"], port["scale_disc_head"]
+    config = copy.deepcopy(zoo_configs()["bigru"])
+    dp = config["discriminator_params"]
+    for key in ("scale_discriminator_params", "period_discriminator_params"):
+        dp[key]["in_channels"] = 13
+    config.update(generator2_type="HiFiGANGenerator",
+                  generator2_params=CASCADE_GP2)
+    build = port["build_model"]
+    stage2 = {"generator": build("HiFiGANGenerator", CASCADE_GP2,
+                                 seed=seed + 7).state_dict(),
+              "discriminator": build(config["discriminator_type"], dp,
+                                     seed=seed + 8).state_dict()}
+    path = os.path.join(tmp, "stage2.pth")
+    torch.save({"model": stage2}, path)
+    _write_zoo_corpus(tmp, seed, config, ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS,
+                      "tr", dev=8)
+    pair.launches = head.launches = 0
+    start = time.perf_counter()
+    trainer = train_cli.train(
+        config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
+        dev_dumpdir=os.path.join(tmp, "dump/dev/norm"),
+        outdir=os.path.join(tmp, "exp"), data_root=os.path.join(tmp, "data"),
+        pretrain2=path, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - start
+    launches = {"resblock_pair": pair.launches,
+                "scale_disc_head": head.launches}
+    if launches != {"resblock_pair": 18 * ZOO_WARMUP_STEPS,
+                    "scale_disc_head": 0}:
+        raise AssertionError(f"[cascade] launches {launches}, expected "
+                             f"{18 * ZOO_WARMUP_STEPS} pairs and no head")
+    state = trainer.state
+
+    def frozen_as_loaded():
+        sd = state.generator2.state_dict()
+        return all(torch.equal(sd[k].cpu(), v)
+                   for k, v in stage2["generator"].items())
+
+    if not frozen_as_loaded():
+        raise AssertionError("[cascade] generator2 moved in bin/train.py")
+    criterion = gan.GANCriterion(trainer.config)
+    batch = port["to_device"](next(iter(trainer.data_loader["train"])),
+                              trainer.device)
+    params = list(state.generator.parameters())
+
+    def grads():  # the BiGRU's dropout masks drawn alike in both passes
+        torch.manual_seed(seed)
+        loss, _ = gan.generator_loss(state, criterion, config, batch)
+        return _grads(loss, params)
+
+    kernel = grads()
+    with swapped(port["residual"], "resblock_pair",
+                 port["resblock_pair_plain"]):
+        plain = grads()
+    pooled, per = _grad_gaps(kernel, plain)
+    if pooled > GRAD_TOL[0] or any(p.grad is not None
+                                   for p in state.generator2.parameters()):
+        raise AssertionError(f"[cascade] generator gradients with the pair "
+                             f"kernel {pooled:.3e} from plain (limit "
+                             f"{GRAD_TOL[0]}), or generator2 kept a grad")
+    lr = config["generator_optimizer_params"]["lr"]
+    trainer.train_step(state, batch, lr, lr)
+    step_s = []
+    pair.launches = 0
+    for _ in range(ZOO_TIMED_STEPS):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        metrics = trainer.train_step(state, batch, lr, lr)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - begin)
+    losses = {k: float(v) for k, v in metrics.items()}
+    if not frozen_as_loaded() or pair.launches != 18 * ZOO_TIMED_STEPS or \
+            not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"[cascade] after the timed steps: generator2 "
+                             f"moved, {pair.launches} pair launches, or "
+                             f"losses {losses}")
+    step_ms = 1e3 * float(np.median(step_s))
+    log(f"[cascade] BiGRU -> frozen HiFi-GAN (12 -> 13, "
+        f"{CASCADE_GP2['channels']} channels, scale 1), B "
+        f"{config['batch_size']} x {config['batch_max_steps']} rows on "
+        f"{device_name}: {ZOO_WARMUP_STEPS} steps through bin/train.py "
+        f"--pretrain2 in {run_seconds:.3f} s, launches {launches}; generator2 "
+        f"bit-equal as loaded; generator gradients kernel vs plain pair "
+        f"{pooled:.3e} pooled / {per:.3e} worst tensor (limit "
+        f"{GRAD_TOL[0]}); step median {step_ms:.3f} ms [range "
+        f"{1e3 * min(step_s):.3f}, {1e3 * max(step_s):.3f}] over "
+        f"{ZOO_TIMED_STEPS}; losses "
+        + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items()))
+    return {"run_seconds": run_seconds, "launches": launches,
+            "launches_per_step": 18, "grad_gap_pooled": pooled,
+            "grad_gap_worst_tensor": per, "step_ms_median": step_ms,
+            "step_ms": [1e3 * s for s in step_s], "losses": losses}
+
+
+def phase_ph2a(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """[ph2a] the [zoo-transformer] Transformer on phoneme ids
+    (COND_PHONEMES, embedding 8) to the 12 EMA channels: ``bin/train.py``
+    for ZOO_WARMUP_STEPS steps (ids through ph.scp, 200 a second), then
+    ``bin/decode.py`` on integer ids in the dump over ZOO_DECODE_UTTS x
+    ZOO_DECODE_SECONDS s (finite (frames, 12) outputs)."""
+    train_cli, decode = port["train"], port["decode"]
+    config = copy.deepcopy(zoo_configs()["transformer"])
+    # the w2a corpus: its 12 EMA channels are the targets, its feature
+    # stream the (unread) audio
+    _write_zoo_corpus(tmp, seed, config, ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS,
+                      "tr", dev=8)
+    config["dataset_mode"] = "ph2a"
+    config["generator_params"].update(num_ph=COND_PHONEMES, ph_emb_size=8)
+    _cond_corpus(tmp, 1, COND_PHONEMES, seed + 9)
+    start = time.perf_counter()
+    trainer = train_cli.train(
+        config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
+        dev_dumpdir=os.path.join(tmp, "dump/dev/norm"),
+        outdir=os.path.join(tmp, "exp"), data_root=os.path.join(tmp, "data"),
+        seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - start
+    losses = {k: float(v) / ZOO_WARMUP_STEPS
+              for k, v in trainer.total_train_loss.items()}
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"[ph2a] losses {losses}")
+    dump = os.path.join(tmp, "eval")
+    os.makedirs(dump)
+    frames = ZOO_DECODE_SECONDS * 200
+    rng = np.random.default_rng(seed + 10)
+    for i in range(ZOO_DECODE_UTTS):
+        np.save(os.path.join(dump, f"e{i}-feats.npy"),
+                rng.integers(0, COND_PHONEMES, frames).astype(np.int32))
+    ckpt = os.path.join(tmp, "exp", f"checkpoint-{ZOO_WARMUP_STEPS}steps.ckpt")
+    r = decode.decode(config, ckpt, os.path.join(tmp, "out"), dumpdir=dump,
+                      device="cuda")
+    for i in range(ZOO_DECODE_UTTS):
+        y = np.load(os.path.join(tmp, "out", f"e{i}_gen.npy"))
+        if y.shape != (frames, 12) or not np.isfinite(y).all():
+            raise AssertionError(f"[ph2a] decode e{i}: {y.shape}")
+    log(f"[ph2a] Transformer on {COND_PHONEMES} phoneme ids, B "
+        f"{config['batch_size']} x {config['batch_max_steps']} rows on "
+        f"{device_name}: {ZOO_WARMUP_STEPS} steps through bin/train.py in "
+        f"{run_seconds:.3f} s, mean losses "
+        + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items())
+        + f"; bin/decode.py on integer ids: {ZOO_DECODE_UTTS} x "
+        f"{ZOO_DECODE_SECONDS} s in {r['seconds_elapsed']:.3f} s, RTF "
+        f"{r['rtf']:.6f}")
+    return {"run_seconds": run_seconds, "losses": losses, "decode": r}
+
+
+def phase_mult(port: dict, seed: int, device_name: str) -> dict:
+    """[mult] ``ar_loop(modality=1)`` on the card: an in-list callable (the
+    kind of ``tests/test_multimodal.py``'s) that feeds the present
+    modality's interpolated chunk to the full-width f32 HiFi-CAR (random
+    weights from ``seed``), on SECONDS s of MRI-rate frames (83.3 a
+    second, 13 features, each 100-frame chunk interpolated to 240); pair
+    launches (36 a chunk); chunks 0, 1 and the last against the same
+    callable and its interpolation on the CPU from the card run's carry
+    (CHUNK_TOL f32)."""
+    inference, weights = port["inference"], port["weights"]
+    resblock_pair = port["resblock_pair"]
+    gp = dict(GENERATOR_PARAMS, in_list=["ema", "mri"])
+    config = dict(CONFIG, generator_params=gp, dataset_mode="a2w_mult",
+                  hop_sizes=MULT_HOPS, sampling_rates=MULT_RATES)
+    sd = weights.jax_params_to_state_dict(
+        numpy_generator_params(GENERATOR_PARAMS, seed), GENERATOR_PARAMS)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        gen = port["build_model"]("HiFiGANGenerator", GENERATOR_PARAMS)
+        gen.load_state_dict(sd)
+        models[dev] = inference.LoadedModel(
+            model=gen.to(dev).eval(), config=config, device=torch.device(dev))
+        models[dev].remove_weight_norm()
+
+    class InList:
+        """The model of the present modality's entry of the list."""
+
+        def __init__(self, loaded):
+            self.loaded, self.device = loaded, loaded.device
+
+        def __call__(self, cin_list, ar):
+            return self.loaded(next(c for c in cin_list if c is not None),
+                               ar=ar)
+
+    rate = MULT_RATES[1] / MULT_HOPS[1]
+    x = np.random.default_rng(seed + 11).standard_normal(
+        (int(SECONDS * rate), N_FEATS)).astype(np.float32)
+    card = InList(models["cuda"])
+    inference.ar_loop(card, x[:CHUNK_FRAMES], config, modality=1)  # warm-up
+    resblock_pair.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    wav = inference.ar_loop(card, x, config, modality=1)
+    seconds = time.perf_counter() - start
+    launches = resblock_pair.launches
+    n_chunks = -(-len(x) // CHUNK_FRAMES)
+    scale = (CONFIG["sampling_rate"] / CONFIG["hop_size"] * MULT_HOPS[1]
+             / MULT_RATES[1])
+    if launches != 36 * n_chunks or not np.isfinite(wav).all():
+        raise AssertionError(f"[mult] {launches} pair launches (expected "
+                             f"{36 * n_chunks}) or not finite")
+    cpu = InList(models["cpu"])
+    ar_input, worst, pos = GENERATOR_PARAMS["ar_input"], 0.0, 0
+    bounds = []
+    for i in range(n_chunks):
+        rows = len(x[i * CHUNK_FRAMES:(i + 1) * CHUNK_FRAMES])
+        n = int(rows * scale) * CONFIG["hop_size"]
+        bounds.append((pos, pos + n))
+        pos += n
+    if pos != len(wav):
+        raise AssertionError(f"[mult] {len(wav)} samples, expected {pos}")
+    checked = sorted({0, min(1, n_chunks - 1), n_chunks - 1})
+    for i in checked:
+        lo, hi = bounds[i]
+        prev = np.zeros((1, ar_input, 1), np.float32) if i == 0 else \
+            wav[None, lo - ar_input:lo, None]
+        cin = torch.from_numpy(x[None, i * CHUNK_FRAMES:(i + 1) * CHUNK_FRAMES])
+        ref = cpu([None, port["interpolate_linear_scale"](cin, scale)],
+                  torch.from_numpy(np.ascontiguousarray(prev)))
+        err = float(np.abs(ref[0, :, 0].numpy() - wav[lo:hi]).max())
+        if err > CHUNK_TOL["f32"]:
+            raise AssertionError(f"[mult] chunk {i}: {err:.3e} from the CPU "
+                                 f"loop > {CHUNK_TOL['f32']}")
+        worst = max(worst, err)
+    log(f"[mult] ar_loop(modality=1): {SECONDS} s of {rate:.1f} Hz frames "
+        f"(x{scale:g} to the 200 Hz grid), {n_chunks} chunks, "
+        f"{len(wav)} samples in {seconds:.3f} s on {device_name}; "
+        f"resblock_pair launches {launches}; chunks "
+        f"{checked} against the CPU from the card's "
+        f"carry: max abs err {worst:.3e} (tol {CHUNK_TOL['f32']})")
+    return {"launches": launches, "chunks": n_chunks, "seconds": seconds,
+            "chunk_max_abs_err": worst}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2190,6 +2679,7 @@ def main() -> int:
     from articulatory_tpu_torch.layers import residual
     from articulatory_tpu_torch.models import build_model, hifigan
     from articulatory_tpu_torch.ops import _build
+    from articulatory_tpu_torch.ops.interp import interpolate_linear_scale
     from articulatory_tpu_torch.ops.resblock_pair import (
         resblock_pair,
         resblock_pair_plain,
@@ -2203,6 +2693,7 @@ def main() -> int:
         split_weights_plain,
     )
     from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
     from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
     from articulatory_tpu_torch.utils.device import set_float32_parity
@@ -2269,6 +2760,7 @@ def main() -> int:
         split_weights=split_weights,
         scale_disc_head_plain=scale_disc_head_plain)
     with tempfile.TemporaryDirectory() as tmp:
+        _write_corpus(tmp, args.seed)
         train_results = phase_train(train_port, args.seed, tmp)
 
     # the MRI recipe: its pair and head shapes, its decode, its training
@@ -2299,11 +2791,12 @@ def main() -> int:
                             save_interval_steps=200000,
                             eval_interval_steps=200000, log_interval_steps=100)
     with tempfile.TemporaryDirectory() as tmp:
-        mri_train = phase_train(
-            train_port, args.seed, tmp, config=mri_train_config,
-            corpus=(MRI_TRAIN_UTTS, MRI_TRAIN_SECONDS,
-                    mri_gp["in_channels"] - mri_gp["ar_output"]),
-            grads=False, tag="mri-train")
+        _write_corpus(tmp, args.seed, mri_train_config, MRI_TRAIN_UTTS,
+                      MRI_TRAIN_SECONDS,
+                      mri_gp["in_channels"] - mri_gp["ar_output"])
+        mri_train = phase_train(train_port, args.seed, tmp,
+                                config=mri_train_config, grads=False,
+                                tag="mri-train")
 
     # inversion and streaming
     port.update(streaming=streaming, predict_ema=predict_ema,
@@ -2341,6 +2834,21 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             zoo[family] = phase_zoo(zoo_port, family, config, args.seed,
                                     device_name, tmp)
+
+    # conditioning and cascades
+    cond_port = dict(zoo_port, weights=weights, plain=resblock_pair_plain,
+                     split=split_tf32, warmup_steps=inference.WARMUP_STEPS,
+                     build_optimizer=build_optimizer,
+                     interpolate_linear_scale=interpolate_linear_scale)
+    with tempfile.TemporaryDirectory() as tmp:
+        cond_train = phase_cond_train(cond_port, args.seed, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        cond_decode = phase_cond_decode(cond_port, args.seed, device_name, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        cascade = phase_cascade(cond_port, args.seed, device_name, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ph2a = phase_ph2a(cond_port, args.seed, device_name, tmp)
+    mult = phase_mult(cond_port, args.seed, device_name)
 
     f32 = by_dtype["float32"]
     pair_entry = {
@@ -2423,6 +2931,20 @@ def main() -> int:
                                        for d in ("float32", "bfloat16")}
            for key in ("kernel_ms", "plain_ms", "bound_ms")},
         "multiband_shapes_f64_max_rel_err": mb_sums["float32"]["f64_rel_err"],
+        # conditioning and cascades: the conditioned training run (72 a
+        # step) and its PCD step; the phoneme-head decode, eager (36 a
+        # chunk) and replayed (36 a replay, profiled); the cascade's run
+        # (18 a step: the frozen stage's forward, input-only backward and
+        # regeneration); the multimodal decode
+        "launches_cond_train": cond_train["launches"]["resblock_pair"],
+        "launches_pcd_step": cond_train["pcd"]["launches"]["resblock_pair"],
+        "launches_cond_decode": {mode: cond_decode[mode]["launches"]
+                                 for mode in ("f32", "hybrid_bf16")},
+        "launches_cond_decode_profiled": {
+            mode: r["profile"]["kernel_counts"]["resblock_pair_wgmma"]
+            for mode, r in cond_decode["graph"].items()},
+        "launches_cascade_train": cascade["launches"]["resblock_pair"],
+        "launches_mult": mult["launches"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -2473,6 +2995,11 @@ def main() -> int:
                                               if r["dtype"] == d)
                                        for d in ("float32", "bfloat16")}
            for key in ("kernel_ms", "plain_ms", "bound_ms")},
+        # the conditioned training run (3 scales x 4 passes a step); none
+        # in the PCD step or the cascade (3 and 13 channels: plain convs)
+        "launches_cond_train": cond_train["launches"]["scale_disc_head"],
+        "launches_pcd_step": cond_train["pcd"]["launches"]["scale_disc_head"],
+        "launches_cascade_train": cascade["launches"]["scale_disc_head"],
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2493,6 +3020,8 @@ def main() -> int:
                    "mb_kernel_shapes": mb_rows, "mb_kernel_totals": mb_sums,
                    "mb_kernel_stages": mb_stages,
                    "mb_head_shapes": mb_head_rows, "zoo": zoo,
+                   "cond_train": cond_train, "cond_decode": cond_decode,
+                   "cascade": cascade, "ph2a": ph2a, "mult": mult,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

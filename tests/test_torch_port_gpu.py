@@ -594,3 +594,141 @@ def test_multiband_train_step_kernels_match_plain(cuda, monkeypatch):
         gap = torch.stack([(a - b).norm() for a, b in zip(got, want)]).norm()
         norm = torch.stack([b.norm() for b in want]).norm()
         assert (gap / norm).item() <= 1e-3
+
+
+def test_pair_backward_with_frozen_weights_gives_input_grad_only(cuda):
+    """A frozen generator (a cascade's generator2) passes gradients through
+    the pair: with weights that need no gradient, the Function's recompute
+    differentiates x alone; its gradient equals plain autograd's (relative
+    L2 1e-5) and no weight gradient is made or kept."""
+    x, w1, b1, w2, b2 = _pair_args(cuda, 2, 401, 128, 11, torch.float32)
+    leaf = x.clone().requires_grad_(True)
+    y = resblock_pair(leaf, w1, b1, w2, b2, dilation=5)
+    assert type(y.grad_fn).__name__ == "ResblockPairFunctionBackward"
+    gy = torch.randn(y.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    calls = []
+    real = torch.autograd.grad
+
+    def spy(outputs, inputs, *args, **kwargs):
+        calls.append(len(inputs) if isinstance(inputs, (list, tuple))
+                     else 1)
+        return real(outputs, inputs, *args, **kwargs)
+
+    torch.autograd.grad = spy
+    try:
+        (got,) = real(y, leaf, gy)
+    finally:
+        torch.autograd.grad = real
+    assert calls == [1]  # the recompute asked for x's gradient alone
+    ref_leaf = x.clone().requires_grad_(True)
+    (want,) = real(resblock_pair_plain(ref_leaf, w1, b1, w2, b2, dilation=5),
+                   ref_leaf, gy)
+    assert (got - want).norm() <= 1e-5 * want.norm()
+    assert all(t.grad is None for t in (w1, b1, w2, b2))
+
+
+def test_conditioned_generator_on_card_matches_cpu(cuda):
+    """Speaker and phoneme hooks and the phoneme head: both outputs on the
+    card (the pair kernel, 2 stages x 2 blocks x 2 dilations) against the
+    same module on the CPU."""
+    gp = dict(in_channels=13 + 8, channels=64, upsample_scales=(4, 4),
+              upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3, 7),
+              resblock_dilations=((1, 3), (1, 3)), use_ar=True, ar_input=64,
+              ar_hidden=8, ar_output=8, use_spk_id=True, num_spk=3,
+              use_ph=True, num_ph=7, use_ph_loss=True)
+    model = build_model("HiFiGANGenerator", gp).eval()
+    gen = torch.Generator().manual_seed(4)
+    c = torch.randn(2, 30, 13, generator=gen)
+    ar = 0.3 * torch.randn(2, 64, 1, generator=gen)
+    spk = torch.tensor([2, 0], dtype=torch.int32)
+    ph = torch.randint(0, 7, (2, 30), generator=gen, dtype=torch.int32)
+    with torch.no_grad():
+        ref = model(c, ar, spk_id=spk, ph=ph)
+        before = resblock_pair.launches
+        out = model.to(cuda)(c.to(cuda), ar.to(cuda), spk_id=spk.to(cuda),
+                             ph=ph.to(cuda))
+    assert resblock_pair.launches == before + 2 * 2 * 2
+    assert out[1].shape == (2, 30, 7)
+    for got, want in zip(out, ref):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("compute", [{}, {"compute_dtype": "bfloat16",
+                                          "hybrid_precision": True}],
+                         ids=["f32", "hybrid"])
+def test_ph_loss_model_graph_matches_eager_loop(cuda, compute):
+    """A phoneme-head model decodes through the captured chunk step, which
+    keeps the waveform and drops the logits: outputs as the eager loop's."""
+    import numpy as np
+
+    from articulatory_tpu_torch.inference import ar_loop_batched
+
+    model, config = _loaded(cuda, 64, use_ph_loss=True, num_ph=5, **compute)
+    xs = _feats([30, 20, 27], seed=5)
+    eager = ar_loop_batched(model, xs, config)
+    graph = ar_loop_batched(model, xs, config, scan=True)
+    for e, g in zip(eager, graph):
+        assert g.shape == e.shape and g.ndim == 1
+        np.testing.assert_allclose(g, e, rtol=0, atol=1e-6)
+
+
+def test_cascade_step_kernels_match_plain(cuda, monkeypatch):
+    """A cascade's generator loss through a frozen HiFi-GAN on the pair
+    kernel: the generator's gradients against the plain pair's (relative
+    L2 pooled <= 1e-3), none on generator2, which the step leaves bit for
+    bit."""
+    from articulatory_tpu_torch.layers import residual
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
+
+    gp2 = dict(in_channels=12, out_channels=13, channels=128,
+               upsample_scales=[1], upsample_kernel_sizes=[2])
+    config = dict(dataset_mode="w2a", generator_type="BiGRU",
+                  generator_params=dict(in_channels=13, hidden_size=32,
+                                        out_channels=12, dropout=0.0),
+                  generator2_type="HiFiGANGenerator", generator2_params=gp2,
+                  discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+                  discriminator_params=dict(
+                      scales=1, scale_discriminator_params=dict(
+                          in_channels=13, channels=16,
+                          max_downsample_channels=32, max_groups=4),
+                      periods=[2], period_discriminator_params=dict(
+                          in_channels=13, channels=4,
+                          max_downsample_channels=8)),
+                  use_stft_loss=False, use_mel_loss=True,
+                  use_feat_match_loss=True)
+    gen = build_model("BiGRU", config["generator_params"]).to(cuda)
+    gen2 = build_model("HiFiGANGenerator", gp2, seed=2).to(cuda)
+    gen2.requires_grad_(False)
+    disc = build_model(config["discriminator_type"],
+                       config["discriminator_params"], seed=1).to(cuda)
+    state = gan.GANTrainState(
+        generator=gen, discriminator=disc,
+        opt_g=build_optimizer("Adam", {}, -1, gen.parameters()),
+        opt_d=build_optimizer("Adam", {}, -1, disc.parameters()), steps=1,
+        generator2=gen2)
+    criterion = gan.GANCriterion(config)
+    g = torch.Generator().manual_seed(6)
+    batch = {"x": (torch.randn(2, 120, 13, generator=g).to(cuda),),
+             "y": torch.randn(2, 120, 12, generator=g).to(cuda)}
+    params = list(gen.parameters())
+
+    def grads():
+        loss, _ = gan.generator_loss(state, criterion, config, batch)
+        return torch.autograd.grad(loss, params)
+
+    before = resblock_pair.launches
+    kernel = grads()
+    assert resblock_pair.launches - before == 9  # 1 stage x 3 x 3
+    assert all(p.grad is None for p in gen2.parameters())
+    monkeypatch.setattr(residual, "resblock_pair", resblock_pair_plain)
+    plain = grads()
+    monkeypatch.undo()
+    gap = torch.stack([(a - b).norm() for a, b in zip(kernel, plain)]).norm()
+    norm = torch.stack([b.norm() for b in plain]).norm()
+    assert (gap / norm).item() <= 1e-3
+    frozen = {k: v.clone() for k, v in gen2.state_dict().items()}
+    gan.make_train_step(criterion, config)(state, batch, 1e-3, 1e-3)
+    for key, value in gen2.state_dict().items():
+        assert torch.equal(value, frozen[key]), key

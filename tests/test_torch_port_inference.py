@@ -266,10 +266,15 @@ def test_decode_cli_bf16_weights_exclusive_with_int8(ckpt_dir, tmp_path):
 
 
 def test_unported_decode_modes_raise(ckpt_dir):
-    """Multimodal decode raises (w2a decodes since the BiGRU port:
-    tests/test_torch_port_w2a.py; PQMF synthesis since the zoo's:
-    tests/test_torch_port_pqmf.py)."""
+    """No model of the registry reads the multimodal decode's per-modality
+    list: a HiFi-GAN handed one is refused with a ValueError (the JAX
+    package's fails inside the model; the decode of an in-list model: tests/test_torch_port_cond_data.py;
+    w2a since the BiGRU port: tests/test_torch_port_w2a.py; PQMF synthesis
+    since the zoo's: tests/test_torch_port_pqmf.py)."""
     model = load_model(_checkpoint(ckpt_dir, 64), _config(64), device="cpu")
+    config = dict(_config(64), hop_sizes=[80], sampling_rates=[16000],
+                  generator_params=dict(_config(64)["generator_params"],
+                                        in_list=["ema"]))
     x = np.zeros((10, 13), np.float32)
-    with pytest.raises(NotImplementedError):
-        ar_loop(model, x, _config(64), modality=0)
+    with pytest.raises(ValueError, match="in_list model"):
+        ar_loop(model, x, config, modality=0)
