@@ -19,11 +19,23 @@ missing batch key).
         --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
         --outdir exp/x --config conf/e2w_hifigan_car.yaml --data-root data
 
+The data options, as in the JAX package: ``remove_short_samples`` keeps
+the utterances of more than ``batch_max_steps // hop_size + 2 *
+aux_context_window`` feature frames; ``batch_sampler_type:
+SizeAwareSampler`` (``batch_sampler_params``; its seed defaults to
+``--seed``) packs batches by the utterances' lengths, read once into
+``<train dump>/train_audio_lens.npy`` and read again while the training
+set keeps its size; ``use_device_cache`` gathers the training batches from
+a corpus cache on the device (``data/device_cache.py``) where the
+configuration allows it (random windows, no batch sampler, no aux context
+window, cascade, speaker or phoneme inputs or PCD), else warns and keeps
+the host loader; ``use_native_loader`` assembles a2w batches in host C++
+(``data/native_loader.py``).
+
 ``train(config, ...)`` takes the config as a dict (``main`` reads the YAML),
 writes ``<outdir>/config.yml`` and the checkpoints, and returns the
-``Trainer`` after its run. Distributed training, tensor parallelism, batch
-samplers, the device-resident cache and the native loader are not ported
-yet and raise.
+``Trainer`` after its run. Distributed training and tensor parallelism are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from articulatory_tpu_torch.data.collate import (
 )
 from articulatory_tpu_torch.data.datasets import MelArtDataset, SpeechDataset
 from articulatory_tpu_torch.data.loader import DataLoader
+from articulatory_tpu_torch.data.samplers import SizeAwareSampler
 from articulatory_tpu_torch.data.transforms import (
     ART_ONLY_TRANSFORMS,
     get_transform,
@@ -64,19 +77,10 @@ from articulatory_tpu_torch.utils.checkpoint import (
 from articulatory_tpu_torch.utils.device import resolve_device
 from articulatory_tpu_torch.utils.io import read_hdf5
 
-_NOT_PORTED_CONFIG = ("use_device_cache", "use_native_loader")
-
-
 def _check_config(config: dict) -> None:
-    asked = [k for k in _NOT_PORTED_CONFIG if config.get(k)]
-    if config.get("batch_sampler_type", "None") != "None":
-        asked.append("batch_sampler_type")
     if int(config.get("tensor_parallel", 1)) > 1:
-        asked.append("tensor_parallel")
-    if config.get("remove_short_samples", False):
-        asked.append("remove_short_samples")
-    if asked:
-        raise NotImplementedError(f"config keys not ported yet: {asked}")
+        raise NotImplementedError("config keys not ported yet: "
+                                  "['tensor_parallel']")
     if config.get("use_pcd", False):
         raise ValueError(
             "use_pcd: no collater makes the 'pitch' and 'periodicity' batch "
@@ -120,9 +124,14 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
         raise ValueError("support only hdf5 or npy format.")
     rng = np.random.default_rng(config.get("seed", 0))
     gp = config["generator_params"]
+    threshold = None
+    if config.get("remove_short_samples", False):
+        threshold = (config["batch_max_steps"] // config["hop_size"]
+                     + 2 * gp.get("aux_context_window", 0))
     if mode in ("art", "a2m", "m2a"):
         datasets = [MelArtDataset(
             d, mel_query=kwargs["mel_query"], mel_load_fn=mel_load_fn,
+            mel_length_threshold=threshold,
             allow_cache=config.get("allow_cache", False),
             transform=_transforms(config)["transform"], data_root=data_root)
             for d in (train_dumpdir, dev_dumpdir)]
@@ -137,6 +146,7 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
     use_ph = (gp.get("use_ph", False) or gp.get("use_ph_loss", False)
               or mode in ("ph2a", "ph2m"))
     common = dict(data_root=data_root, mel_load_fn=mel_load_fn,
+                  mel_length_threshold=threshold,
                   allow_cache=config.get("allow_cache", False),
                   use_spk_id=use_spk_id, use_ph=use_ph, dataset_mode=mode,
                   **_transforms(config), **kwargs)
@@ -157,6 +167,74 @@ def build_datasets(config: dict, train_dumpdir: str, dev_dumpdir: str,
             config=config, rng=rng)
 
     return datasets[0], datasets[1], collater(), collater()
+
+
+def _batch_sampler(config: dict, train_set, train_dumpdir: str, seed: int
+                   ) -> SizeAwareSampler | None:
+    """The ``batch_sampler_type`` sampler over the training set, or None;
+    the utterances' audio lengths are kept in ``train_audio_lens.npy`` of
+    the dump directory, and made again when its count differs from the
+    set's (``remove_short_samples`` toggled)."""
+    kind = config.get("batch_sampler_type", "None")
+    if kind == "None":
+        return None
+    if kind != "SizeAwareSampler":
+        raise ValueError(f"unsupported batch_sampler_type {kind!r}")
+    path = os.path.join(train_dumpdir, "train_audio_lens.npy")
+    lens = np.load(path) if os.path.exists(path) else None
+    if lens is None or len(lens) != len(train_set):
+        lens = np.array([len(train_set[i]["audio"])
+                         for i in range(len(train_set))])
+        tmp = path + f".tmp{os.getpid()}.npy"
+        np.save(tmp, lens)
+        os.replace(tmp, path)
+    params = dict(config.get("batch_sampler_params", {}))
+    params.setdefault("seed", seed)
+    return SizeAwareSampler(lens, **params)
+
+
+def _fast_loader(config: dict, train_set, batch_sampler, seed: int, dev):
+    """The device cache or the native loader where the config asks for one
+    and allows it, else None (the host loader)."""
+    gp = config["generator_params"]
+    random_window = (config.get("package_mode", "random_window")
+                     == "random_window")
+    if config.get("use_device_cache", False):
+        from articulatory_tpu_torch.data.device_cache import (
+            DeviceCachedBatcher,
+            canonical_cache_mode,
+        )
+
+        # generic x2y modes (the MRI recipe's) ride the cache through the
+        # canonical mode their streams resolve to
+        mode = canonical_cache_mode(config.get("dataset_mode") or "default")
+        if (mode is not None and random_window and batch_sampler is None
+                and gp.get("aux_context_window", 0) == 0
+                and config.get("generator2_type") is None
+                and not gp.get("use_spk_id", False)
+                and not gp.get("use_ph", False)
+                and not config.get("use_pcd", False)):
+            logging.info("using the device-resident corpus cache for the "
+                         "training data")
+            return DeviceCachedBatcher(
+                train_set, dict(config, dataset_mode=mode),
+                batch_size=config["batch_size"], seed=seed, device=dev)
+        logging.warning("use_device_cache set but unsupported for this "
+                        "configuration; falling back to the host loader")
+    if (config.get("use_native_loader", False)
+            and config.get("dataset_mode") == "a2w" and random_window
+            and batch_sampler is None):
+        from articulatory_tpu_torch.data.native_loader import NativeDataLoader
+
+        ar_len = (int(gp.get("ar_input", 512) / gp.get("out_channels", 1))
+                  if gp.get("use_ar", False) else 0)
+        logging.info("using native C++ batch assembly for the training data")
+        return NativeDataLoader(
+            train_set, batch_size=config["batch_size"],
+            batch_max_steps=config["batch_max_steps"],
+            hop_size=config["hop_size"], ar_len=ar_len, seed=seed,
+            n_threads=max(2, config.get("num_workers", 0) or 4))
+    return None
 
 
 def dump_config(config: dict, outdir: str) -> None:
@@ -188,10 +266,14 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
     logging.info(f"The number of training files = {len(train_set)}.")
     logging.info(f"The number of development files = {len(dev_set)}.")
     workers = config.get("num_workers", 0)
+    batch_sampler = _batch_sampler(config, train_set, train_dumpdir, seed)
+    train_loader = (_fast_loader(config, train_set, batch_sampler, seed, dev)
+                    or DataLoader(train_set, batch_size=config["batch_size"],
+                                  shuffle=True, collate_fn=train_collater,
+                                  drop_last=True, batch_sampler=batch_sampler,
+                                  num_workers=workers, seed=seed))
     data_loader = {
-        "train": DataLoader(train_set, batch_size=config["batch_size"],
-                            shuffle=True, collate_fn=train_collater,
-                            drop_last=True, num_workers=workers, seed=seed),
+        "train": train_loader,
         "dev": DataLoader(dev_set, batch_size=min(config["batch_size"],
                                                   max(1, len(dev_set))),
                           shuffle=True, collate_fn=dev_collater,

@@ -5,8 +5,11 @@ phoneme ids and mels where asked); for decoding
 ``ArtDataset`` over a dump directory or a feats.scp of .npy paths,
 ``MelSCPDataset`` / ``ArtSCPDataset`` over a feats.scp of hdf5 or npy
 values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input);
-``MelArtDataset``, the (mel, art) pairs of a2m / m2a / art training.
-They return numpy arrays."""
+``MelArtDataset``, the (mel, art) pairs of a2m / m2a / art training;
+``FileDataset``, the files of one query in a directory (the
+preprocessing CLIs' inputs). ``mel_length_threshold`` keeps only the
+utterances whose features have more frames than it (``bin/train.py``'s
+``remove_short_samples``). They return numpy arrays."""
 
 from __future__ import annotations
 
@@ -54,6 +57,19 @@ def _read_wave(path: str) -> np.ndarray:
     return read_hdf5(path, "wave")
 
 
+def _above(files: list, load_fn, threshold: int | None, what: str,
+           *paired: list) -> tuple[list, ...]:
+    """``files`` (and the lists ``paired`` with them) cut to the entries
+    whose ``load_fn(file)`` has more than ``threshold`` rows."""
+    if threshold is None:
+        return (files, *paired)
+    keep = [i for i, f in enumerate(files) if len(load_fn(f)) > threshold]
+    if len(keep) != len(files):
+        logging.warning(f"Some files are filtered by {what} length threshold "
+                        f"({len(files)} -> {len(keep)}).")
+    return tuple([xs[i] for i in keep] for xs in (files, *paired))
+
+
 class SpeechDataset:
     """Training utterances ``{"art", "audio"}``: audio from the dump
     directory (``audio_query`` files through ``audio_load_fn``; the
@@ -71,7 +87,8 @@ class SpeechDataset:
 
     def __init__(self, root_dir: str, audio_query: str = "*.h5",
                  mel_query: str = "*.h5", audio_load_fn=_read_wave,
-                 mel_load_fn=None, allow_cache: bool = False, transform=None,
+                 mel_load_fn=None, mel_length_threshold: int | None = None,
+                 allow_cache: bool = False, transform=None,
                  input_transform=None, output_transform=None,
                  spks: Sequence[str] | None = None, use_spk_id: bool = False,
                  use_ph: bool = False, dataset_mode: str | None = None,
@@ -83,9 +100,15 @@ class SpeechDataset:
         if len(audio_files) != len(mel_files):
             raise ValueError(f"{root_dir}: {len(audio_files)} audio files but "
                              f"{len(mel_files)} feature files")
+        self.mel_load_fn = mel_load_fn or (lambda p: read_hdf5(p, "feats"))
+        mel_files, audio_files = _above(mel_files, self.mel_load_fn,
+                                        mel_length_threshold, "mel",
+                                        audio_files)
+        if not audio_files:
+            raise FileNotFoundError(f"no utterance of {root_dir} is longer "
+                                    f"than {mel_length_threshold} frames")
         self.audio_files, self.mel_files = audio_files, mel_files
         self.audio_load_fn = audio_load_fn
-        self.mel_load_fn = mel_load_fn or (lambda p: read_hdf5(p, "feats"))
         if ".npy" in audio_query:
             self.utt_ids = [os.path.basename(f).replace("-wave.npy", "")
                             for f in audio_files]
@@ -176,10 +199,12 @@ class MelArtDataset:
     shorter."""
 
     def __init__(self, root_dir: str, mel_query: str = "*.h5",
-                 mel_load_fn=None, allow_cache: bool = False,
-                 transform=None, data_root: str = "data"):
+                 mel_load_fn=None, mel_length_threshold: int | None = None,
+                 allow_cache: bool = False, transform=None,
+                 data_root: str = "data"):
         self.mel_load_fn = mel_load_fn or (lambda p: read_hdf5(p, "feats"))
-        mel_files = sorted(find_files(root_dir, mel_query))
+        mel_files, = _above(sorted(find_files(root_dir, mel_query)),
+                            self.mel_load_fn, mel_length_threshold, "mel")
         if not mel_files:
             raise FileNotFoundError(f"Not found any mel files in {root_dir}.")
         self.mel_files = mel_files
@@ -205,6 +230,30 @@ class MelArtDataset:
 
     def __len__(self) -> int:
         return len(self.mel_files)
+
+
+class FileDataset:
+    """The files of a directory matching ``query`` (sorted), read by
+    ``load_fn``: ``(utt_id, data)`` items with ``return_utt_id``, else the
+    data. It serves the preprocessing CLIs where the JAX package uses
+    ``AudioDataset`` and ``MelDataset``."""
+
+    def __init__(self, root_dir: str, query: str, load_fn,
+                 return_utt_id: bool = False):
+        self.files = sorted(find_files(root_dir, query))
+        if not self.files:
+            raise FileNotFoundError(f"Not found any {query} files in "
+                                    f"{root_dir}.")
+        self.load_fn = load_fn
+        self.utt_ids = [_utt_id(f) for f in self.files]
+        self.return_utt_id = return_utt_id
+
+    def __getitem__(self, idx: int):
+        data = self.load_fn(self.files[idx])
+        return (self.utt_ids[idx], data) if self.return_utt_id else data
+
+    def __len__(self) -> int:
+        return len(self.files)
 
 
 class ArtDataset:

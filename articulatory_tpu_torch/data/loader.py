@@ -1,8 +1,9 @@
 """Host-side data loader (port of ``articulatory_tpu/data/loader.py``):
 shuffle with a numpy generator seeded by ``seed + epoch`` (so one seed gives
 both packages the same batches), batch, collate, and with ``num_workers``
-threads prefetch ahead of the training loop. Batch samplers and sharding
-across processes are not ported."""
+threads prefetch ahead of the training loop. A ``batch_sampler`` (e.g.
+``data/samplers.py::SizeAwareSampler``) gives the batches' indices instead,
+its list made once an epoch. Sharding across processes is not ported."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import concurrent.futures
 import queue
 import threading
 from collections import deque
-from typing import Callable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
@@ -20,12 +21,15 @@ PREFETCH = 2  # batches collated ahead of the consumer
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  collate_fn: Callable | None = None, drop_last: bool = False,
+                 batch_sampler: Iterable[list[int]] | None = None,
                  num_workers: int = 0, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.collate_fn = collate_fn or (lambda items: items)
         self.drop_last = drop_last
+        self.batch_sampler = batch_sampler
+        self._sampled: tuple[int, list[list[int]]] | None = None
         self.num_workers = num_workers
         self.seed = seed
         self.epoch = 0
@@ -34,7 +38,18 @@ class DataLoader:
         """Reseed the shuffle per epoch."""
         self.epoch = epoch
 
+    def _sampler_batches(self) -> list[list[int]]:
+        """The batch sampler's batches for this epoch, listed once."""
+        if self._sampled is None or self._sampled[0] != self.epoch:
+            if hasattr(self.batch_sampler, "set_epoch"):
+                self.batch_sampler.set_epoch(self.epoch)
+            self._sampled = (self.epoch, list(self.batch_sampler))
+        return self._sampled[1]
+
     def _batches(self) -> Iterator[list[int]]:
+        if self.batch_sampler is not None:
+            yield from self._sampler_batches()
+            return
         indices = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(indices)

@@ -7,6 +7,10 @@ unchanged one is loaded as it is. All missing libraries are compiled at once,
 one ``nvcc`` process per source. A failed build raises with the compiler's
 output; nothing falls back. nvcc's output, including ``-Xptxas -v``'s
 register and spill counts, is kept beside each library as ``<name>-<hash>.log``.
+
+Host C++ sources, ``csrc/<name>.cpp`` (the native batch assembly), are
+built the same way by ``host_library`` with ``g++`` (``HOST_FLAGS``), the
+hash covering the source and the flags, at their first use.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+HOST_FLAGS = ("-O3", "-fPIC", "-pthread", "-shared", "-std=c++17")
 
 
 def _nvcc() -> str:
@@ -88,3 +94,31 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library for ``csrc/<name>.cu``, built if needed."""
     return ctypes.CDLL(str(build_all()[name]))
+
+
+def _host_target(source: Path) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(source.read_bytes())
+    return BUILD / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of the host C++ source ``csrc/<name>.cpp``,
+    compiled with g++ first where it is not built; a failed build raises
+    with the compiler's output."""
+    src = CSRC / f"{name}.cpp"
+    out = _host_target(src)
+    if not out.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        log = out.with_suffix(".log")
+        with open(log, "w") as fh:
+            rc = subprocess.call(["g++", *HOST_FLAGS, "-o", str(tmp), str(src)],
+                                 stdout=fh, stderr=subprocess.STDOUT)
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host build of {name}.cpp failed (exit {rc}):"
+                               f"\n{log.read_text()}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

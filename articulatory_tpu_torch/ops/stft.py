@@ -6,6 +6,10 @@ on each side, periodic Hann window of ``win_length`` zero-padded centred to
 ``n_fft`` (built in f64, cast once to the input's dtype), ``1 + T // hop``
 frames, one-sided rFFT. ``stft_magnitude`` clamps the power at ``eps``
 before the square root, as the reference's losses do.
+
+``logmelfilterbank_np`` is the host (numpy, float64) log-mel of feature
+extraction and MCD: librosa's centred STFT magnitude, the mel matmul, a
+clamp at ``eps`` and the log.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from articulatory_tpu_torch.ops.mel import mel_filterbank
 
 
 def periodic_hann(win_length: int) -> np.ndarray:
@@ -62,3 +68,28 @@ def stft_magnitude(x: torch.Tensor, *, n_fft: int, hop: int,
     z = stft(x, n_fft=n_fft, hop=hop, win_length=win_length, window=window,
              center=center)
     return torch.sqrt(torch.clamp(z.real ** 2 + z.imag ** 2, min=eps))
+
+
+def logmelfilterbank_np(audio: np.ndarray, sampling_rate: int, *,
+                        fft_size: int = 1024, hop_size: int = 256,
+                        win_length: int | None = None, window: str = "hann",
+                        num_mels: int = 80, fmin: float | None = None,
+                        fmax: float | None = None, eps: float = 1e-10,
+                        log_base: float | None = 10.0) -> np.ndarray:
+    """Log-mel ``(n_frames, num_mels)`` float32 of a 1-D wave, accumulated in
+    float64 (``log_base`` 10, 2 or None for the natural log)."""
+    w = padded_window(window, win_length or fft_size, fft_size)
+    pad = fft_size // 2
+    x = np.pad(audio.astype(np.float64), (pad, pad), mode="reflect")
+    n_frames = (len(x) - fft_size) // hop_size + 1
+    idx = np.arange(fft_size)[None, :] + hop_size * np.arange(n_frames)[:, None]
+    spc = np.abs(np.fft.rfft(x[idx] * w, axis=-1))  # (frames, bins)
+    fmin = 0 if fmin is None else fmin
+    fmax = sampling_rate / 2 if fmax is None else fmax
+    mel_basis = mel_filterbank(sampling_rate, fft_size, num_mels, fmin, fmax,
+                               dtype=np.float64)
+    mel = np.maximum(eps, spc @ mel_basis.T)
+    logs = {None: np.log, 10.0: np.log10, 2.0: np.log2}
+    if log_base not in logs:
+        raise ValueError(f"log_base {log_base} is not supported.")
+    return logs[log_base](mel).astype(np.float32)

@@ -9,6 +9,15 @@ The names are those the JAX package's ``build_optimizer`` takes: Adam,
 AdamW, RAdam, NAdam, SGD, RMSprop, Adagrad, Adadelta, Adamax, ASGD, Rprop.
 The optimizer params go to the ``torch.optim`` class as they are, so an
 unknown key raises there.
+
+``load_optax_state`` carries the JAX package's optax Adam / AdamW state
+into the torch optimizer for a resume: ``scale_by_adam``'s ``count`` (the
+updates taken) becomes each parameter's ``step``, ``mu`` and ``nu``
+``exp_avg`` and ``exp_avg_sq``. The chain's clip and
+``add_decayed_weights`` hold no state, and torch's Adam adds ``weight_decay
+* p`` to the gradient as optax's chain does before ``scale_by_adam``;
+AdamW decays the weights by ``1 - lr * weight_decay`` where optax adds
+``weight_decay * p`` to the update, equal in exact arithmetic.
 """
 
 from __future__ import annotations
@@ -70,3 +79,31 @@ def build_optimizer(name: str, params: dict | None,
     params = dict(params or {})
     return Optimizer(getattr(torch.optim, name)(list(parameters), **params),
                      grad_norm)
+
+
+def load_optax_state(optimizer: Optimizer, name: str, optax_state: dict,
+                     moments, model: torch.nn.Module) -> None:
+    """Set the state ``optimizer`` keeps for ``model``'s parameters from an
+    optax state dict of the JAX package's ``build_optimizer(name, ...)``
+    chain; ``moments`` maps a moment tree to ``{parameter name: tensor}``
+    (``utils/checkpoint.py::optax_moments``). Optimizers other than Adam
+    and AdamW raise, naming themselves."""
+    if name not in ("Adam", "AdamW"):
+        raise NotImplementedError(f"resuming the optax state of {name} is "
+                                  "not ported (Adam and AdamW are)")
+    adam = [v for v in optax_state.values()
+            if isinstance(v, dict) and {"count", "mu", "nu"} <= set(v)]
+    if len(adam) != 1:
+        raise ValueError(f"no scale_by_adam state in the optax chain of "
+                         f"{name}: {sorted(optax_state)}")
+    count = int(adam[0]["count"])
+    exp_avg, exp_avg_sq = moments(adam[0]["mu"]), moments(adam[0]["nu"])
+    # torch keeps a non-capturable step as a float tensor on the host
+    scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
+              else torch.float32)
+    state = optimizer.optimizer.state
+    for key, p in model.named_parameters():
+        state[p] = {"step": torch.tensor(float(count), dtype=scalar),
+                    "exp_avg": exp_avg[key].to(p.device, p.dtype).clone(),
+                    "exp_avg_sq": exp_avg_sq[key].to(p.device, p.dtype
+                                                     ).clone()}

@@ -13,14 +13,29 @@
   ``save_interval_steps`` writes ``checkpoint-<steps>steps.ckpt``, and
   ``train_max_steps`` ends the run with a last checkpoint.
 
-Not ported yet: the profiler window, the SIGTERM preemption handler, the
-tensorboard writer and the intermediate plots of the first eval batch.
+- ``profile_steps: [lo, hi]`` opens a ``torch.profiler`` window (CPU and,
+  on a card, CUDA activities) over steps ``lo`` to ``hi - 1``, range-based
+  and stateful, so a ``--resume`` that lands inside the window opens it;
+  it closes at step ``hi`` or when the run ends, and writes a chrome trace
+  to ``<outdir>/profile/trace-<lo>-<hi>.json``. The profiler stays at
+  ``Trainer.profiler`` for its ``key_averages()``. On a card the device is
+  synchronised at both ends, and the window opens with PROFILE_LEAD_S of
+  idle host time (the profiler drops device records it dates before its
+  start, and now and then dates the first ones early).
+- SIGTERM (a preemption notice) lets the current step finish, then the
+  run's last checkpoint, ``checkpoint-<steps>steps.ckpt``, is written and
+  ``run`` returns. The handler is installed only in the main thread, and
+  the previous one restored when ``run`` ends.
+
+Not ported yet: the tensorboard writer and the intermediate plots of the
+first eval batch (tensorboardX and matplotlib).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import time
 from collections import defaultdict
 
@@ -33,14 +48,19 @@ from articulatory_tpu_torch.utils.checkpoint import save_checkpoint
 # duplicate x/y) would otherwise be copied to the device every step
 _STEP_BATCH_KEYS = ("x", "y", "ar", "ar2", "spk_id", "ph", "pitch",
                     "periodicity")
+PROFILE_LEAD_S = 0.05
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """The step's keys of a collated numpy batch as tensors on ``device``."""
+    """The step's keys of a collated batch as tensors on ``device``: numpy
+    arrays are copied there, tensors already there (the device cache's)
+    pass through."""
     def move(v):
         if isinstance(v, tuple):
             return tuple(move(a) for a in v)
-        return torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+        if not torch.is_tensor(v):
+            v = torch.from_numpy(np.asarray(v))
+        return v.to(device, non_blocking=True)
 
     return {k: move(v) for k, v in batch.items()
             if k in _STEP_BATCH_KEYS and v is not None}
@@ -72,19 +92,74 @@ class Trainer:
                 self.best_mel_loss = float(fields[1])
         self._plateau = {k: type(v).__name__ == "ReduceLROnPlateau"
                          for k, v in schedulers.items()}
+        self.profiler = None
+        self._profiling = False
 
     @property
     def steps(self) -> int:
         return self.state.steps
 
     def run(self) -> None:
+        previous = self._install_preemption_handler()
         try:
             while not self.finish_train:
                 self._train_epoch()
         finally:
+            if self._profiling:
+                self._stop_profiler()
             self.save_checkpoint(os.path.join(
                 self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
             logging.info(f"Successfully saved checkpoint @ {self.steps} steps.")
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def _install_preemption_handler(self):
+        """SIGTERM -> finish the current step, checkpoint and stop; returns
+        the previous handler, or None outside the main thread."""
+        def on_sigterm(signum, frame):
+            logging.warning("SIGTERM received: checkpointing and stopping.")
+            self.finish_train = True
+
+        try:
+            return signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:  # not the main thread
+            return None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _profile_window(self) -> None:
+        window = self.config.get("profile_steps")
+        if not window:
+            return
+        lo, hi = int(window[0]), int(window[1])
+        if not self._profiling and lo <= self.steps < hi:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._sync()
+            self.profiler = profile(activities=activities)
+            self.profiler.start()
+            self._profiling = True
+            self._trace_path = os.path.join(self.outdir, "profile",
+                                            f"trace-{lo}-{hi}.json")
+            if self.device.type == "cuda":
+                time.sleep(PROFILE_LEAD_S)
+            logging.info(f"profiler started @ step {self.steps}")
+        elif self._profiling and self.steps >= hi:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        self._sync()
+        self.profiler.stop()
+        self._profiling = False
+        os.makedirs(os.path.dirname(self._trace_path), exist_ok=True)
+        self.profiler.export_chrome_trace(self._trace_path)
+        logging.info(f"profiler stopped @ step {self.steps}; trace "
+                     f"{self._trace_path}")
 
     def _train_epoch(self) -> None:
         for batch in self.data_loader["train"]:
@@ -98,6 +173,7 @@ class Trainer:
         self.data_loader["train"].set_epoch(self.epochs)
 
     def _train_step(self, batch: dict) -> None:
+        self._profile_window()
         steps = self.steps
         metrics = self.train_step(self.state, to_device(batch, self.device),
                                   self.schedulers["generator"].lr,

@@ -18,8 +18,10 @@ BatchNorm statistics from ``payload["mutables"]``; a cascade's
 writes a training state as a torch pickle in the reference's layout,
 ``{"model": {"generator", "discriminator"[, "generator2"]}, "optimizer":
 {...}, "scheduler": {...}, "steps", "epochs"}``, which ``load_model``
-decodes from and ``restore_state`` resumes from. Orbax checkpoint
-directories are not read by the port.
+decodes from and ``restore_state`` resumes from, as it resumes a JAX
+checkpoint: its optax Adam / AdamW moments go through the same layout map
+as the weights (``optax_moments``). Orbax checkpoint directories are not
+read by the port.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from articulatory_tpu_torch.train.optimizers import load_optax_state
 from articulatory_tpu_torch.utils.weights import (
     discriminator_to_state_dict,
     generator_to_state_dict,
@@ -192,14 +195,67 @@ def restore_state(state, payload: dict, config: dict,
             config["generator2_type"]))
     if load_only_params:
         return 0
-    if _is_jax_tree(payload["model"]["generator"]):
-        raise NotImplementedError("resuming a JAX checkpoint is not ported "
-                                  "(its optax state does not carry over); "
-                                  "use --pretrain for its weights")
-    state.opt_g.load_state_dict(payload["optimizer"]["generator"])
-    state.opt_d.load_state_dict(payload["optimizer"]["discriminator"])
+    for key, opt, model in (("generator", state.opt_g, state.generator),
+                            ("discriminator", state.opt_d,
+                             state.discriminator)):
+        saved = payload["optimizer"][key]
+        if _is_jax_tree(payload["model"][key]):
+            load_optax_state(
+                opt, config.get(f"{key}_optimizer_type", "RAdam"), saved,
+                optax_moments(payload, key, config, model), model)
+        else:
+            opt.load_state_dict(saved)
     state.steps = int(payload.get("steps", 0))
     for k, v in payload.get("scheduler", {}).items():
         if schedulers and k in schedulers and v:
-            schedulers[k].load_state_dict(dict(v))
+            schedulers[k].load_state_dict(
+                {kk: (vv.item() if isinstance(vv, np.generic) else vv)
+                 for kk, vv in v.items()})
     return int(payload.get("epochs", 0))
+
+
+def _probe(tree, fill):
+    """A tree of ``tree``'s shapes, each leaf ``fill(shape)``."""
+    if isinstance(tree, dict):
+        return {k: _probe(v, fill) for k, v in tree.items()}
+    return fill(np.shape(tree))
+
+
+def optax_moments(payload: dict, key: str, config: dict,
+                  model: torch.nn.Module):
+    """A map of a JAX moment tree of ``payload["model"][key]``'s layout
+    (optax's ``mu`` or ``nu``) to ``{parameter name: tensor}`` of
+    ``model``, through the converter of the weights. Adam is elementwise, so
+    a converter that only moves elements (transposes, flips) maps the
+    moments exactly; a parameter the converter computes otherwise (a
+    weight norm folded from an effective weight) cannot carry them and
+    raises, named, as does a parameter the converter does not give."""
+    names = dict(model.named_parameters())
+
+    def convert(tree) -> dict[str, torch.Tensor]:
+        fake = dict(payload, model={key: tree})
+        if key == "discriminator":
+            sd = discriminator_state_dict(
+                fake, config["discriminator_type"],
+                config.get("discriminator_params", {}))
+        else:
+            sd = generator_state_dict(fake, key, config[f"{key}_params"],
+                                      config[f"{key}_type"])
+        return {k: v for k, v in sd.items() if k in names}
+
+    params = payload["model"][key]
+    ones = convert(_probe(params, np.ones))
+    steps = convert(_probe(params, lambda shape: (
+        np.arange(int(np.prod(shape))) % 7 + 1.0).reshape(shape)))
+    both = convert(_probe(params, lambda shape: (
+        np.arange(int(np.prod(shape))) % 7 + 2.0).reshape(shape)))
+    missing = sorted(set(names) - set(ones))
+    nonlinear = sorted(k for k in ones
+                       if not torch.equal(ones[k] + steps[k], both[k]))
+    if missing or nonlinear:
+        raise NotImplementedError(
+            f"the optax moments of the JAX {key} do not carry over to "
+            f"{(missing + nonlinear)[:5]}: "
+            + ("no JAX parameter maps onto them" if missing else
+               "their converter is not a layout map"))
+    return convert

@@ -1,7 +1,7 @@
 """File I/O: kaldi-style scp maps (feature and wav.scp, with piped entries
 and segments), hdf5 datasets, PCM wav reading and writing (port of
 ``articulatory_tpu/utils/io.py``). ``h5py`` is imported only when an hdf5
-file is read."""
+file is read or written."""
 
 from __future__ import annotations
 
@@ -34,6 +34,21 @@ def read_hdf5(hdf5_name: str, hdf5_path: str) -> np.ndarray:
         if hdf5_path not in f:
             raise KeyError(f"There is no dataset {hdf5_path} in {hdf5_name}.")
         return f[hdf5_path][()]
+
+
+def write_hdf5(hdf5_name: str, hdf5_path: str, write_data) -> None:
+    """Write a dataset into an hdf5 file (appending to the file, making its
+    directory where needed); an existing dataset of that name is
+    replaced."""
+    import h5py
+
+    folder = os.path.dirname(hdf5_name)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    with h5py.File(hdf5_name, "a") as f:
+        if hdf5_path in f:
+            del f[hdf5_path]
+        f.create_dataset(hdf5_path, data=np.asarray(write_data))
 
 
 def _pcm_to_float(data: np.ndarray) -> np.ndarray:

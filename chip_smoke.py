@@ -156,7 +156,19 @@ Phases, each raising on failure:
    ``train(config)`` and ``bin/decode.py`` on integer ids;
 18. mult: ``ar_loop(modality=...)`` with an in-list callable around the
    full-width f32 HiFi-CAR on MRI-rate frames (36 pairs a chunk), chunks
-   against the same callable on the CPU from the card's carry.
+   against the same callable on the CPU from the card's carry;
+19. recipe: ``egs/ema/voc1/run.sh``'s stages on the port alone
+   (``phase_recipe``) over a synthetic corpus in its layout: stage 1
+   (``bin/preprocess.py`` in two shards as processes,
+   ``compute_statistics``, ``normalize``), stage 2 (e2w_hifigan_car.yaml as
+   it stands, format npy, from the corpus cache on the card, with a
+   profiled step: 72 pair and 12 head kernels counted, the device time
+   split into pair kernels, head kernels, convolutions and the rest, the
+   busy share; the step from the cache, the host loader and the native
+   loader in turns; the device time under the kernels' recompute
+   backward in the profiled step; SizeAwareSampler with remove_short_samples), preemption (SIGTERM to
+   ``bin/train.py``, exit 0, the checkpoint at its step, ``--resume``),
+   stage 3 (``bin/decode.py --ar-scan``, ``bin/compute_mcd.py``: finite).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -177,6 +189,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1194,29 +1207,48 @@ def profile_device(fn, kernels=("resblock_pair_wgmma", "split_tf32_kernel")
         time.sleep(PROFILE_LEAD_S)
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     counts = {k: sum(k in e.name for e in events) for k in kernels}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
+    if not events:
         return {"busy_share": None, "span_ms": None, "top_ops": [],
                 "kernel_counts": counts, "device_ops": 0}
+    busy, span = busy_span_us(events)
+    return {"busy_share": busy / span, "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "kernel_counts": counts,
+            "device_ops": len(events), "top_ops": top_ops(prof, 8)}
+
+
+def device_events(prof) -> list:
+    """A profiler window's device activity: kernels and copies, not the
+    device-side copies of ``record_function`` ranges, which span the
+    kernels launched inside them."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def busy_span_us(events) -> tuple[float, float]:
+    """The union of device events' intervals, and the span from the first
+    start to the last end (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
-    span = max(end for _, end in spans) - spans[0][0]
+    return busy, max(end for _, end in spans) - spans[0][0]
+
+
+def top_ops(prof, n: int) -> list[dict]:
+    """A profiler's n ops of most self device time (ranges of
+    ``record_function`` left out)."""
     ops = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0),
+                  if e.self_device_time_total > 0
+                  and not e.is_user_annotation),
                  key=lambda e: e.self_device_time_total, reverse=True)
-    return {"busy_share": busy / span, "span_ms": span / 1e3,
-            "busy_ms": busy / 1e3, "kernel_counts": counts,
-            "device_ops": len(events),
-            "top_ops": [{"name": e.key[:120], "calls": e.count,
-                         "ms": e.self_device_time_total / 1e3}
-                        for e in ops[:8]]}
+    return [{"name": e.key[:120], "calls": e.count,
+             "ms": e.self_device_time_total / 1e3} for e in ops[:n]]
 
 
 def _write_corpus(root: str, seed: int, config: dict = TRAIN_CONFIG,
@@ -2666,6 +2698,432 @@ def phase_mult(port: dict, seed: int, device_name: str) -> dict:
             "chunk_max_abs_err": worst}
 
 
+# the recipe run end to end on the port alone (phase 19): a synthetic
+# corpus in the EMA recipe's layout (data/<set>/wav.scp, feats.scp of 13-d
+# EMA at 200 Hz); RECIPE_TRAIN utterances of 2-5 s and RECIPE_SHORT shorter
+# than the 25-frame window, RECIPE_DEV dev and eval ones
+RECIPE_CONF = os.path.join(ROOT, "egs", "ema", "voc1", "conf",
+                           "e2w_hifigan_car.yaml")
+RECIPE_TRAIN, RECIPE_SHORT, RECIPE_DEV = 128, 3, 4
+RECIPE_STEPS = 12  # stage 2 steps from the cache
+RECIPE_PROFILE = [8, 9]  # profile_steps: one step, after the warm-up
+RECIPE_TURNS = ("cache", "host", "native", "native", "host", "cache")
+RECIPE_TURN_STEPS = 2
+RECIPE_SAMPLER_STEPS = 3
+# the device split of the profiled step: the hand kernels by name; cuDNN's
+# convolutions (the pairs' recompute backward among them) by the op that
+# launched them
+KERNEL_CLASSES = {"pair": ("resblock_pair_wgmma", "split_tf32_kernel"),
+                  "head": ("scale_disc_head_wgmma", "split_weights_kernel")}
+# the profiler ranges of the kernels' recompute backward (ops/_recompute.py)
+RECOMPUTE_RANGE = "recompute_grads:"
+
+
+def _recipe_corpus(tmp: str, seed: int, write_wav) -> dict:
+    """The synthetic corpus; returns set name -> wav directory."""
+    rng = np.random.default_rng(seed)
+    sr, hop = 16000, 80
+    sets = {"tr": [rng.uniform(2.0, 5.0) for _ in range(RECIPE_TRAIN)]
+            + [0.1] * RECIPE_SHORT,
+            "dev": [rng.uniform(2.0, 4.0) for _ in range(RECIPE_DEV)],
+            "eval": [rng.uniform(2.0, 4.0) for _ in range(RECIPE_DEV)]}
+    wav_dirs = {}
+    for name, seconds in sets.items():
+        wav_dir = os.path.join(tmp, "wav", name)
+        data = os.path.join(tmp, "data", name)
+        os.makedirs(data)
+        wavs, feats = [], []
+        for i, s in enumerate(seconds):
+            utt = f"{name}_{i:03d}"
+            n = int(s * sr)
+            t = np.arange(n) / sr
+            f0 = 100 + 80 * rng.random()
+            wave = (0.4 * np.sin(2 * np.pi * f0 * t * (1 + 0.1 * np.sin(t)))
+                    + 0.05 * rng.standard_normal(n))
+            path = os.path.join(wav_dir, f"{utt}.wav")
+            write_wav(path, wave, sr)
+            ema = np.cumsum(rng.standard_normal((n // hop + 1, 13)), axis=0)
+            ema_path = os.path.join(data, f"{utt}.npy")
+            np.save(ema_path, (0.1 * ema).astype(np.float32))
+            wavs.append(f"{utt} {path}\n")
+            feats.append(f"{utt} {ema_path}\n")
+        with open(os.path.join(data, "wav.scp"), "w") as f:
+            f.writelines(wavs)
+        with open(os.path.join(data, "feats.scp"), "w") as f:
+            f.writelines(feats)
+        wav_dirs[name] = wav_dir
+    return wav_dirs
+
+
+def _endless(loader):
+    """Batches of ``loader`` across epochs."""
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        yield from loader
+        epoch += 1
+
+
+def _device_split(prof) -> dict:
+    """A profiler window's device kernels: their time split into the pair
+    and head kernels (KERNEL_CLASSES), those a convolution op launched (its
+    name holds "conv"; the profiler lists each op's kernels), and the rest;
+    the busy share (the union of their intervals over their span); the
+    device time under each kernel's recompute backward (``ops/_recompute.py``'s
+    ranges, with the ops under them: forward and gradient convolutions,
+    activations, adds), with its count; kernel counts; time per stream;
+    top ops."""
+    events = device_events(prof)
+    split = dict.fromkeys([*KERNEL_CLASSES, "conv", "rest"], 0.0)
+    counts = dict.fromkeys(
+        [n for names in KERNEL_CLASSES.values() for n in names], 0)
+    streams: dict = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        cls = next((c for c, names in KERNEL_CLASSES.items()
+                    if any(n in e.name for n in names)), "rest")
+        split[cls] += ms
+        for name in counts:
+            counts[name] += name in e.name
+        stream = streams.setdefault(
+            str(getattr(e, "device_resource_id", None)), [0, 0.0])
+        stream[0] += 1
+        stream[1] += ms
+    cpu_ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+    split["conv"] = sum(k.duration for e in cpu_ops if "conv" in e.name
+                        for k in e.kernels) / 1e3
+    split["rest"] -= split["conv"]
+    recompute: dict = {}
+    for e in cpu_ops:
+        if e.name.startswith(RECOMPUTE_RANGE):
+            entry = recompute.setdefault(e.name.split(":")[-1], [0, 0.0])
+            entry[0] += 1
+            entry[1] += _subtree_kernel_us(e) / 1e3
+    busy, span = busy_span_us(events)
+    return {"busy_share": busy / span, "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "kernel_ms": sum(split.values()),
+            "split_ms": split, "recompute": recompute,
+            "kernel_counts": counts, "streams": streams,
+            "device_ops": len(events), "top_ops": top_ops(prof, 10)}
+
+
+def _subtree_kernel_us(event) -> float:
+    """Device µs of the kernels launched by a profiler op and the ops under
+    it."""
+    return (sum(k.duration for k in event.kernels)
+            + sum(_subtree_kernel_us(c) for c in event.cpu_children))
+
+
+def signal_after(proc, marker: str, sig, timeout: float) -> str:
+    """Sends ``sig`` to ``proc`` once a line of its stderr holds ``marker``
+    and returns its whole stderr when it has exited. A reader thread takes
+    the lines, so a child that hangs without closing stderr cannot block
+    this: past ``timeout`` seconds the child is killed and the error holds
+    the tail of its stderr."""
+    lines, seen = [], threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if marker in line:
+                seen.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while not seen.wait(0.2):
+            if proc.poll() is not None:
+                reader.join()
+                if not seen.is_set():
+                    raise AssertionError(f"exit {proc.returncode} before "
+                                         f"{marker!r}")
+            elif time.monotonic() > deadline:
+                raise AssertionError(f"no {marker!r} within {timeout} s")
+        proc.send_signal(sig)
+        proc.wait(max(deadline - time.monotonic(), 1.0))
+    except (AssertionError, subprocess.TimeoutExpired) as e:
+        proc.kill()
+        proc.wait()
+        reader.join()
+        raise AssertionError(f"[recipe] {e}: {''.join(lines)[-2000:]}") \
+            from e
+    reader.join()
+    return "".join(lines)
+
+
+def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """The EMA recipe on the port alone: stage 1 (``bin/preprocess.py`` in
+    two shards as processes, ``compute_statistics``, ``normalize``; format
+    npy), stage 2 (``train()`` of e2w_hifigan_car.yaml as it stands, B 64 x
+    2000, from the corpus cache on the card, ``profile_steps`` over one
+    step: 72 pair and 12 head kernels in it, its device split and busy
+    share; the step timed in turns from the cache, the host loader and the
+    native loader; 3 steps with ``SizeAwareSampler`` and
+    ``remove_short_samples``), preemption (``bin/train.py`` as a process,
+    SIGTERM after a logged step: exit 0 and the checkpoint at that step,
+    then ``--resume`` to the end), stage 3 (``bin/decode.py --ar-scan`` of
+    the eval set, ``bin/compute_mcd.py`` against its wavs: finite)."""
+    import signal
+
+    import yaml
+
+    from articulatory_tpu_torch.bin import compute_mcd, compute_statistics
+    from articulatory_tpu_torch.bin import normalize
+    from articulatory_tpu_torch.data.device_cache import DeviceCachedBatcher
+    from articulatory_tpu_torch.data.loader import DataLoader
+    from articulatory_tpu_torch.data.native_loader import NativeDataLoader
+
+    train_cli, pair, head = port["train"], port["resblock_pair"], \
+        port["scale_disc_head"]
+    start_all = time.perf_counter()
+    stage_s = {}
+    wav_dirs = _recipe_corpus(tmp, seed, port["write_wav"])
+    with open(RECIPE_CONF) as f:
+        recipe = yaml.load(f, Loader=yaml.Loader)
+    recipe["format"] = "npy"  # the card's machine has no h5py
+    conf = os.path.join(tmp, "conf.yaml")
+    with open(conf, "w") as f:
+        yaml.dump(recipe, f)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    # stage 1: preprocess (the training set in two shards), all sets at once
+    start = time.perf_counter()
+    jobs = []
+    for name in ("tr", "dev", "eval"):
+        with open(os.path.join(tmp, "data", name, "wav.scp")) as f:
+            lines = f.readlines()
+        shards = [lines[0::2], lines[1::2]] if name == "tr" else [lines]
+        for j, shard in enumerate(shards):
+            scp = os.path.join(tmp, "dump", name, "raw", f"wav.{j + 1}.scp")
+            os.makedirs(os.path.dirname(scp), exist_ok=True)
+            with open(scp, "w") as f:
+                f.writelines(shard)
+            jobs.append(subprocess.Popen(
+                [sys.executable, "-m", "articulatory_tpu_torch.bin.preprocess",
+                 "--wav-scp", scp, "--dumpdir", os.path.dirname(scp),
+                 "--config", conf, "--verbose", "0"], env=env, cwd=ROOT))
+    for job in jobs:
+        if job.wait() != 0:
+            raise AssertionError(f"[recipe] preprocess exit {job.returncode}")
+    stage_s["preprocess"] = time.perf_counter() - start
+    start = time.perf_counter()
+    dump = os.path.join(tmp, "dump")
+    compute_statistics.main(["--rootdir", f"{dump}/tr/raw", "--dumpdir",
+                             f"{dump}/tr", "--config", conf, "--verbose",
+                             "0"])
+    stats = np.load(f"{dump}/tr/stats.npy")
+    if stats.shape != (2, recipe["num_mels"]) or not np.isfinite(stats).all():
+        raise AssertionError(f"[recipe] stats {stats.shape} not finite")
+    stage_s["compute_statistics"] = time.perf_counter() - start
+    start = time.perf_counter()
+    for name in ("tr", "dev", "eval"):
+        normalize.main(["--rootdir", f"{dump}/{name}/raw", "--dumpdir",
+                        f"{dump}/{name}/norm", "--stats",
+                        f"{dump}/tr/stats.npy", "--config", conf,
+                        "--verbose", "0"])
+    stage_s["normalize"] = time.perf_counter() - start
+    n_norm = len([f for f in os.listdir(f"{dump}/tr/norm")
+                  if f.endswith("-wave.npy")])
+    if n_norm != RECIPE_TRAIN + RECIPE_SHORT:
+        raise AssertionError(f"[recipe] {n_norm} normalised training "
+                             f"utterances")
+
+    # stage 2: the recipe's training config from the corpus cache
+    config = dict(recipe, train_max_steps=RECIPE_STEPS,
+                  use_device_cache=True, profile_steps=RECIPE_PROFILE)
+    dirs = dict(train_dumpdir=f"{dump}/tr/norm", dev_dumpdir=f"{dump}/dev/norm",
+                data_root=os.path.join(tmp, "data"))
+    outdir = os.path.join(tmp, "exp")
+    pair.launches = head.launches = 0
+    start = time.perf_counter()
+    trainer = train_cli.train(config, outdir=outdir, seed=seed,
+                              device="cuda", **dirs)
+    torch.cuda.synchronize()
+    stage_s["train"] = time.perf_counter() - start
+    launches = {"resblock_pair": pair.launches,
+                "scale_disc_head": head.launches}
+    expected = {"resblock_pair": 72 * RECIPE_STEPS,
+                "scale_disc_head": 12 * RECIPE_STEPS}
+    if launches != expected:
+        raise AssertionError(f"[recipe] launches {launches}, expected "
+                             f"{expected}")
+    cache = trainer.data_loader["train"]
+    if not isinstance(cache, DeviceCachedBatcher):
+        raise AssertionError(f"[recipe] train loader {type(cache)}")
+    if cache.x.data.device.type != "cuda" or cache.art.data.device.type != \
+            "cuda":
+        raise AssertionError("[recipe] the cache is not on the card")
+    losses = {k: float(v) for k, v in trainer.total_train_loss.items()}
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"[recipe] losses not finite: {losses}")
+    profiled = _device_split(trainer.profiler)
+    counted = profiled["kernel_counts"]
+    if (counted["resblock_pair_wgmma"], counted["scale_disc_head_wgmma"]) \
+            != (72, 12):
+        raise AssertionError(f"[recipe] profiled step counted {counted}")
+    split = profiled["split_ms"]
+    log(f"[recipe] corpus cache: {cache.n_utts} utterances, "
+        f"{cache.resident_bytes / 1e6:.1f} MB on the card; {RECIPE_STEPS} "
+        f"steps in {stage_s['train']:.3f} s; launches {launches}")
+    log(f"[recipe] profiled step {RECIPE_PROFILE[0]}: kernels "
+        f"{profiled['kernel_ms']:.3f} ms, busy {profiled['busy_ms']:.3f} ms "
+        f"of a {profiled['span_ms']:.3f} ms span "
+        f"({100 * profiled['busy_share']:.1f} %, the profiler's host "
+        f"overhead in it); pair kernels {split['pair']:.3f} ms, head "
+        f"kernels {split['head']:.3f} ms, convolutions {split['conv']:.3f} "
+        f"ms, rest {split['rest']:.3f} ms; "
+        f"{counted['resblock_pair_wgmma']} pairs, "
+        f"{counted['scale_disc_head_wgmma']} heads; (kernels, ms) a stream "
+        + ", ".join(f"{k}: {n} {ms:.3f}"
+                    for k, (n, ms) in profiled["streams"].items()))
+    for op in profiled["top_ops"]:
+        log(f"[recipe]   {op['ms']:9.3f} ms {op['calls']:5d} x {op['name']}")
+    # one backward for each pass with grad: 36 generator pairs; 3 scales'
+    # heads in the generator loss's fake pass and in the discriminator's
+    # real and fake passes (the feature-matching real pass has no grad)
+    recompute = profiled["recompute"]
+    if {k: n for k, (n, _) in recompute.items()} != {
+            "resblock_pair_plain": 36, "scale_disc_head_plain": 9}:
+        raise AssertionError(f"[recipe] recompute ranges {recompute}")
+    log("[recipe] recompute backward in the profiled step (device ms of "
+        "the kernels under its ranges): " + ", ".join(
+            f"{k} {n} x, {ms:.3f} ms" for k, (n, ms) in recompute.items()))
+
+    # the step from each loader in turns
+    train_set, _, collater, _ = train_cli.build_datasets(
+        config, dirs["train_dumpdir"], dirs["dev_dumpdir"], dirs["data_root"])
+    gp = config["generator_params"]
+    ar_len = int(gp["ar_input"] / gp["out_channels"])
+    loaders = {
+        "cache": _endless(cache),
+        "host": _endless(DataLoader(
+            train_set, batch_size=config["batch_size"], shuffle=True,
+            collate_fn=collater, drop_last=True,
+            num_workers=config["num_workers"], seed=seed)),
+        "native": _endless(NativeDataLoader(
+            train_set, batch_size=config["batch_size"],
+            batch_max_steps=config["batch_max_steps"],
+            hop_size=config["hop_size"], ar_len=ar_len, seed=seed,
+            n_threads=4))}
+    lr = config["generator_optimizer_params"]["lr"]
+    step_ms = {name: [] for name in loaders}
+    for name in ("cache", "host", "native"):  # one untimed step each
+        trainer.train_step(trainer.state, port["to_device"](
+            next(loaders[name]), trainer.device), lr, lr)
+    for name in RECIPE_TURNS:
+        for _ in range(RECIPE_TURN_STEPS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            trainer.train_step(trainer.state, port["to_device"](
+                next(loaders[name]), trainer.device), lr, lr)
+            torch.cuda.synchronize()
+            step_ms[name].append(1e3 * (time.perf_counter() - start))
+    medians = {k: float(np.median(v)) for k, v in step_ms.items()}
+    log("[recipe] step median (loading included) over "
+        f"{2 * RECIPE_TURN_STEPS} steps in turns: "
+        + ", ".join(f"{k} {v:.3f} ms [{min(step_ms[k]):.3f}, "
+                    f"{max(step_ms[k]):.3f}]" for k, v in medians.items())
+        + f"; the profiled step's busy device time is "
+        f"{100 * profiled['busy_ms'] / medians['cache']:.1f} % of the "
+        f"cache's median")
+
+    # the size-aware sampler with the short utterances removed
+    start = time.perf_counter()
+    mean_len = np.mean([len(train_set[i]["audio"])
+                        for i in range(len(train_set))])
+    sampler_config = dict(
+        recipe, train_max_steps=RECIPE_SAMPLER_STEPS,
+        batch_sampler_type="SizeAwareSampler",
+        batch_sampler_params={"max_len": int(config["batch_size"]
+                                             * mean_len)},
+        remove_short_samples=True)
+    pair.launches = head.launches = 0
+    sampled = train_cli.train(sampler_config,
+                              outdir=os.path.join(tmp, "exp_sampler"),
+                              seed=seed, device="cuda", **dirs)
+    torch.cuda.synchronize()
+    dropped = RECIPE_TRAIN + RECIPE_SHORT - len(
+        sampled.data_loader["train"].dataset)
+    sampler_launches = pair.launches
+    sizes = [len(b) for b in sampled.data_loader["train"].batch_sampler]
+    if dropped != RECIPE_SHORT or sampler_launches != 72 * \
+            RECIPE_SAMPLER_STEPS:
+        raise AssertionError(f"[recipe] sampler run dropped {dropped}, "
+                             f"{sampler_launches} pair launches")
+    log(f"[recipe] SizeAwareSampler + remove_short_samples: "
+        f"{RECIPE_SAMPLER_STEPS} steps in "
+        f"{time.perf_counter() - start:.3f} s, {dropped} short utterances "
+        f"dropped, batch sizes {min(sizes)}-{max(sizes)} over "
+        f"{len(sizes)} batches")
+
+    # preemption: bin/train.py as a process, SIGTERM after a logged step
+    start = time.perf_counter()
+    pre_conf = os.path.join(tmp, "conf_preempt.yaml")
+    with open(pre_conf, "w") as f:
+        yaml.dump(dict(recipe, use_device_cache=True, log_interval_steps=1,
+                       train_max_steps=100000), f)
+    pre_out = os.path.join(tmp, "exp_preempt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "articulatory_tpu_torch.bin.train",
+         "--train-dumpdir", dirs["train_dumpdir"], "--dev-dumpdir",
+         dirs["dev_dumpdir"], "--data-root", dirs["data_root"], "--outdir",
+         pre_out, "--config", pre_conf, "--seed", str(seed)],
+        env=env, cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    rest = signal_after(proc, "(Steps: 2)", signal.SIGTERM, 300.0)
+    ckpts = [f for f in os.listdir(pre_out) if f.startswith("checkpoint-")]
+    if proc.returncode != 0 or len(ckpts) != 1:
+        raise AssertionError(f"[recipe] preempted run exit "
+                             f"{proc.returncode}, checkpoints {ckpts}: "
+                             f"{rest[-2000:]}")
+    stopped = port["load_checkpoint"](os.path.join(pre_out, ckpts[0]))["steps"]
+    if ckpts[0] != f"checkpoint-{stopped}steps.ckpt" or stopped < 2:
+        raise AssertionError(f"[recipe] {ckpts[0]} holds step {stopped}")
+    resumed = train_cli.train(
+        dict(recipe, use_device_cache=True, train_max_steps=stopped + 2),
+        outdir=pre_out, seed=seed, device="cuda",
+        resume=os.path.join(pre_out, ckpts[0]), **dirs)
+    if resumed.steps != stopped + 2 or not os.path.exists(os.path.join(
+            pre_out, f"checkpoint-{stopped + 2}steps.ckpt")):
+        raise AssertionError(f"[recipe] resume ended at {resumed.steps}")
+    preempt_s = time.perf_counter() - start
+    log(f"[recipe] SIGTERM after step 2 logged: exit 0, {ckpts[0]}; "
+        f"resumed to step {resumed.steps} ({preempt_s:.3f} s with the "
+        f"process)")
+
+    # stage 3: decode the eval set, score it
+    start = time.perf_counter()
+    gen_dir = os.path.join(tmp, "decoded")
+    port["decode"].main(["--feats-scp", os.path.join(tmp, "data", "eval",
+                                                     "feats.scp"),
+                         "--checkpoint", os.path.join(
+                             outdir, f"checkpoint-{RECIPE_STEPS}steps.ckpt"),
+                         "--outdir", gen_dir, "--ar-scan", "--verbose", "0"])
+    stage_s["decode"] = time.perf_counter() - start
+    start = time.perf_counter()
+    mcds = compute_mcd.compute_mcd(gen_dir, wav_dirs["eval"])
+    stage_s["compute_mcd"] = time.perf_counter() - start
+    if len(mcds) != RECIPE_DEV or not all(np.isfinite(v)
+                                          for v in mcds.values()):
+        raise AssertionError(f"[recipe] MCD {mcds}")
+    total_s = time.perf_counter() - start_all
+    log(f"[recipe] eval MCD (random weights) mean "
+        f"{np.mean(list(mcds.values())):.3f} dB over {len(mcds)}; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items())
+        + f"; phase {total_s:.3f} s")
+    return {"stage_s": stage_s, "phase_s": total_s, "launches": launches,
+            "cache_mb": cache.resident_bytes / 1e6,
+            "cache_utts": cache.n_utts, "profiled_step": profiled,
+            "step_ms": step_ms,
+            "step_ms_median": medians, "sampler_dropped": dropped,
+            "sampler_batch_sizes": sizes,
+            "sampler_launches": sampler_launches,
+            "preempt_step": stopped, "preempt_s": preempt_s, "mcd": mcds,
+            "mean_losses": {k: v / RECIPE_STEPS for k, v in losses.items()}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2696,6 +3154,7 @@ def main() -> int:
     from articulatory_tpu_torch.train.optimizers import build_optimizer
     from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
+    from articulatory_tpu_torch.utils.checkpoint import load_checkpoint
     from articulatory_tpu_torch.utils.device import set_float32_parity
     from articulatory_tpu_torch.utils.io import read_wav, write_wav
 
@@ -2850,6 +3309,12 @@ def main() -> int:
         ph2a = phase_ph2a(cond_port, args.seed, device_name, tmp)
     mult = phase_mult(cond_port, args.seed, device_name)
 
+    # the recipe end to end on the port alone
+    recipe_port = dict(train_port, decode=decode, write_wav=write_wav,
+                       load_checkpoint=load_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = phase_recipe(recipe_port, args.seed, device_name, tmp)
+
     f32 = by_dtype["float32"]
     pair_entry = {
         "name": "resblock_pair", "route": "cuda",
@@ -2945,6 +3410,11 @@ def main() -> int:
             for mode, r in cond_decode["graph"].items()},
         "launches_cascade_train": cascade["launches"]["resblock_pair"],
         "launches_mult": mult["launches"],
+        # the recipe's stage 2 from the corpus cache (72 a step), and the
+        # kernels the profiler counted in its profiled step
+        "launches_recipe_train": recipe["launches"]["resblock_pair"],
+        "launches_recipe_profiled": recipe["profiled_step"]["kernel_counts"][
+            "resblock_pair_wgmma"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -3000,6 +3470,9 @@ def main() -> int:
         "launches_cond_train": cond_train["launches"]["scale_disc_head"],
         "launches_pcd_step": cond_train["pcd"]["launches"]["scale_disc_head"],
         "launches_cascade_train": cascade["launches"]["scale_disc_head"],
+        "launches_recipe_train": recipe["launches"]["scale_disc_head"],
+        "launches_recipe_profiled": recipe["profiled_step"]["kernel_counts"][
+            "scale_disc_head_wgmma"],
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3022,7 +3495,7 @@ def main() -> int:
                    "mb_head_shapes": mb_head_rows, "zoo": zoo,
                    "cond_train": cond_train, "cond_decode": cond_decode,
                    "cascade": cascade, "ph2a": ph2a, "mult": mult,
-                   "kernels": kernels}, f, indent=1)
+                   "recipe": recipe, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

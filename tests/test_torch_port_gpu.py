@@ -732,3 +732,68 @@ def test_cascade_step_kernels_match_plain(cuda, monkeypatch):
     gan.make_train_step(criterion, config)(state, batch, 1e-3, 1e-3)
     for key, value in gen2.state_dict().items():
         assert torch.equal(value, frozen[key]), key
+
+
+def _cache_items(n=5, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"audio": (0.3 * rng.standard_normal(f * 80)).astype(np.float32),
+             "art": rng.standard_normal((f, 13)).astype(np.float32)}
+            for f in rng.integers(30, 60, n)]
+
+
+def test_device_cache_on_card_matches_cpu_and_trains(cuda):
+    """The corpus cache on the card gathers the same batches, bit for bit,
+    as on the CPU for the same draws; one training step runs from it."""
+    import numpy as np
+
+    from articulatory_tpu_torch.data.device_cache import DeviceCachedBatcher
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
+    from articulatory_tpu_torch.train.trainer import to_device
+
+    gp = dict(in_channels=13 + 8, out_channels=1, channels=16,
+              upsample_scales=[5, 4, 2, 2],
+              upsample_kernel_sizes=[10, 8, 4, 4], use_ar=True, ar_input=64,
+              ar_hidden=8, ar_output=8)
+    dp = dict(scales=1, scale_discriminator_params=dict(
+        channels=128, max_downsample_channels=128, downsample_scales=[4, 1]),
+        periods=[2], period_discriminator_params=dict(
+            channels=4, max_downsample_channels=8, downsample_scales=[3, 1]))
+    config = dict(dataset_mode="a2w", hop_size=80, batch_max_steps=1600,
+                  generator_type="HiFiGANGenerator", generator_params=gp,
+                  discriminator_type=(
+                      "HiFiGANMultiScaleMultiPeriodDiscriminator"),
+                  discriminator_params=dp, use_mel_loss=True,
+                  mel_loss_params=dict(fs=16000, fft_size=256, hop_size=64,
+                                       num_mels=20, fmax=8000,
+                                       log_base=None),
+                  use_feat_match_loss=True, lambda_aux=45.0)
+    items = _cache_items()
+    on_card = DeviceCachedBatcher(items, config, batch_size=4, seed=1,
+                                  device=cuda)
+    on_cpu = DeviceCachedBatcher(items, config, batch_size=4, seed=1,
+                                 device="cpu")
+    for card, cpu in zip(on_card, on_cpu):
+        for a, b in zip((*card["x"], card["y"], card["ar"]),
+                        (*cpu["x"], cpu["y"], cpu["ar"])):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), b)
+    gathered = next(iter(on_card))
+    batch = to_device(gathered, cuda)
+    assert batch["y"] is gathered["y"]  # already on the card: no copy
+    gen = build_model("HiFiGANGenerator", gp).to(cuda)
+    disc = build_model(config["discriminator_type"], dp, seed=1).to(cuda)
+    opt = dict(lr=1e-4, betas=[0.5, 0.9])
+    state = gan.GANTrainState(
+        generator=gen, discriminator=disc,
+        opt_g=build_optimizer("Adam", opt, -1, gen.parameters()),
+        opt_d=build_optimizer("Adam", opt, -1, disc.parameters()),
+        draws=gan.RandomDraws(0), steps=1)
+    before = [p.detach().clone() for p in gen.parameters()]
+    metrics = gan.make_train_step(gan.GANCriterion(config), config)(
+        state, batch, 1e-4, 1e-4)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                     gen.parameters()))

@@ -1,7 +1,8 @@
-"""Rules the port keeps: it imports no JAX and nothing of the JAX package;
-optional packages (yaml, h5py, msgpack) load only inside the functions that
-need them; entry points run on CUDA unless asked for the CPU, and raise
-without a card instead of dropping to the CPU."""
+"""Rules the port keeps: it imports no JAX and nothing of the JAX package,
+and neither sklearn nor tqdm (the card's machine has neither); optional
+packages (yaml, h5py, msgpack, triton, matplotlib, tensorboardX) load only
+inside the functions that need them; entry points run on CUDA unless asked
+for the CPU, and raise without a card instead of dropping to the CPU."""
 
 import ast
 import json
@@ -23,8 +24,9 @@ PACKAGE = ROOT / "articulatory_tpu_torch"
 PORT_FILES = sorted(p for p in PACKAGE.rglob("*.py")  # build/ is output
                     if p.relative_to(PACKAGE).parts[0] != "build") + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "articulatory_tpu")
-OPTIONAL = ("yaml", "h5py", "msgpack", "triton")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "articulatory_tpu",
+          "sklearn", "tqdm")
+OPTIONAL = ("yaml", "h5py", "msgpack", "triton", "matplotlib", "tensorboardX")
 
 
 def _imports(tree):
