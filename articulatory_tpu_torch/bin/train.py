@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Train a GAN vocoder or an inversion model on the GPU (port of
 ``articulatory_tpu/bin/train.py``): ``SpeechDataset`` + ``SpeechCollater``
-random windows for a2w (and the generic x2y modes such as the MRI
-recipe's), w2a, ph2a and ph2m, with speaker ids (``use_spk_id``, checked
-against ``num_spk``) and phoneme ids (``use_ph``, ``use_ph_loss``, the
-ph modes) where the generator asks for them; ``MelArtDataset`` +
+(``package_mode`` random_window, window or pad) for a2w (and the generic
+x2y modes such as the MRI recipe's), m2w, w2a, ph2a and ph2m, with speaker
+ids (``use_spk_id``, checked against ``num_spk``) and phoneme ids
+(``use_ph``, ``use_ph_loss``, the ph modes) where the generator asks for
+them; ``MelArtDataset`` +
 ``CollaterMelArt`` for art, a2m and m2a; the named input/output
 transforms; every generator and discriminator of the zoo; a cascade
 (``generator2_type``: a frozen second generator, whose weights and the
 discriminator's ``--pretrain2`` loads from a second checkpoint);
 ``train/gan.py``'s step (its noise and window draws seeded from
-``--seed``). The top-level ``time_packing`` key, a TPU layout option, is
-accepted and ignored. ``use_pcd`` raises: no collater makes the pitch and
-periodicity tracks its step reads (the JAX package's CLI fails on the
-missing batch key).
+``--seed``; ``use_remat``; the models' ``compute_dtype`` and
+``hybrid_precision``). The top-level ``time_packing`` key, a TPU layout
+option, is accepted and ignored; ``checkpoint_backend: orbax`` is logged,
+and the checkpoints are torch pickles. The reference's data flags
+(``--train-wav-scp`` and the like) and ``--rank`` are accepted and
+ignored, as the JAX package's CLI does. ``use_pcd`` raises: no collater
+makes the pitch and periodicity tracks its step reads (the JAX package's
+CLI fails on the missing batch key).
 
     python -m articulatory_tpu_torch.bin.train --device cuda \\
         --train-dumpdir dump/tr_set/norm --dev-dumpdir dump/dev_set/norm \\
@@ -345,8 +350,17 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train an articulatory GAN vocoder on the GPU.")
-    parser.add_argument("--train-dumpdir", required=True, type=str)
-    parser.add_argument("--dev-dumpdir", required=True, type=str)
+    # the reference's data flags, parsed and ignored as the JAX package's
+    # CLI does, so its command lines stay valid; the dump directories are
+    # what the datasets read
+    for stage in ("train", "dev"):
+        for what in ("wav-scp", "feats-scp", "segments", "dumpdirs"):
+            parser.add_argument(f"--{stage}-{what}", default=None, type=str,
+                                help="accepted and ignored")
+        parser.add_argument(f"--{stage}-dumpdir", default=None, type=str,
+                            help="required")
+    parser.add_argument("--rank", "--local_rank", default=0, type=int,
+                        help="accepted and ignored")
     parser.add_argument("--outdir", type=str, required=True)
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--data-root", default="data", type=str,
@@ -381,6 +395,9 @@ def main(argv: list[str] | None = None) -> None:
     if asked:
         parser.error(", ".join("--" + f.replace("_", "-") for f in asked)
                      + " is not yet ported to articulatory_tpu_torch")
+    for stage in ("train", "dev"):
+        if getattr(args, f"{stage}_dumpdir") is None:
+            parser.error(f"--{stage}-dumpdir is required")
 
     from articulatory_tpu_torch.config import load_config
 

@@ -1,16 +1,33 @@
 """Training collaters: lists of utterances -> fixed-shape numpy batches in
 NLC layout (port of ``articulatory_tpu/data/collate.py``).
 
-``SpeechCollater`` carries ``package_mode: random_window`` (a random
-fixed-size crop per utterance, drawn from the collater's numpy generator in
-the JAX package's order, so one seed gives both packages the same crops)
-over the streams of its dataset mode:
+``SpeechCollater`` batches the streams of its dataset mode:
 
 - a2w (``a2w``, ``default`` and the generic x2y modes, the MRI recipe's
   among them): x = (art window,), y = audio (B, T, 1);
+- m2w: x = (mel window,), y = audio, the mels windowed with the art
+  frames (the art stream still sets the window's bounds);
 - w2a: x = (audio window,), y = art (B, T', C);
 - ph2a and ph2m: x = (phoneme ids (B, T'),), y = art or mel (B, T', C),
   the phoneme and mel streams windowed with the art frames.
+
+in one of three ``package_mode``s, each the JAX package's:
+
+- ``random_window`` (the default): a random fixed-size crop per utterance,
+  drawn from the collater's numpy generator in the JAX package's order, so
+  one seed gives both packages the same crops;
+- ``window``: every utterance (audio cut to its art frames x hop)
+  concatenated along time and cut into windows of ``batch_max_steps``
+  samples and ``batch_max_steps // hop_size`` frames, the tail
+  zero-padded (``combine_fixed_length``); a batch holds as many windows as
+  its utterances fill;
+- ``pad``: every utterance padded to the longest, audio with ``pad_audio``,
+  art with ``pad_art``, phoneme ids with ``pad_ph``.
+
+AR pasts and mels are batched in ``random_window`` only: the JAX package's
+collater raises for a feature AR past in ``window`` mode and fails on the
+missing start offsets or mel stream in the others, so the port refuses
+those configurations when the collater is built.
 
 ``use_spk_id`` adds ``spk_id`` (B,) int32, ``use_ph`` the phoneme window
 ``ph`` (B, T') int32. With the generator's ``use_ar`` the AR past of the
@@ -21,8 +38,8 @@ frames (B, ar_input // out_channels, C); in a cascade (``generator2_type``)
 are zero-padded at the start of an utterance. An audio stream of
 frame-rate features, ``(T, F)`` per utterance (the w2a recipes' MFCCs,
 with ``hop_size`` 1), is batched as ``(B, T, F)``; the JAX package's
-collater appends an axis to it too, a 4-D batch no model reads. m2w and
-the other package modes raise ``NotImplementedError``.
+collater appends an axis to it in ``random_window`` mode too, a 4-D batch
+no model reads.
 
 ``CollaterMelArt`` is the a2m / m2a / art crop of (mel, art) pairs, and
 ``Collater`` the legacy Parallel WaveGAN (audio, mel) crop, with
@@ -38,6 +55,31 @@ from __future__ import annotations
 import logging
 
 import numpy as np
+
+PACKAGE_MODES = ("random_window", "window", "pad")
+
+
+def combine_fixed_length(arrays: list[np.ndarray], length: int) -> np.ndarray:
+    """The arrays concatenated along time (float32) and reshaped into
+    ``(n, length, feat...)`` windows, the tail zero-padded."""
+    total = sum(a.shape[0] for a in arrays)
+    if total % length:
+        pad = length - total % length
+        arrays = list(arrays) + [
+            np.zeros((pad,) + arrays[0].shape[1:], dtype=np.float32)]
+        total += pad
+    cat = np.concatenate([a.astype(np.float32) for a in arrays], axis=0)
+    return cat.reshape((total // length, length) + cat.shape[1:])
+
+
+def _padded(arrays: list[np.ndarray], length: int, value, dtype
+            ) -> np.ndarray:
+    """The arrays (as ``dtype``) padded with ``value`` to ``length`` rows
+    and stacked."""
+    return np.stack([np.concatenate([
+        a.astype(dtype), np.full((length - len(a),) + a.shape[1:], value,
+                                 dtype)]) for a in arrays])
+
 
 _NAMED_MODES = {
     "a2w": ("art", "audio", True, False, True),
@@ -114,13 +156,22 @@ class SpeechCollater:
         gp = config.get("generator_params", {})
         (self.x_key, self.y_key, self.use_audio, self.use_mel,
          self.use_art) = parse_dataset_mode(dataset_mode)
-        if self.x_key == "mel":
-            raise NotImplementedError(f"training dataset_mode {dataset_mode!r}"
-                                      " (mel to audio) is not ported yet")
-        package_mode = config.get("package_mode", "random_window")
-        if package_mode != "random_window":
-            raise NotImplementedError(f"package_mode {package_mode!r} is not "
-                                      "ported yet")
+        self.package_mode = config.get("package_mode", "random_window")
+        if self.package_mode not in PACKAGE_MODES:
+            raise ValueError(f"Unknown package_mode: {self.package_mode}")
+        fixed = self.package_mode != "random_window"
+        if fixed and gp.get("use_ar", False):
+            raise NotImplementedError(
+                f"AR windows are not supported in {self.package_mode!r} "
+                f"package mode (as in the JAX package and the reference, "
+                f"train.py:1006-1008)")
+        if fixed and self.use_mel:
+            raise NotImplementedError(
+                f"package_mode {self.package_mode!r} batches no mels "
+                f"(dataset_mode {dataset_mode!r}), as in the JAX package")
+        self.pad_audio = config.get("pad_audio", 0.0)
+        self.pad_art = config.get("pad_art", 0.0)
+        self.pad_ph = config.get("pad_ph", 0)
         self.batch_max_steps = batch_max_steps
         self.batch_max_frames = batch_max_steps // hop_size
         self.hop_size = hop_size
@@ -161,6 +212,10 @@ class SpeechCollater:
         if self.use_spk_id:
             out["spk_id"] = np.asarray([d["spk_id"] for d, _ in kept],
                                        dtype=np.int32)
+        if self.package_mode != "random_window":
+            return self._fixed(out, audios, arts,
+                               [d["ph"] for d, _ in kept] if self.use_ph
+                               else None)
         start_frames = np.array([
             self.rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in arts])
@@ -204,6 +259,37 @@ class SpeechCollater:
             out["ar"], out["ar2"] = ar, ar2
         elif self.use_ar:
             out["ar"] = ar if ar is not None else ar2
+        return out
+
+    def _fixed(self, out: dict, audios: list, arts: list,
+               phs: list | None) -> dict:
+        """The ``window`` and ``pad`` batches of the kept utterances."""
+        audios = [a[: len(art) * self.hop_size].astype(np.float32)
+                  for a, art in zip(audios, arts)]
+        if self.package_mode == "window":
+            audio = combine_fixed_length(
+                [a[:, None] if a.ndim == 1 else a for a in audios],
+                self.batch_max_steps)
+            art = combine_fixed_length(arts, self.batch_max_frames)
+            if phs is not None:
+                out["ph"] = combine_fixed_length(
+                    [p.astype(np.float32) for p in phs],
+                    self.batch_max_frames).astype(np.int32)
+        else:
+            frames = max(len(a) for a in arts)
+            audio = _padded(audios, frames * self.hop_size, self.pad_audio,
+                            np.float32)
+            if audio.ndim == 2:
+                audio = audio[..., None]  # (B, T, 1)
+            art = _padded(arts, frames, self.pad_art, np.float32)
+            if phs is not None:
+                out["ph"] = _padded([p[: len(a)] for p, a in zip(phs, arts)],
+                                    frames, self.pad_ph, np.int32)
+        if self.use_audio:
+            out["audio"] = audio
+        if self.use_art:
+            out["art"] = art
+        out["x"], out["y"] = (out[self.x_key],), out[self.y_key]
         return out
 
 

@@ -77,7 +77,7 @@ class SpeechDataset:
     features (.npy) through ``<data_root>/<stage>/feats.scp``.
     ``input_transform`` (default ``transform``) maps the features,
     ``output_transform`` the audio (no default: ``bin/train.py`` decides
-    it, as in the JAX package). With ``dataset_mode`` ph2m an item
+    it, as in the JAX package). With ``dataset_mode`` ph2m or m2w an item
     holds ``mel`` too (``mel_load_fn`` of the ``mel_query`` file, cut to the
     art's frames); with ``use_spk_id`` its ``spk_id``, the index of its
     speaker in ``spks`` (default: the sorted speakers of ``utt2spk`` /
@@ -139,7 +139,7 @@ class SpeechDataset:
                 raise FileNotFoundError(f"use_ph needs {ph_path}")
             fid_to_php = load_scp(ph_path)
             self.ph_files = [fid_to_php[fid] for fid in self.utt_ids]
-        self.use_mel = dataset_mode == "ph2m"  # m2w training is not ported
+        self.use_mel = dataset_mode in ("ph2m", "m2w")
         self.input_transform = (input_transform if input_transform is not None
                                 else transform)
         self.output_transform = output_transform

@@ -17,6 +17,8 @@ pickles load straight in:
 Weight norm is ``w = g * v / ||v||`` over every axis but 0. The forward
 derives the effective kernel in the ops layout (``ops/conv.py``) from (g, v);
 after ``remove_weight_norm()`` it is computed once per dtype and cached.
+Conv2d's spectral norm divides the kernel by its largest singular value,
+estimated afresh at every forward (``spectral_normalize``).
 A weight may be stored as int8 (``store_int8``: buffers ``<name>_int8`` and
 ``<name>_scale``, the parameter removed; ``utils/quantize.py``), read back
 as ``q.float() * s``, or in bfloat16: the effective weight is then derived
@@ -69,6 +71,25 @@ def weight_norm_weight(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``g * v / ||v||``, the norm over every axis but 0 (torch dim=0)."""
     norm = v.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
     return g * v / norm
+
+
+def spectral_normalize(w: torch.Tensor, out_axis: int = -1,
+                       n_iter: int = 5) -> torch.Tensor:
+    """``w / sigma_max(W)``, W the matrix of ``w`` with ``out_axis`` as
+    rows, by ``n_iter`` power iterations from ``ones / sqrt(c_out)``; no
+    gradient flows through the iteration, only through ``w`` (the JAX
+    package's stateless ``spectral_normalize``, not torch's persistent-``u``
+    ``spectral_norm``)."""
+    c_out = w.shape[out_axis]
+    mat = torch.movedim(w, out_axis, 0).reshape(c_out, -1)
+    m = mat.detach()
+    u = torch.ones(c_out, dtype=w.dtype, device=w.device) / math.sqrt(c_out)
+    for _ in range(n_iter):
+        v = m.T @ u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+        u = m @ v
+        u = u / (torch.linalg.vector_norm(u) + 1e-12)
+    return w / (u @ (mat @ v))
 
 
 class _Stored(nn.Module):
@@ -227,9 +248,9 @@ class ConvTranspose1d(_Conv):
 
 class Conv2d(_Conv):
     """PyTorch-semantics Conv2d over NHWC input, optional weight norm (per
-    output channel). Spectral norm is not ported: the period discriminators
-    of the repo's configs run weight norm, and the scale stack applies no
-    norm at all."""
+    output channel) or spectral norm (``spectral_normalize`` of the kernel
+    in the ops layout, out channels last, at every forward; its key stays
+    ``weight``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int], stride: tuple[int, int] = (1, 1),
@@ -240,8 +261,9 @@ class Conv2d(_Conv):
                  kernel_init: str = "torch_default",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if use_spectral_norm:
-            raise NotImplementedError("spectral norm is not ported yet")
+        if use_weight_norm and use_spectral_norm:
+            raise ValueError("Either use use_weight_norm or use_spectral_norm.")
+        self.use_spectral_norm = use_spectral_norm
         self.stride, self.padding = tuple(stride), tuple(padding)
         self.dilation, self.groups = tuple(dilation), groups
         shape = (out_channels, in_channels // groups, *kernel_size)
@@ -250,7 +272,8 @@ class Conv2d(_Conv):
                           generator)
 
     def _ops_kernel(self, w: torch.Tensor) -> torch.Tensor:
-        return w.permute(2, 3, 1, 0)  # -> (Kh, Kw, C_in, C_out)
+        w = w.permute(2, 3, 1, 0)  # -> (Kh, Kw, C_in, C_out)
+        return spectral_normalize(w) if self.use_spectral_norm else w
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None
                 ) -> torch.Tensor:

@@ -39,7 +39,8 @@ The discriminators return lists of feature maps, each cast back to f32 when
 ``compute_dtype`` is bf16 (the last entry of each list is the logits):
 
 - ``HiFiGANPeriodDiscriminator``: reflect-pad time to a multiple of the
-  period, view as ``(B, T/P, P, C)`` and run a Conv2d stack (weight norm);
+  period, view as ``(B, T/P, P, C)`` and run a Conv2d stack (weight norm,
+  or with ``use_spectral_norm`` the stateless spectral norm);
   its keys are ``convs.{i}.0`` and ``output_conv``;
 - ``HiFiGANScaleDiscriminator``: a grouped Conv1d stack with no weight or
   spectral norm (the reference's norm is a no-op there); keys

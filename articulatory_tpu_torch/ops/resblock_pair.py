@@ -20,7 +20,8 @@ result; a wider C raises.
 ``resblock_pair`` dispatches on the tensor's device: a CPU tensor goes to
 ``resblock_pair_plain``, the same function in plain PyTorch; a CUDA tensor
 launches the kernel or raises. ``resblock_pair.launches`` counts the pair's
-launches, ``split_tf32.launches`` the prep kernel's.
+launches (``launches_by_dtype`` apart per dtype name),
+``split_tf32.launches`` the prep kernel's.
 
 Gradients: the JAX package has no backward for this kernel (its models
 differentiate through XLA convs). On a CUDA tensor that needs a gradient the
@@ -36,6 +37,7 @@ in for the kernel.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -235,6 +237,7 @@ def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
                                 f"{x.dtype}, K ({k1}, {k2}), dilation "
                                 f"{dilation}")
     resblock_pair.launches += 1
+    resblock_pair.launches_by_dtype[str(x.dtype)] += 1
     return y
 
 
@@ -284,3 +287,4 @@ def _forward(x, w1, b1, w2, b2, dilation, negative_slope):
 
 
 resblock_pair.launches = 0
+resblock_pair.launches_by_dtype = collections.Counter()

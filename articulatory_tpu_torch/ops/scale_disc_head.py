@@ -27,7 +27,8 @@ head's weights are the discriminator's, which move every training step.
 ``scale_disc_head_plain``, the same function as two ``ops/conv.py::conv1d``
 calls (whose zero padding of h0 is the kernel's mask); a CUDA tensor
 launches the kernel or raises. ``scale_disc_head.launches`` counts the
-head's launches, ``split_weights.launches`` the prep kernel's.
+head's launches (``launches_by_dtype`` apart per dtype name),
+``split_weights.launches`` the prep kernel's.
 
 Gradients: the JAX package has no backward for this kernel (its models
 differentiate through XLA convs). The ``torch.autograd.Function`` here
@@ -38,6 +39,7 @@ activation kept between forward and backward.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -194,6 +196,7 @@ def _launch(x, w0, b0, wg, b1, stride, negative_slope):
         raise _launch_error(rc, f"scale_disc_head kernel for x "
                                 f"{tuple(x.shape)} {x.dtype}, stride {stride}")
     scale_disc_head.launches += 1
+    scale_disc_head.launches_by_dtype[str(x.dtype)] += 1
     return h0, h1
 
 
@@ -236,3 +239,4 @@ def scale_disc_head(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor | None,
 
 
 scale_disc_head.launches = 0
+scale_disc_head.launches_by_dtype = collections.Counter()

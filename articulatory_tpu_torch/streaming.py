@@ -46,8 +46,9 @@ class StreamingSynthesizer:
     def __init__(self, model: LoadedModel, config: dict, batch: int = 1):
         ck = chunking(config)
         if ck.out_channels > 1 and not ck.w2a and config.get("pqmf", False):
-            raise NotImplementedError("multiband (PQMF) generators do not "
-                                      "stream; PQMF is not ported yet")
+            raise NotImplementedError(
+                "multiband (PQMF) generators are not supported in streaming "
+                "mode; use LoadedModel.inference or the batched decode")
         self.model, self.config, self.ck, self.batch = model, config, ck, batch
         self.reset()
 

@@ -47,8 +47,11 @@ A cascade (``generator2_type``) chains the trained generator into
 ``state.generator2``, frozen (no gradient of its own, held by no optimizer;
 its BatchNorm statistics never move), through which the generator's
 gradient flows; the target is then the generator's input ``x[0]``
-(reference train.py:261-263). Eager Python ``if``s take
-the place of JAX's masked updates: a gated-off update is not taken, and its
+(reference train.py:261-263). ``use_remat`` rematerialises the
+generator's forward in the generator loss (``torch.utils.checkpoint``,
+non-reentrant): its activations are recomputed in the backward, one more
+generator forward a step, for a generator without BatchNorm, as in JAX.
+Eager Python ``if``s take the place of JAX's masked updates: a gated-off update is not taken, and its
 optimizer state does not move. Metrics are detached tensors on the device,
 so a step does not wait for the card.
 """
@@ -63,8 +66,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from articulatory_tpu_torch.layers.norm import frozen_stats
+from articulatory_tpu_torch.layers.norm import BatchNorm, frozen_stats
 from articulatory_tpu_torch.losses import (
     DiscriminatorAdversarialLoss,
     FeatureMatchLoss,
@@ -210,27 +214,43 @@ def _check_fuse_disc(config: dict) -> None:
             "real and fake). Disable fuse_disc_passes for this config.")
 
 
-def _forward(generator: nn.Module, batch: dict,
-             draws: RandomDraws | None, tag: str):
-    """The generator's raw output on ``batch``: noise for a Parallel
+def _inputs(generator: nn.Module, batch: dict, draws: RandomDraws | None,
+            tag: str) -> tuple[tuple, dict]:
+    """The generator's arguments on ``batch``: noise for a Parallel
     WaveGAN without the legacy noise input and StyleMelGAN's ``z`` come
     from ``draws``; a conditioned generator reads ``spk_id`` and ``ph``."""
     x, name = batch["x"], type(generator).__name__
     if name in NOISE_DRIVEN_GENERATORS:
         if len(x) == 2:  # the legacy collater's (noise, aux)
-            return generator(*x)
+            return x, {}
         y = batch["y"]
-        return generator(draws.normal((y.shape[0], y.shape[1], 1), x[0],
-                                      tag), x[0])
+        return (draws.normal((y.shape[0], y.shape[1], 1), x[0], tag),
+                x[0]), {}
     if name in RNG_GENERATORS:
         c = x[0]
         z = draws.normal((c.shape[0], c.shape[1]
                           // generator.noise_upsample_factor,
                           generator.in_channels), c, tag)
-        return generator(c, z)
+        return (c, z), {}
     if name == "MelGANGenerator":
-        return generator(*x)
-    return generator(*x, **_conditioning(batch, "ar"))
+        return x, {}
+    return x, _conditioning(batch, "ar")
+
+
+def _forward(generator: nn.Module, batch: dict,
+             draws: RandomDraws | None, tag: str, remat: bool = False):
+    """The generator's raw output on ``batch``; with ``remat`` its
+    activations are dropped after the forward and recomputed in the
+    backward, from the same arguments (the noise drawn once, outside)."""
+    args, kwargs = _inputs(generator, batch, draws, tag)
+    if remat:
+        return checkpoint(generator, *args, use_reentrant=False, **kwargs)
+    return generator(*args, **kwargs)
+
+
+def has_mutables(generator: nn.Module) -> bool:
+    """True for a generator with BatchNorm statistics (JAX's mutables)."""
+    return any(isinstance(m, BatchNorm) for m in generator.modules())
 
 
 def _conditioning(batch: dict, ar_key: str) -> dict:
@@ -244,12 +264,13 @@ def _conditioning(batch: dict, ar_key: str) -> dict:
 
 def generate_ph(generator: nn.Module, batch: dict,
                 draws: RandomDraws | None = None, tag: str = "generator",
-                generator2: nn.Module | None = None
+                generator2: nn.Module | None = None, remat: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``(y_, ph_logits)``: the generator's output on ``batch`` (sub-bands
     for a multi-band model) through ``generator2`` in a cascade, and the
-    phoneme head's logits, or None without one."""
-    out = _forward(generator, batch, draws, tag)
+    phoneme head's logits, or None without one; ``remat`` rematerialises
+    the generator's forward (not generator2's)."""
+    out = _forward(generator, batch, draws, tag, remat)
     if generator2 is not None:
         with frozen_stats(generator2):
             out = generator2(out, **_conditioning(batch, "ar2"))
@@ -333,10 +354,15 @@ def _aux_loss(criterion: GANCriterion, y_, y, prefix: str,
 
 def generator_loss(state: GANTrainState, criterion: GANCriterion,
                    config: dict, batch: dict) -> tuple[torch.Tensor, dict]:
-    """The generator's loss at ``state.steps`` and its metrics."""
+    """The generator's loss at ``state.steps`` and its metrics. With
+    ``use_remat`` the generator's forward is rematerialised where a
+    gradient is taken and the generator keeps no BatchNorm statistics, as
+    the JAX package's rule."""
     y = target(state, batch)
+    remat = (bool(config.get("use_remat", False)) and torch.is_grad_enabled()
+             and not has_mutables(state.generator))
     y_mb_, ph_ = generate_ph(state.generator, batch, state.draws,
-                             "generator", state.generator2)
+                             "generator", state.generator2, remat)
     y_ = synthesize(criterion, y_mb_)
     aux, metrics = _aux_loss(criterion, y_, y, "train", y_mb_)
     gen_loss = aux * criterion.lambda_aux

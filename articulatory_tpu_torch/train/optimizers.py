@@ -10,12 +10,31 @@ AdamW, RAdam, NAdam, SGD, RMSprop, Adagrad, Adadelta, Adamax, ASGD, Rprop.
 The optimizer params go to the ``torch.optim`` class as they are, so an
 unknown key raises there.
 
-``load_optax_state`` carries the JAX package's optax Adam / AdamW state
-into the torch optimizer for a resume: ``scale_by_adam``'s ``count`` (the
-updates taken) becomes each parameter's ``step``, ``mu`` and ``nu``
-``exp_avg`` and ``exp_avg_sq``. The chain's clip and
-``add_decayed_weights`` hold no state, and torch's Adam adds ``weight_decay
-* p`` to the gradient as optax's chain does before ``scale_by_adam``;
+``load_optax_state`` carries the JAX package's optax state into the torch
+optimizer for a resume, for every optimizer of its ``build_optimizer``.
+Those chains keep torch's semantics, so each optax field is one torch
+state entry (the per-parameter trees through the weights' converter):
+
+- Adam, AdamW, RAdam: ``count`` -> ``step``, ``mu`` / ``nu`` ->
+  ``exp_avg`` / ``exp_avg_sq``;
+- NAdam: ``count``, ``m`` / ``v`` -> ``exp_avg`` / ``exp_avg_sq``, the
+  scalar ``mu_product`` into each parameter's;
+- SGD: the momentum ``trace`` -> ``momentum_buffer`` (no state without
+  momentum);
+- RMSprop: ``sq`` -> ``square_avg``, ``avg`` -> ``grad_avg`` (centered),
+  the momentum ``trace`` -> ``momentum_buffer``;
+- Adagrad: ``count``, ``sum``; Adadelta: ``sq`` -> ``square_avg``, ``acc``
+  -> ``acc_delta``; Adamax: ``count``, ``m`` -> ``exp_avg``, ``u`` ->
+  ``exp_inf``; Rprop: ``prev``, ``step_size``;
+- ASGD: ``count``; its ``eta`` and ``mu`` follow from it (torch's rules,
+  the group's lr, ``lambd``, ``alpha`` and ``t0``), and its averaged
+  iterate ``ax`` is the parameter itself while ``mu`` has been 1 (the first
+  ``t0`` + 2 steps). optax keeps no average, so a state past that raises.
+
+Where optax keeps no count (SGD, RMSprop, Adadelta, Rprop) ``step`` is the
+number of updates the caller says were taken; torch's math does not read
+it there. The chains' clip and ``add_decayed_weights`` hold no state, and
+torch adds ``weight_decay * p`` to the gradient where optax's chain does;
 AdamW decays the weights by ``1 - lr * weight_decay`` where optax adds
 ``weight_decay * p`` to the update, equal in exact arithmetic.
 """
@@ -81,29 +100,100 @@ def build_optimizer(name: str, params: dict | None,
                      grad_norm)
 
 
+# the optax field of each torch state tensor that is a tree of the
+# parameters' layout, per optimizer; the optax sub-state is found by its
+# fields
+_TREES = {
+    "Adam": {"exp_avg": "mu", "exp_avg_sq": "nu"},
+    "NAdam": {"exp_avg": "m", "exp_avg_sq": "v"},
+    "SGD": {},
+    "RMSprop": {"square_avg": "sq", "grad_avg": "avg"},
+    "Adagrad": {"sum": "sum"},
+    "Adadelta": {"square_avg": "sq", "acc_delta": "acc"},
+    "Adamax": {"exp_avg": "m", "exp_inf": "u"},
+    "ASGD": {},
+    "Rprop": {"prev": "prev", "step_size": "step_size"},
+}
+_TREES["AdamW"] = _TREES["RAdam"] = _TREES["Adam"]
+_FIELDS = {"Adam": {"count", "mu", "nu"},
+           "NAdam": {"count", "m", "v", "mu_product"},
+           "RMSprop": {"sq", "avg"}, "Adagrad": {"count", "sum"},
+           "Adadelta": {"sq", "acc"}, "Adamax": {"count", "m", "u"},
+           "ASGD": {"count"}, "Rprop": {"prev", "step_size"}}
+_FIELDS["AdamW"] = _FIELDS["RAdam"] = _FIELDS["Adam"]
+
+
+def _substate(optax_state: dict, fields: set, name: str) -> dict | None:
+    """The one entry of the optax chain's state with exactly ``fields``."""
+    found = [v for v in optax_state.values()
+             if isinstance(v, dict) and set(v) == fields]
+    if len(found) > 1:
+        raise ValueError(f"{len(found)} {sorted(fields)} states in the optax "
+                         f"chain of {name}")
+    return found[0] if found else None
+
+
 def load_optax_state(optimizer: Optimizer, name: str, optax_state: dict,
-                     moments, model: torch.nn.Module) -> None:
+                     moments, model: torch.nn.Module,
+                     updates: int = 0) -> None:
     """Set the state ``optimizer`` keeps for ``model``'s parameters from an
     optax state dict of the JAX package's ``build_optimizer(name, ...)``
-    chain; ``moments`` maps a moment tree to ``{parameter name: tensor}``
-    (``utils/checkpoint.py::optax_moments``). Optimizers other than Adam
-    and AdamW raise, naming themselves."""
-    if name not in ("Adam", "AdamW"):
-        raise NotImplementedError(f"resuming the optax state of {name} is "
-                                  "not ported (Adam and AdamW are)")
-    adam = [v for v in optax_state.values()
-            if isinstance(v, dict) and {"count", "mu", "nu"} <= set(v)]
-    if len(adam) != 1:
-        raise ValueError(f"no scale_by_adam state in the optax chain of "
-                         f"{name}: {sorted(optax_state)}")
-    count = int(adam[0]["count"])
-    exp_avg, exp_avg_sq = moments(adam[0]["mu"]), moments(adam[0]["nu"])
+    chain; ``moments`` maps a tree of the parameters' layout to
+    ``{parameter name: tensor}`` (``utils/checkpoint.py::optax_moments``);
+    ``updates`` is the number of updates taken, the ``step`` of an
+    optimizer whose optax state keeps no count."""
+    if name not in _TREES:
+        raise ValueError(f"Unsupported optimizer: {name}")
+    sub = {}
+    if name in _FIELDS:
+        sub = _substate(optax_state, _FIELDS[name], name)
+        if sub is None:
+            raise ValueError(f"no {sorted(_FIELDS[name])} state in the optax "
+                             f"chain of {name}: {sorted(optax_state)}")
+    trace = _substate(optax_state, {"trace"}, name)
+    count = int(sub["count"]) if "count" in sub else int(updates)
     # torch keeps a non-capturable step as a float tensor on the host
     scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
               else torch.float32)
+    groups = {p: g for g in optimizer.optimizer.param_groups
+              for p in g["params"]}
+    trees = {key: moments(sub[field])
+             for key, field in _TREES[name].items()
+             if sub.get(field) is not None}
+    if trace is not None:
+        trees["momentum_buffer"] = moments(trace["trace"])
     state = optimizer.optimizer.state
     for key, p in model.named_parameters():
-        state[p] = {"step": torch.tensor(float(count), dtype=scalar),
-                    "exp_avg": exp_avg[key].to(p.device, p.dtype).clone(),
-                    "exp_avg_sq": exp_avg_sq[key].to(p.device, p.dtype
-                                                     ).clone()}
+        group = groups[p]
+        if name in ("SGD", "RMSprop") and group["momentum"] and (
+                "momentum_buffer" not in trees):
+            raise ValueError(f"{name} with momentum {group['momentum']}: the "
+                             "optax chain holds no momentum trace")
+        entry = {k: tree[key].to(p.device, p.dtype).clone()
+                 for k, tree in trees.items()}
+        if name != "SGD":
+            entry["step"] = torch.tensor(float(count), dtype=scalar)
+        if name == "NAdam":
+            entry["mu_product"] = torch.tensor(float(sub["mu_product"]),
+                                               dtype=scalar)
+        if name == "ASGD":
+            entry.update(_asgd_state(p, group, count, scalar))
+        state[p] = entry
+
+
+def _asgd_state(p: torch.Tensor, group: dict, count: int,
+                scalar: torch.dtype) -> dict:
+    """ASGD's ``step``, ``eta``, ``mu`` and ``ax`` after ``count`` updates,
+    as torch writes them at the end of its step ``count``."""
+    lr, lambd, alpha, t0 = (group[k] for k in ("lr", "lambd", "alpha", "t0"))
+    if count > t0 + 2:
+        raise NotImplementedError(
+            f"resuming ASGD after {count} updates with t0 {t0}: torch's "
+            "averaged iterate ax has left the parameters, and the optax "
+            "state keeps no average")
+    return {"step": torch.tensor(float(count), dtype=scalar, device=p.device),
+            "eta": torch.tensor(lr / ((1 + lambd * lr * count) ** alpha),
+                                dtype=scalar, device=p.device),
+            "mu": torch.tensor(1 / max(1, count - t0), dtype=scalar,
+                               device=p.device),
+            "ax": p.detach().clone()}

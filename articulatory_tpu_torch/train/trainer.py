@@ -27,8 +27,19 @@
   ``run`` returns. The handler is installed only in the main thread, and
   the previous one restored when ``run`` ends.
 
-Not ported yet: the tensorboard writer and the intermediate plots of the
-first eval batch (tensorboardX and matplotlib).
+- ``writer`` (default a ``tensorboardX.SummaryWriter`` on ``outdir``)
+  takes the JAX trainer's scalars under its tags: each averaged training
+  metric, ``train/steps_per_sec``, ``train/samples_per_sec_per_chip`` and
+  ``train/lr_generator`` at every log interval, each averaged ``eval/*``
+  metric at every evaluation.
+- Every evaluation writes the first dev batch's first
+  ``num_save_intermediate_results`` (default 4) utterances to
+  ``<outdir>/predictions/<steps>steps/``: ``<i>.png`` (target above the
+  output) and, for waveform targets, ``<i>_ref.wav`` and ``<i>_gen.wav``.
+
+tensorboardX and matplotlib are imported when first needed; where one is
+missing, that is logged once and its output skipped (the wavs are still
+written).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import numpy as np
 import torch
 
 from articulatory_tpu_torch.utils.checkpoint import save_checkpoint
+from articulatory_tpu_torch.utils.io import write_wav
 
 # keys the train step consumes; the collater's aliases (audio/art/mel
 # duplicate x/y) would otherwise be copied to the device every step
@@ -66,10 +78,22 @@ def to_device(batch: dict, device: torch.device) -> dict:
             if k in _STEP_BATCH_KEYS and v is not None}
 
 
+def _summary_writer(outdir: str):
+    """A ``tensorboardX.SummaryWriter`` on ``outdir``, or None (logged)
+    without tensorboardX."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logging.warning("tensorboardX is not installed: the scalars go to "
+                        "the log only")
+        return None
+    return SummaryWriter(outdir)
+
+
 class Trainer:
     def __init__(self, *, config: dict, state, train_step, eval_step,
                  schedulers: dict, data_loader: dict, outdir: str,
-                 device: torch.device, epochs: int = 0):
+                 device: torch.device, epochs: int = 0, writer=None):
         self.config = config
         self.state = state
         self.train_step = train_step
@@ -94,6 +118,11 @@ class Trainer:
                          for k, v in schedulers.items()}
         self.profiler = None
         self._profiling = False
+        self._orbax_logged = False
+        self._plot_missing_logged = False
+        self._own_writer = writer is None
+        self.writer = writer if writer is not None else _summary_writer(
+            outdir)
 
     @property
     def steps(self) -> int:
@@ -112,6 +141,8 @@ class Trainer:
             logging.info(f"Successfully saved checkpoint @ {self.steps} steps.")
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
+            if self._own_writer and self.writer is not None:
+                self.writer.close()
 
     def _install_preemption_handler(self):
         """SIGTERM -> finish the current step, checkpoint and stop; returns
@@ -206,10 +237,18 @@ class Trainer:
             return
         elapsed = time.time() - self._last_log_time
         for key, total in sorted(self.total_train_loss.items()):
-            logging.info(f"(Steps: {self.steps}) {key} = "
-                         f"{float(total) / self._train_count:.4f}.")
-        logging.info(f"(Steps: {self.steps}) "
-                     f"{self._train_count / max(elapsed, 1e-9):.3f} steps/s.")
+            avg = float(total) / self._train_count
+            logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
+            self._scalar(key, avg)
+        steps_per_sec = self._train_count / max(elapsed, 1e-9)
+        logging.info(f"(Steps: {self.steps}) {steps_per_sec:.3f} steps/s.")
+        self._scalar("train/steps_per_sec", steps_per_sec)
+        samples_per_step = (self.config.get("batch_size", 1)
+                            * self.config.get("batch_max_steps", 0))
+        if samples_per_step:  # one process on one card
+            self._scalar("train/samples_per_sec_per_chip",
+                         steps_per_sec * samples_per_step)
+        self._scalar("train/lr_generator", self.schedulers["generator"].lr)
         self.total_train_loss = defaultdict(float)
         self._train_count = 0
         self._last_log_time = time.time()
@@ -228,17 +267,21 @@ class Trainer:
         logging.info(f"(Steps: {self.steps}) Start evaluation.")
         totals: dict = defaultdict(float)
         count = 0
+        first = None
         for batch in self.data_loader.get("dev", []):
-            metrics, _ = self.eval_step(self.state,
-                                        to_device(batch, self.device))
+            metrics, y_ = self.eval_step(self.state,
+                                         to_device(batch, self.device))
             for k, v in metrics.items():
                 totals[k] = totals[k] + v
+            if first is None:
+                first = (batch, y_)
             count += 1
         if count == 0:
             return
         averages = {k: float(v) / count for k, v in totals.items()}
         for key, avg in sorted(averages.items()):
             logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
+            self._scalar(key, avg)
         mel = averages.get("eval/mel_loss")
         if mel is not None and mel < self.best_mel_loss:
             self.best_mel_loss = mel
@@ -247,7 +290,61 @@ class Trainer:
                 f.write(f"{self.steps} {self.best_mel_loss}")
             logging.info(f"(Steps: {self.steps}) New best eval/mel_loss "
                          f"{self.best_mel_loss:.4f}.")
+        self._save_intermediate(*first)
+
+    def _scalar(self, tag: str, value: float) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, self.steps)
+
+    def _save_intermediate(self, batch: dict, y_gen) -> None:
+        """Plots (and wavs, for waveform targets) of the first utterances of
+        an evaluation batch, target against output."""
+        y_ref, y_gen = (y.detach().float().cpu().numpy() if torch.is_tensor(y)
+                        else np.asarray(y) for y in (batch["y"], y_gen))
+        n = min(self.config.get("num_save_intermediate_results", 4),
+                len(y_gen), len(y_ref))
+        dirname = os.path.join(self.outdir, f"predictions/{self.steps}steps")
+        os.makedirs(dirname, exist_ok=True)
+        sr = self.config.get("sampling_rate", 16000)
+        is_wave = y_ref.ndim == 3 and y_ref.shape[-1] == 1
+        plt = self._pyplot()
+        for idx in range(n):
+            ref, gen = y_ref[idx].squeeze(), y_gen[idx].squeeze()
+            if plt is not None:
+                fig, axes = plt.subplots(2, 1, figsize=(6, 4))
+                axes[0].plot(ref)
+                axes[0].set_title("groundtruth")
+                axes[1].plot(gen)
+                axes[1].set_title(f"generated @ {self.steps} steps")
+                fig.tight_layout()
+                fig.savefig(os.path.join(dirname, f"{idx}.png"))
+                plt.close(fig)
+            if is_wave:
+                write_wav(os.path.join(dirname, f"{idx}_ref.wav"), ref, sr)
+                write_wav(os.path.join(dirname, f"{idx}_gen.wav"), gen, sr)
+
+    def _pyplot(self):
+        """matplotlib's pyplot on the Agg backend, or None (logged once)
+        without matplotlib."""
+        try:
+            import matplotlib
+        except ImportError:
+            if not self._plot_missing_logged:
+                logging.warning("matplotlib is not installed: the "
+                                "intermediate plots are skipped")
+                self._plot_missing_logged = True
+            return None
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        return plt
 
     def save_checkpoint(self, path: str) -> None:
+        if (self.config.get("checkpoint_backend") == "orbax"
+                and not self._orbax_logged):
+            logging.warning("checkpoint_backend: orbax is a JAX checkpoint "
+                            "directory; the port writes a torch pickle at "
+                            "the same path instead")
+            self._orbax_logged = True
         save_checkpoint(path, self.state, schedulers=self.schedulers,
                         epochs=self.epochs)

@@ -19,8 +19,9 @@ writes a training state as a torch pickle in the reference's layout,
 ``{"model": {"generator", "discriminator"[, "generator2"]}, "optimizer":
 {...}, "scheduler": {...}, "steps", "epochs"}``, which ``load_model``
 decodes from and ``restore_state`` resumes from, as it resumes a JAX
-checkpoint: its optax Adam / AdamW moments go through the same layout map
-as the weights (``optax_moments``). Orbax checkpoint directories are not
+checkpoint: the per-parameter trees of its optax state (every optimizer
+of the JAX package's ``build_optimizer``) go through the same layout map as
+the weights (``optax_moments``). Orbax checkpoint directories are not
 read by the port.
 """
 
@@ -200,9 +201,13 @@ def restore_state(state, payload: dict, config: dict,
                              state.discriminator)):
         saved = payload["optimizer"][key]
         if _is_jax_tree(payload["model"][key]):
+            # the JAX step updates a model at the steps past its start
+            updates = max(0, int(payload.get("steps", 0)) - 1
+                          - int(config.get(f"{key}_train_start_steps", 0)))
             load_optax_state(
                 opt, config.get(f"{key}_optimizer_type", "RAdam"), saved,
-                optax_moments(payload, key, config, model), model)
+                optax_moments(payload, key, config, model), model,
+                updates=updates)
         else:
             opt.load_state_dict(saved)
     state.steps = int(payload.get("steps", 0))
@@ -223,13 +228,14 @@ def _probe(tree, fill):
 
 def optax_moments(payload: dict, key: str, config: dict,
                   model: torch.nn.Module):
-    """A map of a JAX moment tree of ``payload["model"][key]``'s layout
-    (optax's ``mu`` or ``nu``) to ``{parameter name: tensor}`` of
-    ``model``, through the converter of the weights. Adam is elementwise, so
-    a converter that only moves elements (transposes, flips) maps the
-    moments exactly; a parameter the converter computes otherwise (a
-    weight norm folded from an effective weight) cannot carry them and
-    raises, named, as does a parameter the converter does not give."""
+    """A map of a JAX tree of ``payload["model"][key]``'s layout (an optax
+    state's moments, traces, sums or step sizes) to ``{parameter name:
+    tensor}`` of ``model``, through the converter of the weights. The
+    optimizers are elementwise, so a converter that only moves elements
+    (transposes, flips) maps the trees exactly; a parameter the converter
+    computes otherwise (a weight norm folded from an effective weight)
+    cannot carry them and raises, named, as does a parameter the converter
+    does not give."""
     names = dict(model.named_parameters())
 
     def convert(tree) -> dict[str, torch.Tensor]:

@@ -72,14 +72,16 @@ Phases, each raising on failure:
 6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
    utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
    every loss finite, (b) every generator and discriminator parameter
-   moved from its initial value, (c) 72 ``resblock_pair``, 72 weight-split,
-   12 ``scale_disc_head`` and 12 head weight-split launches per step, (d) on one batch the
+   moved from its initial value, (c) the launches per dtype that
+   ``expected_launches`` derives from the config (in f32 72
+   ``resblock_pair``, 72 weight-split, 12 ``scale_disc_head`` and 12 head
+   weight-split launches per step), (d) on one batch the
    generator's and discriminator's gradients with both kernels against
    both plain versions (relative L2 per model <= GRAD_TOL[0], per tensor
    <= GRAD_TOL[1]), (e) a decode of one chunk from the written checkpoint
    through ``inference.load_model``; then times full steps (median of
    STEP_ROUNDS) and the generator fwd+bwd, regeneration and discriminator
-   fwd+bwd apart;
+   fwd+bwd apart; then [hybrid-train] (phase 20) on the same corpus;
 7. mri: the repo's second recipe, ``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``
    (format npy), at full width (230 features + 128 AR, channels 512,
    upsample (8, 5, 3, 2), 125-frame chunks, AR 512): ``resblock_pair`` at
@@ -168,7 +170,19 @@ Phases, each raising on failure:
    loader in turns; the device time under the kernels' recompute
    backward in the profiled step; SizeAwareSampler with remove_short_samples), preemption (SIGTERM to
    ``bin/train.py``, exit 0, the checkpoint at its step, ``--resume``),
-   stage 3 (``bin/decode.py --ar-scan``, ``bin/compute_mcd.py``: finite).
+   stage 3 (``bin/decode.py --ar-scan``, ``bin/compute_mcd.py``: finite);
+20. hybrid-train (run right after phase 6): the JAX package's default
+   training precision, the generator with ``compute_dtype: bfloat16`` and
+   ``hybrid_precision`` (stages 0-2 on the bf16 pair, the last on the f32
+   one), through ``train()`` for 3 steps with phase 6's checks (a)-(e)
+   (54 bf16 and 18 f32 pairs, 18 weight splits and 12 heads a step; in
+   (d) a model's pooled gap within twice the plain bf16 gradient's own
+   distance from the f32 one, at least GRAD_TOL[0]); then on one batch
+   the f32, hybrid and hybrid + bf16-discriminator steps (12 bf16 heads a
+   step) timed in turns (median of STEP_ROUNDS each, with their parts),
+   one profiled hybrid step split as phase 19's, one ``use_remat`` step (a
+   third generator forward) and one m2w step (80 mels), each with its
+   launches counted.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -1282,6 +1296,75 @@ def _grads(loss, params) -> list[torch.Tensor]:
     return list(torch.autograd.grad(loss, params))
 
 
+def _bf16(params: dict) -> bool:
+    return str(params.get("compute_dtype")) in ("bfloat16", "torch.bfloat16")
+
+
+def expected_launches(config: dict, steps: int, remat_steps: int = 0
+                      ) -> dict:
+    """The kernels' launches in ``steps`` training steps of ``config``, per
+    dtype (``str(torch dtype)``): every step runs the generator twice (the
+    loss pass and the regeneration; a third time, its recompute, in
+    ``remat_steps`` of them), each forward every stage's pairs (a pair per
+    resblock kernel and dilation) in the stage's dtype (bf16 under
+    ``compute_dtype: bfloat16``, but the last stage with
+    ``hybrid_precision``), each f32 pair splitting its weights once; and
+    the MSMPD's scale heads, a head a scale in each of the generator
+    loss's fake pass, its feature-matching real pass and the
+    discriminator's two passes, in the discriminator's dtype, each
+    splitting its weights once."""
+    gp, dp = config["generator_params"], config["discriminator_params"]
+    pairs = sum(len(d) for d in gp["resblock_dilations"])
+    stages = len(gp["upsample_scales"])
+    forwards = 2 * steps + remat_steps
+    pair_by = {}
+    for i in range(stages):
+        dtype = str(torch.bfloat16 if _bf16(gp) and not (
+            gp.get("hybrid_precision") and i == stages - 1)
+            else torch.float32)
+        pair_by[dtype] = pair_by.get(dtype, 0) + pairs * forwards
+    passes = 3 + bool(config.get("use_feat_match_loss", False))
+    heads = dp.get("scales", 3) * passes * steps
+    head_dtype = str(torch.bfloat16 if _bf16(dp) else torch.float32)
+    return {"resblock_pair": pair_by,
+            "scale_disc_head": {head_dtype: heads},
+            "split_tf32": pair_by.get(str(torch.float32), 0),
+            "split_weights": heads}
+
+
+def reset_counts(port: dict) -> None:
+    """Every kernel's launch counts to 0."""
+    for key in ("resblock_pair", "scale_disc_head", "split_tf32",
+                "split_weights"):
+        port[key].launches = 0
+    for key in ("resblock_pair", "scale_disc_head"):
+        port[key].launches_by_dtype.clear()
+
+
+def read_counts(port: dict) -> dict:
+    """The kernels' launch counts in ``expected_launches``'s form."""
+    return {"resblock_pair": dict(port["resblock_pair"].launches_by_dtype),
+            "scale_disc_head": dict(
+                port["scale_disc_head"].launches_by_dtype),
+            "split_tf32": port["split_tf32"].launches,
+            "split_weights": port["split_weights"].launches}
+
+
+@contextlib.contextmanager
+def computing_in(model, dtype):
+    """Run every module of ``model`` with a ``compute_dtype`` in ``dtype``
+    (None: the parameters' f32) inside."""
+    saved = [(m, m.compute_dtype) for m in model.modules()
+             if hasattr(m, "compute_dtype")]
+    for m, _ in saved:
+        m.compute_dtype = dtype
+    try:
+        yield
+    finally:
+        for m, value in saved:
+            m.compute_dtype = value
+
+
 def _grad_gaps(got, want) -> tuple[float, float]:
     """(pooled, worst per tensor) relative L2 gap of two gradient lists."""
     gaps = [(g - w).norm().item() for g, w in zip(got, want)]
@@ -1291,19 +1374,20 @@ def _grad_gaps(got, want) -> tuple[float, float]:
 
 
 def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
-                grads: bool = True, tag: str = "train") -> dict:
+                grads: bool = True, tag: str = "train",
+                exp: str = "exp") -> dict:
     """``train(config)`` for its ``train_max_steps`` on the synthetic corpus
     the caller wrote under ``tmp`` (``_write_corpus``), the checks (a)-(e)
     of the module's docstring ((d), the gradients, with ``grads``, each
     generator tensor's gap kept apart; (e), the decode, not for a speaker-
     or phoneme-input model, which neither package decodes), and the step's
-    time; logged under ``[tag]``."""
+    time; logged under ``[tag]``, the run's files in ``tmp/<exp>``."""
     train_cli, gan, inference = port["train"], port["gan"], port["inference"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
     split, head_split = port["split_tf32"], port["split_weights"]
     steps = config["train_max_steps"]
-    outdir = os.path.join(tmp, "exp")
-    pair.launches = head.launches = split.launches = head_split.launches = 0
+    outdir = os.path.join(tmp, exp)
+    reset_counts(port)
     start = time.perf_counter()
     trainer = train_cli.train(
         config, train_dumpdir=os.path.join(tmp, "dump/tr/norm"),
@@ -1316,14 +1400,14 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                 "split_tf32": split.launches,
                 "split_weights": head_split.launches}
     # (c) every step ran both generator forwards and all four discriminator
-    # passes through the kernels; the weights are refolded every forward, so
-    # every f32 pair split its weights, and every head its weights
-    expected = {"resblock_pair": 72 * steps,
-                "scale_disc_head": 12 * steps,
-                "split_tf32": 72 * steps,
-                "split_weights": 12 * steps}
-    if launches != expected:
-        raise AssertionError(f"{tag}: launches {launches}, expected {expected}")
+    # passes through the kernels, each in its dtype; the weights are
+    # refolded every forward, so every f32 pair split its weights, and
+    # every head its weights
+    by_dtype = read_counts(port)
+    expected = expected_launches(config, steps)
+    if by_dtype != expected:
+        raise AssertionError(f"{tag}: launches {by_dtype}, expected "
+                             f"{expected}")
     # (a) the metrics summed over the run's steps
     losses = {k: float(v) / steps
               for k, v in trainer.total_train_loss.items()}
@@ -1344,7 +1428,7 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                                  f"{still[:5]}")
     log(f"[{tag}] {steps} steps at B {config['batch_size']} x "
         f"{config['batch_max_steps']} in {run_seconds:.3f} s (build and "
-        f"warm-up included); launches {launches}; mean losses "
+        f"warm-up included); launches {by_dtype}; mean losses "
         + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items()))
 
     # (d) one batch's gradients, kernels against plain versions (with grads)
@@ -1370,21 +1454,43 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                 swapped(port["hifigan"], "scale_disc_head",
                         port["scale_disc_head_plain"]):
             plain_grads = both_grads()
+        # in bf16 the kernels and cuDNN round at other points: a model's
+        # pooled gap may reach twice the plain bf16 gradient's own distance
+        # from the f32 one (through the kernels in f32)
+        limits = {"generator": GRAD_TOL, "discriminator": GRAD_TOL}
+        if _bf16(config["generator_params"]) or _bf16(
+                config["discriminator_params"]):
+            with computing_in(state.generator, None), \
+                    computing_in(state.discriminator, None):
+                f32_grads = both_grads()
+            for name, plain, f32 in zip(("generator", "discriminator"),
+                                        plain_grads, f32_grads):
+                own = _grad_gaps(plain, f32)[0]
+                limits[name] = (max(GRAD_TOL[0], 2 * own), None)
+                grad_gaps[f"{name}_plain_bf16_vs_f32"] = own
         for name, got, want in zip(("generator", "discriminator"),
                                    kernel_grads, plain_grads):
             pooled, per = _grad_gaps(got, want)
             grad_gaps[name] = {"pooled_rel_l2": pooled,
-                               "worst_tensor_rel_l2": per}
-            if pooled > GRAD_TOL[0] or per > GRAD_TOL[1]:
+                               "worst_tensor_rel_l2": per,
+                               "limits": limits[name]}
+            pooled_limit, per_limit = limits[name]
+            if pooled > pooled_limit or (per_limit is not None
+                                         and per > per_limit):
                 raise AssertionError(
                     f"{tag}: {name} gradients with the kernels differ from "
                     f"plain by {pooled:.3e} pooled, {per:.3e} worst tensor "
-                    f"> {GRAD_TOL}")
+                    f"> {limits[name]}")
         log(f"[{tag}] kernel vs plain gradients, relative L2 pooled / worst "
-            f"tensor: " + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} / "
-                                    f"{v['worst_tensor_rel_l2']:.3e}"
-                                    for k, v in grad_gaps.items())
-            + f" (limits {GRAD_TOL})")
+            f"tensor: " + ", ".join(
+                f"{k} {grad_gaps[k]['pooled_rel_l2']:.3e} / "
+                f"{grad_gaps[k]['worst_tensor_rel_l2']:.3e} (limits "
+                f"{grad_gaps[k]['limits']})"
+                for k in ("generator", "discriminator"))
+            + "".join(f"; plain bf16 vs f32 {k}: "
+                      f"{grad_gaps[f'{k}_plain_bf16_vs_f32']:.3e}"
+                      for k in ("generator", "discriminator")
+                      if f"{k}_plain_bf16_vs_f32" in grad_gaps))
         names = [k for k, _ in state.generator.named_parameters()]
         grad_gaps["generator_tensors"] = {
             key: _grad_gaps([got], [want])[0] for key, got, want in zip(
@@ -1415,6 +1521,7 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
                                       part_ms.items()))
 
     result = {"run_seconds": run_seconds, "launches": launches,
+              "launches_by_dtype": by_dtype,
               "launches_per_step": {k: v // steps
                                     for k, v in launches.items()},
               "mean_losses": losses, "grad_gaps": grad_gaps,
@@ -1440,6 +1547,200 @@ def phase_train(port: dict, seed: int, tmp: str, config: dict = TRAIN_CONFIG,
     log(f"[{tag}] decoded one chunk of 4 utterances from "
         f"{os.path.basename(ckpt)}")
     return result
+
+
+# [hybrid-train]: the JAX package's default training precision
+# (benchmarks/train_bench.py: --gen-hybrid on, --disc-bf16) on the EMA
+# HiFi-CAR at full width and TRAIN_CONFIG's B 64 x 2000; 3 steps through
+# train(), then the f32, hybrid and hybrid + bf16-discriminator steps in
+# turns on one batch
+HYBRID_GP = dict(GENERATOR_PARAMS, compute_dtype="bfloat16",
+                 hybrid_precision=True)
+HYBRID_TRAIN_CONFIG = dict(TRAIN_CONFIG, generator_params=HYBRID_GP,
+                           train_max_steps=3)
+# m2w: the same HiFi-CAR on 80 mel channels (+ 128 AR features)
+M2W_MELS = 80
+M2W_CONFIG = dict(TRAIN_CONFIG, dataset_mode="m2w", generator_params=dict(
+    GENERATOR_PARAMS, in_channels=M2W_MELS + GENERATOR_PARAMS["ar_output"]))
+
+
+def _disc_bf16(config: dict) -> dict:
+    return dict(config, discriminator_params=dict(
+        config["discriminator_params"], compute_dtype="bfloat16"))
+
+
+def _train_state(port: dict, config: dict, seed: int, steps: int = 2):
+    """Fresh models of ``config`` from ``seed`` on the card with Adam, at
+    ``steps`` (2: both models update)."""
+    build, optimizer = port["build_model"], port["build_optimizer"]
+    models = [build(config[f"{m}_type"], config[f"{m}_params"],
+                    seed=seed + i).cuda()
+              for i, m in enumerate(("generator", "discriminator"))]
+    opts = [optimizer("Adam", {"lr": 1e-4, "betas": [0.5, 0.9]}, -1,
+                      m.parameters()) for m in models]
+    return port["gan"].GANTrainState(generator=models[0],
+                                     discriminator=models[1], opt_g=opts[0],
+                                     opt_d=opts[1], steps=steps)
+
+
+def _counted_step(port: dict, config: dict, state, batch, tag: str,
+                  remat_steps: int = 0) -> tuple[dict, float]:
+    """One ``make_train_step`` step of ``config`` with the counts set to 0
+    just before and read just after, held to ``expected_launches``;
+    returns the metrics and the step's ms."""
+    step = port["gan"].make_train_step(port["gan"].GANCriterion(config),
+                                       config)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    start = time.perf_counter()
+    metrics = step(state, batch, 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start)
+    counts = read_counts(port)
+    expected = expected_launches(config, 1, remat_steps)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if counts != expected or not all(np.isfinite(v)
+                                     for v in metrics.values()):
+        raise AssertionError(f"[hybrid-train] {tag}: launches {counts}, "
+                             f"expected {expected}; losses {metrics}")
+    return {"launches": counts, "losses": metrics, "ms": ms}, ms
+
+
+def _config_batch(port: dict, config: dict, tmp: str) -> dict:
+    """The first training batch of the corpus under ``tmp`` as ``train()``
+    collates it for ``config``, on the card."""
+    train_set, _, collater, _ = port["train"].build_datasets(
+        config, os.path.join(tmp, "dump/tr/norm"),
+        os.path.join(tmp, "dump/dev/norm"), os.path.join(tmp, "data"))
+    items = [train_set[i] for i in range(config["batch_size"])]
+    return port["to_device"](collater(items), torch.device("cuda"))
+
+
+def phase_hybrid_train(port: dict, seed: int, tmp: str) -> dict:
+    """[hybrid-train] the hybrid generator (bf16 stages 0-2: 27 bf16 pairs a
+    forward, the last stage's 9 in f32) through ``train()`` with phase_train's
+    checks (launches per dtype from ``expected_launches``: 54 bf16 and 18
+    f32 pairs and 18 weight splits a step; the gradients, kernels against
+    both plain versions, within twice the plain bf16 gradient's distance
+    from the f32 one); then on one batch the f32, hybrid and hybrid +
+    bf16-discriminator steps, STEP_ROUNDS each in turns after a counted
+    warm-up step of each (the bf16 heads: 12 a step), with their parts; one
+    profiled hybrid step split as [recipe]'s; one ``use_remat`` step (a
+    third generator forward: 81 bf16 and 27 f32 pairs); and one m2w step
+    (80 mels, the collater's m2w windows: 72 f32 pairs)."""
+    gan = port["gan"]
+    out = phase_train(port, seed, tmp, config=HYBRID_TRAIN_CONFIG,
+                      tag="hybrid-train", exp="exp-hybrid")
+    batch = _config_batch(port, TRAIN_CONFIG, tmp)
+    configs = {"f32": TRAIN_CONFIG, "hybrid": HYBRID_TRAIN_CONFIG,
+               "hybrid_disc_bf16": _disc_bf16(HYBRID_TRAIN_CONFIG)}
+    states = {k: _train_state(port, c, seed) for k, c in configs.items()}
+    steps = {k: gan.make_train_step(gan.GANCriterion(c), c)
+             for k, c in configs.items()}
+    counted = {k: _counted_step(port, c, states[k], batch, k)[0]
+               for k, c in configs.items()}
+    step_s = {k: [] for k in configs}
+    for _ in range(STEP_ROUNDS):
+        for k in configs:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            steps[k](states[k], batch, 1e-4, 1e-4)
+            torch.cuda.synchronize()
+            step_s[k].append(time.perf_counter() - start)
+    turns = {}
+    for k, config in configs.items():
+        state, criterion = states[k], gan.GANCriterion(config)
+        gen_params = list(state.generator.parameters())
+        disc_params = list(state.discriminator.parameters())
+        with torch.no_grad():
+            fake = gan.generate(state.generator, batch)
+        parts = {
+            "generator_fwd_bwd_ms": lambda: _grads(gan.generator_loss(
+                state, criterion, config, batch)[0], gen_params),
+            "regeneration_ms": lambda: gan.generate(state.generator, batch),
+            "discriminator_fwd_bwd_ms": lambda: _grads(
+                gan.discriminator_loss(state, criterion, config, batch,
+                                       fake)[0], disc_params)}
+        turns[k] = {"step_ms_median": 1e3 * float(np.median(step_s[k])),
+                    "step_ms_range": [1e3 * min(step_s[k]),
+                                      1e3 * max(step_s[k])],
+                    "counted_step": counted[k]}
+        for key, fn in parts.items():
+            with torch.set_grad_enabled(key != "regeneration_ms"):
+                turns[k][key] = time_ms(fn, 3)
+        log(f"[hybrid-train] {k}: step median "
+            f"{turns[k]['step_ms_median']:.3f} ms [range "
+            f"{turns[k]['step_ms_range'][0]:.3f}, "
+            f"{turns[k]['step_ms_range'][1]:.3f}] over {STEP_ROUNDS} in "
+            f"turns; " + ", ".join(f"{key} {turns[k][key]:.3f}"
+                                   for key in parts)
+            + f"; launches a step {counted[k]['launches']}")
+
+    # one profiled hybrid step, split as [recipe]'s
+    from torch.profiler import ProfilerActivity, profile
+
+    steps["hybrid"](states["hybrid"], batch, 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
+        steps["hybrid"](states["hybrid"], batch, 1e-4, 1e-4)
+        torch.cuda.synchronize()
+    profiled = _device_split(prof)
+    want = {"resblock_pair_wgmma": 72, "split_tf32_kernel": 18,
+            "scale_disc_head_wgmma": 12, "split_weights_kernel": 12}
+    ranges = {k: n for k, (n, _) in profiled["recompute"].items()}
+    if profiled["kernel_counts"] != want or ranges != {
+            "resblock_pair_plain": 36, "scale_disc_head_plain": 9}:
+        raise AssertionError(f"[hybrid-train] profiled step: kernels "
+                             f"{profiled['kernel_counts']}, recompute "
+                             f"ranges {ranges}")
+    split = profiled["split_ms"]
+    log(f"[hybrid-train] profiled hybrid step: busy "
+        f"{profiled['busy_ms']:.3f} ms of a {profiled['span_ms']:.3f} ms "
+        f"span ({100 * profiled['busy_share']:.1f} %); kernels "
+        f"{profiled['kernel_ms']:.3f} ms: pair kernels {split['pair']:.3f}, "
+        f"head kernels {split['head']:.3f}, convolutions "
+        f"{split['conv']:.3f}, rest {split['rest']:.3f}; under the "
+        f"recompute ranges: " + ", ".join(
+            f"{k} {n} x, {ms:.3f} ms"
+            for k, (n, ms) in profiled["recompute"].items())
+        + f"; kernel counts {profiled['kernel_counts']}")
+
+    # use_remat: the generator's forward recomputed in the backward
+    remat_config = dict(HYBRID_TRAIN_CONFIG, use_remat=True)
+    remat, _ = _counted_step(port, remat_config,
+                             _train_state(port, remat_config, seed), batch,
+                             "remat", remat_steps=1)
+    log(f"[hybrid-train] use_remat hybrid step: {remat['ms']:.3f} ms (first "
+        f"step of its models), launches {remat['launches']}")
+
+    # m2w: mel windows from the collater, x = (mel,)
+    rng = np.random.default_rng(seed + 6)
+    hop = M2W_CONFIG["hop_size"]
+    frames = TRAIN_SECONDS * M2W_CONFIG["sampling_rate"] // hop
+    items = [{"audio": (0.3 * rng.standard_normal(frames * hop)).astype(
+                  np.float32),
+              "art": rng.standard_normal((frames, N_FEATS)).astype(
+                  np.float32),
+              "mel": rng.standard_normal((frames, M2W_MELS)).astype(
+                  np.float32)} for _ in range(M2W_CONFIG["batch_size"])]
+    m2w_batch = port["collate"].SpeechCollater(
+        M2W_CONFIG["batch_max_steps"], hop, dataset_mode="m2w",
+        config=M2W_CONFIG, rng=np.random.default_rng(seed))(items)
+    x_shape = m2w_batch["x"][0].shape
+    if x_shape != (len(items), M2W_CONFIG["batch_max_steps"] // hop,
+                   M2W_MELS):
+        raise AssertionError(f"[hybrid-train] m2w x {x_shape}")
+    m2w, _ = _counted_step(port, M2W_CONFIG,
+                           _train_state(port, M2W_CONFIG, seed),
+                           port["to_device"](m2w_batch,
+                                             torch.device("cuda")), "m2w")
+    log(f"[hybrid-train] m2w step (x {tuple(x_shape)}): {m2w['ms']:.3f} ms "
+        f"(first step of its models), launches {m2w['launches']}, mel loss "
+        f"{m2w['losses']['train/mel_loss']:.4f}")
+    return dict(out, turns=turns, profiled_step=profiled, remat_step=remat,
+                m2w_step=m2w)
 
 
 def numpy_bigru_params(gp: dict, seed: int) -> tuple[dict, dict]:
@@ -3134,6 +3435,7 @@ def main() -> int:
     from articulatory_tpu_torch import inference, streaming
     from articulatory_tpu_torch.bin import decode, predict_ema
     from articulatory_tpu_torch.bin import train as train_cli
+    from articulatory_tpu_torch.data import collate
     from articulatory_tpu_torch.layers import residual
     from articulatory_tpu_torch.models import build_model, hifigan
     from articulatory_tpu_torch.ops import _build
@@ -3221,6 +3523,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _write_corpus(tmp, args.seed)
         train_results = phase_train(train_port, args.seed, tmp)
+        hybrid_port = dict(train_port, build_optimizer=build_optimizer,
+                           collate=collate)
+        hybrid = phase_hybrid_train(hybrid_port, args.seed, tmp)
 
     # the MRI recipe: its pair and head shapes, its decode, its training
     mri = mri_config()
@@ -3415,6 +3720,18 @@ def main() -> int:
         "launches_recipe_train": recipe["launches"]["resblock_pair"],
         "launches_recipe_profiled": recipe["profiled_step"]["kernel_counts"][
             "resblock_pair_wgmma"],
+        # [hybrid-train]: the hybrid run through train() (per dtype), the
+        # counted step of each variant, the use_remat and m2w steps, and
+        # the kernels the profiler counted in the profiled hybrid step
+        "launches_hybrid_train": hybrid["launches_by_dtype"]["resblock_pair"],
+        "launches_hybrid_steps": {
+            k: v["counted_step"]["launches"]["resblock_pair"]
+            for k, v in hybrid["turns"].items()},
+        "launches_remat_step": hybrid["remat_step"]["launches"][
+            "resblock_pair"],
+        "launches_m2w_step": hybrid["m2w_step"]["launches"]["resblock_pair"],
+        "launches_hybrid_profiled": hybrid["profiled_step"]["kernel_counts"][
+            "resblock_pair_wgmma"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -3473,6 +3790,17 @@ def main() -> int:
         "launches_recipe_train": recipe["launches"]["scale_disc_head"],
         "launches_recipe_profiled": recipe["profiled_step"]["kernel_counts"][
             "scale_disc_head_wgmma"],
+        "launches_hybrid_train": hybrid["launches_by_dtype"][
+            "scale_disc_head"],
+        "launches_hybrid_steps": {
+            k: v["counted_step"]["launches"]["scale_disc_head"]
+            for k, v in hybrid["turns"].items()},
+        "launches_remat_step": hybrid["remat_step"]["launches"][
+            "scale_disc_head"],
+        "launches_m2w_step": hybrid["m2w_step"]["launches"][
+            "scale_disc_head"],
+        "launches_hybrid_profiled": hybrid["profiled_step"]["kernel_counts"][
+            "scale_disc_head_wgmma"],
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3484,7 +3812,8 @@ def main() -> int:
                    "kernel_train_totals": train_sums,
                    "kernel_train_stages": train_stages,
                    "head_shapes": head_rows, "slice": slice_results,
-                   "train": train_results, "mri_kernel_shapes": mri_rows,
+                   "train": train_results, "hybrid_train": hybrid,
+                   "mri_kernel_shapes": mri_rows,
                    "mri_kernel_totals": mri_sums,
                    "mri_kernel_stages": mri_stages,
                    "mri_head_shapes": mri_head_rows, "mri": mri_results,

@@ -141,10 +141,11 @@ def test_fold_weight_norm_matches_jax_and_keeps_outputs():
 
 def test_unported_options_raise():
     # speaker ids build since the conditioning's port
-    # (tests/test_torch_port_cond_models.py); spectral norm does not
+    # (tests/test_torch_port_cond_models.py), spectral norm since the
+    # training path's (tests/test_torch_port_spectral_norm.py); causal
+    # convs do not
     build_model("HiFiGANGenerator", dict(GP, use_spk_id=True, num_spk=2))
-    with pytest.raises(NotImplementedError):
-        build_model("HiFiGANPeriodDiscriminator",
-                    {"use_weight_norm": False, "use_spectral_norm": True})
+    build_model("HiFiGANPeriodDiscriminator",
+                {"use_weight_norm": False, "use_spectral_norm": True})
     with pytest.raises(NotImplementedError):
         build_model("MelGANGenerator", {"use_causal_conv": True})

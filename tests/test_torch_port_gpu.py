@@ -797,3 +797,74 @@ def test_device_cache_on_card_matches_cpu_and_trains(cuda):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert any(not torch.equal(a, p) for a, p in zip(before,
                                                      gen.parameters()))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_hybrid_train_step_kernels_match_plain(cuda, monkeypatch, remat):
+    """One step's losses of the hybrid generator (its first stage on the
+    bf16 pair, the last on the f32 one) and the bf16 discriminator (the
+    bf16 head): the launches per dtype (two pairs a stage a forward, a
+    third forward under ``use_remat``; 2 scales x 4 passes of the head),
+    f32 gradients on the f32 parameters, and each model's gradients
+    against both plain versions within twice the plain bf16 gradients'
+    own distance from the f32 ones (relative L2 pooled)."""
+    from articulatory_tpu_torch.layers import residual
+    from articulatory_tpu_torch.models import hifigan
+    from articulatory_tpu_torch.train import gan
+
+    gp = dict(in_channels=13 + 8, channels=128, upsample_scales=[5, 4],
+              upsample_kernel_sizes=[10, 8], resblock_kernel_sizes=[3, 7],
+              resblock_dilations=[[1, 3], [1]], use_ar=True, ar_input=64,
+              ar_hidden=8, ar_output=8, compute_dtype="bfloat16",
+              hybrid_precision=True)
+    dp = dict(scales=2, scale_discriminator_params=dict(
+        channels=128, max_downsample_channels=256,
+        downsample_scales=[4, 4, 1]), periods=[2, 3],
+        compute_dtype="bfloat16")
+    config = dict(generator_type="HiFiGANGenerator", generator_params=gp,
+                  discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+                  discriminator_params=dp, use_feat_match_loss=True,
+                  use_stft_loss=True, stft_loss_params=dict(
+                      fft_sizes=[128], hop_sizes=[32], win_lengths=[64]),
+                  lambda_aux=45.0, use_remat=remat)
+    gen = build_model("HiFiGANGenerator", gp).to(cuda)
+    disc = build_model(config["discriminator_type"], dp, seed=1).to(cuda)
+    state = gan.GANTrainState(generator=gen, discriminator=disc, opt_g=None,
+                              opt_d=None, steps=1)
+    criterion = gan.GANCriterion(config)
+    g = torch.Generator().manual_seed(2)
+    batch = {"x": (torch.randn(2, 20, 13, generator=g).to(cuda),),
+             "y": (0.3 * torch.randn(2, 400, 1, generator=g)).to(cuda),
+             "ar": (0.3 * torch.randn(2, 64, 1, generator=g)).to(cuda)}
+    with torch.no_grad():
+        fake = gan.generate(gen, batch)
+
+    def grads():
+        gl, _ = gan.generator_loss(state, criterion, config, batch)
+        dl, _ = gan.discriminator_loss(state, criterion, config, batch, fake)
+        return (torch.autograd.grad(gl, list(gen.parameters())),
+                torch.autograd.grad(dl, list(disc.parameters())))
+
+    resblock_pair.launches_by_dtype.clear()
+    scale_disc_head.launches_by_dtype.clear()
+    kernel = grads()
+    forwards = 2 if remat else 1
+    assert dict(resblock_pair.launches_by_dtype) == {
+        "torch.bfloat16": 3 * forwards, "torch.float32": 3 * forwards}
+    assert dict(scale_disc_head.launches_by_dtype) == {"torch.bfloat16": 8}
+    assert all(t.dtype == torch.float32 for ts in kernel for t in ts)
+    with monkeypatch.context() as m:
+        m.setattr(residual, "resblock_pair", resblock_pair_plain)
+        m.setattr(hifigan, "scale_disc_head", scale_disc_head_plain)
+        plain = grads()
+        for module in (*gen.modules(), *disc.modules()):
+            if hasattr(module, "compute_dtype"):
+                m.setattr(module, "compute_dtype", None)
+        f32 = grads()
+
+    def gap(got, want):
+        return (torch.stack([(a - b).norm() for a, b in zip(got, want)]).norm()
+                / torch.stack([b.norm() for b in want]).norm()).item()
+
+    for got, want, exact in zip(kernel, plain, f32):
+        assert gap(got, want) <= max(1e-3, 2 * gap(want, exact))

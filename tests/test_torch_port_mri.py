@@ -97,12 +97,15 @@ def test_collater_takes_the_a2w_streams_only():
     config = {"generator_params": {"use_ar": True, "ar_input": 512}}
     # w2a, the same streams the other way round, since the zoo's port; the
     # phoneme modes since the conditioning's (their batches against JAX's:
-    # tests/test_torch_port_cond_data.py)
+    # tests/test_torch_port_cond_data.py); m2w since the training path's
+    # (tests/test_torch_port_train_data.py), which refuses AR windows in
+    # the window package mode, as JAX does
     for mode in ("a2w", "default", _recipe()["dataset_mode"], "x2y", "w2a",
-                 "ph2a", "ph2m"):
+                 "ph2a", "ph2m", "m2w"):
         collate.SpeechCollater(2400, HOP, dataset_mode=mode, config=config)
     with pytest.raises(NotImplementedError):
-        collate.SpeechCollater(2400, HOP, dataset_mode="m2w", config=config)
+        collate.SpeechCollater(2400, HOP, dataset_mode="a2w",
+                               config=dict(config, package_mode="window"))
     for mode in ("a2w_mult", "a2w_pcd"):
         with pytest.raises(ValueError, match="decode-only"):
             collate.SpeechCollater(2400, HOP, dataset_mode=mode, config=config)

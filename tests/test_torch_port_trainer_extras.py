@@ -2,8 +2,9 @@
 subprocess of ``bin/train.py``), the ``profile_steps`` window, and resuming
 a JAX checkpoint: optax Adam / AdamW states carried into ``torch.optim``
 (one more update from the carried state leaves the parameters equal in
-float64 at 1e-10), and a JAX checkpoint file resumed by ``train()`` with its
-steps, epochs and schedulers. The JAX trees come from ``jax.eval_shape`` of
+float64 at 1e-10), a JAX checkpoint file resumed by ``train()`` with its
+steps, epochs and schedulers, and the refusal of a state torch keeps and
+optax does not (ASGD's average past its start). The JAX trees come from ``jax.eval_shape`` of
 the models' inits (no model is compiled) filled with seeded values; the
 optax updates are compiled at XLA's lowest optimisation level."""
 
@@ -253,16 +254,16 @@ def test_optax_state_carries_into_torch(name, params, clip):
                                    rtol=0, atol=1e-10, err_msg=key)
 
 
-def _jax_checkpoint(path, optimizer="Adam"):
-    """A JAX checkpoint after 2 steps: one generator and two discriminator
-    updates, both schedulers stepped accordingly, epochs 1."""
+def _jax_checkpoint(path, optimizer="Adam", params=OPT, d_updates=2):
+    """A JAX checkpoint after 2 steps: one generator and (by default) two
+    discriminator updates, both schedulers stepped accordingly, epochs 1."""
     rng = np.random.default_rng(3)
     params_g, params_d = _jax_trees(4)
-    tx = jax_optimizer(optimizer, dict(OPT), -1)
+    tx = jax_optimizer(optimizer, dict(params), -1)
     opt_g, opt_d = tx.init(params_g), tx.init(params_d)
     update = _jax_updater(tx, 1e-4)
     params_g, opt_g = update(params_g, opt_g, _random_like(params_g, rng))
-    for _ in range(2):
+    for _ in range(d_updates):
         params_d, opt_d = update(params_d, opt_d, _random_like(params_d, rng))
     schedulers = {k: jax_scheduler("MultiStepLR", 1e-4, SCHED)
                   for k in ("generator", "discriminator")}
@@ -321,10 +322,18 @@ def test_train_resumes_a_jax_checkpoint(tmp_path):
 
 
 def test_jax_resume_refuses_other_optimizers(tmp_path):
-    _jax_checkpoint(tmp_path / "jax.ckpt", optimizer="RAdam")
+    """Every optimizer of the JAX package resumes (the others in
+    ``tests/test_torch_port_optax_resume.py``) but where torch keeps a state
+    optax does not: ASGD's averaged iterate, once past ``t0`` + 2 updates
+    (here the discriminator's 4 with t0 1)."""
+    params = dict(lr=1e-4, t0=1)
+    _jax_checkpoint(tmp_path / "jax.ckpt", optimizer="ASGD", params=params,
+                    d_updates=4)
     _dump(tmp_path)
-    config = dict(CONFIG, generator_optimizer_type="RAdam",
-                  discriminator_optimizer_type="RAdam")
-    with pytest.raises(NotImplementedError, match="RAdam"):
+    config = dict(CONFIG, generator_optimizer_type="ASGD",
+                  discriminator_optimizer_type="ASGD",
+                  generator_optimizer_params=params,
+                  discriminator_optimizer_params=params)
+    with pytest.raises(NotImplementedError, match="ASGD"):
         train_cli.train(config, outdir=str(tmp_path / "exp"), device="cpu",
                         resume=str(tmp_path / "jax.ckpt"), **_dirs(tmp_path))
