@@ -11,7 +11,11 @@ Each directory holds a whole checkout (e.g. unpacked from ``git
 archive``); its own ``chip_smoke.py`` and ``articulatory_tpu_torch`` run,
 in the order parent, change, change, parent, ``--rounds`` times. Phases:
 ``w2a``, the full-utterance BiGRU at 13-d and 1024-d (samples/s, device
-ops and the device's busy share over one forward). Prints a line a run and
+ops and the device's busy share over one forward); ``hybrid-train``, the
+EMA training steps of ``[hybrid-train]`` (the f32, hybrid and hybrid +
+bf16-discriminator step medians in turns and their parts, after the
+kernels' build and the phase's synthetic corpus; both checkouts'
+``chip_smoke.py`` must define ``training_port``). Prints a line a run and
 writes every run's numbers to ``--out``. Needs one card.
 """
 
@@ -28,7 +32,22 @@ import tempfile
 # phase -> (chip_smoke function, the port modules its ``port`` dict holds)
 PHASES = {"w2a": ("phase_w2a", {
     "inference": "articulatory_tpu_torch.inference",
-    "weights": "articulatory_tpu_torch.utils.weights"})}
+    "weights": "articulatory_tpu_torch.utils.weights"}),
+    "hybrid-train": ("phase_hybrid_train", {})}
+
+
+def _hybrid_train(smoke, seed: int) -> dict:
+    """[hybrid-train] with the port of ``chip_smoke.training_port()``; its
+    step medians and parts by variant."""
+    from articulatory_tpu_torch.ops import _build
+
+    _build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        smoke._write_corpus(tmp, seed)
+        result = smoke.phase_hybrid_train(smoke.training_port(), seed, tmp)
+    return {k: {key: v[key] for key in (
+        "step_ms_median", "generator_fwd_bwd_ms", "regeneration_ms",
+        "discriminator_fwd_bwd_ms")} for k, v in result["turns"].items()}
 
 
 def run_child(phase: str, tree: str, seed: int) -> None:
@@ -39,18 +58,22 @@ def run_child(phase: str, tree: str, seed: int) -> None:
     smoke = importlib.import_module("chip_smoke")
     smi, device_name = smoke.phase_device()
     fn_name, modules = PHASES[phase]
-    port = {k: importlib.import_module(v) for k, v in modules.items()}
-    if not port["inference"].__file__.startswith(tree):
-        raise RuntimeError(f"{port['inference'].__file__} is not under {tree}")
+    inference = importlib.import_module("articulatory_tpu_torch.inference")
+    if not inference.__file__.startswith(tree):
+        raise RuntimeError(f"{inference.__file__} is not under {tree}")
     importlib.import_module(
         "articulatory_tpu_torch.utils.device").set_float32_parity()
-    with tempfile.TemporaryDirectory() as tmp:
-        result = getattr(smoke, fn_name)(port, seed, device_name, tmp)
-    summary = {str(k): {"samples_per_s": v["samples_per_s"],
-                        "seconds": v["seconds"],
-                        "device_ops": v["profile"]["device_ops"],
-                        "busy_share": v["profile"]["busy_share"]}
-               for k, v in result.items()}
+    if phase == "hybrid-train":
+        summary = _hybrid_train(smoke, seed)
+    else:
+        port = {k: importlib.import_module(v) for k, v in modules.items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            result = getattr(smoke, fn_name)(port, seed, device_name, tmp)
+        summary = {str(k): {"samples_per_s": v["samples_per_s"],
+                            "seconds": v["seconds"],
+                            "device_ops": v["profile"]["device_ops"],
+                            "busy_share": v["profile"]["busy_share"]}
+                   for k, v in result.items()}
     print("RESULT " + json.dumps({"smi": smi, "phase": phase,
                                   "numbers": summary}), flush=True)
 
@@ -88,9 +111,7 @@ def main(argv: list[str] | None = None) -> int:
             continue
         run = dict(json.loads(lines[0][len("RESULT "):]), tree=which)
         runs.append(run)
-        print(which, {k: (v["samples_per_s"], v["device_ops"],
-                          v["busy_share"])
-                      for k, v in run["numbers"].items()}, flush=True)
+        print(which, run["numbers"], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Speech-to-EMA inversion of a directory of wavs (port of the MFCC path of
+"""Speech-to-EMA inversion of a directory of wavs (port of
 ``egs/ema/voc1/local/predict_ema.py``).
 
-Each ``<fid>.wav`` becomes 13 z-scored MFCCs a frame (n_fft 320, 40 mels,
-hop 80, or 160 for ``hprc*`` experiments) and then, through the
-experiment's ``BiGRU`` (``<exp>/best_mel_ckpt.pkl`` and ``config.yml``),
+Each ``<fid>.wav`` becomes input features, then, through the experiment's
+inversion model (``<exp>/best_mel_ckpt.pkl`` and ``config.yml``),
 ``<fid>.npy`` EMA trajectories: the chunked AR loop for an AR model
 (``--ar-scan``: through the captured chunk step; ``--batch N``: N wavs as
-parallel AR lanes), one forward otherwise. HuBERT-feature experiments
-(``_h2`` in the id) raise: they need the ``transformers`` package and the
-``facebook/hubert-large-ll60k`` weights, which the port does not have.
+parallel AR lanes), one forward otherwise. The features:
+
+- HuBERT (``_h2`` in the experiment id): the last hidden states of
+  ``facebook/hubert-large-ll60k`` (``ARTICULATORY_HUBERT_MODEL`` names
+  another model id or a local ``save_pretrained`` directory; the model is
+  loaded once and cached), linearly interpolated (``align_corners=False``)
+  by 2 for ``hprc*`` experiments, else by 4, to the EMA frame rate. The
+  HuBERT forward (``hubert_states``, which needs the ``transformers``
+  package and raises an ``ImportError`` without it) is kept apart from the
+  interpolation (``interpolate_states``), which needs only torch;
+- otherwise 13 z-scored MFCCs a frame (n_fft 320, 40 mels, hop 80, or 160
+  for ``hprc*`` experiments).
 
     python -m articulatory_tpu_torch.bin.predict_ema <exp_id or exp_dir> \\
         <input_wav_dir> <output_dir> [--ar-scan] [--batch N] [--device cpu]
@@ -21,6 +29,8 @@ import os
 import sys
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from scipy import stats
 
 from articulatory_tpu_torch.inference import (
@@ -47,15 +57,62 @@ def hop_of(exp_id: str) -> int:
     return 160 if os.path.basename(exp_id).startswith("hprc") else 80
 
 
+def interp_factor_of(exp_id: str) -> int:
+    """The HuBERT frame-rate factor: 2 for ``hprc*`` ids, else 4."""
+    return 2 if os.path.basename(exp_id).startswith("hprc") else 4
+
+
+_HUBERT = None
+
+
+def load_hubert(device: str | torch.device = "cpu"):
+    """The HuBERT model on ``device``, loaded once and cached;
+    ``ARTICULATORY_HUBERT_MODEL`` overrides the model id."""
+    global _HUBERT
+    if _HUBERT is None:
+        try:
+            from transformers import HubertModel
+        except ImportError as e:
+            raise ImportError(
+                "HuBERT features ('_h2' experiments) need the transformers "
+                "package, which is not installed") from e
+        name = os.environ.get("ARTICULATORY_HUBERT_MODEL",
+                              "facebook/hubert-large-ll60k")
+        _HUBERT = HubertModel.from_pretrained(name).eval()
+    return _HUBERT.to(device)
+
+
+def hubert_states(audio: np.ndarray, device: str | torch.device = "cpu"
+                  ) -> torch.Tensor:
+    """HuBERT's ``last_hidden_state`` of a wave, ``(1, frames, hidden)``
+    on ``device``."""
+    model = load_hubert(device)
+    with torch.no_grad():
+        wave = torch.from_numpy(np.asarray(audio, np.float32))[None]
+        return model(wave.to(device)).last_hidden_state
+
+
+def interpolate_states(states: torch.Tensor, interp_factor: int
+                       ) -> torch.Tensor:
+    """``(1, T, C)`` hidden states -> ``(T * interp_factor, C)``, linear,
+    ``align_corners=False`` (the reference's ``F.interpolate``)."""
+    return F.interpolate(states.transpose(1, 2),
+                         size=states.shape[1] * interp_factor, mode="linear",
+                         align_corners=False).transpose(1, 2)[0]
+
+
+def hubert_features(audio: np.ndarray, interp_factor: int,
+                    device: str | torch.device = "cpu") -> np.ndarray:
+    """HuBERT features of a wave at the EMA frame rate, ``(T, hidden)``."""
+    states = hubert_states(audio, device)
+    return interpolate_states(states, interp_factor).float().cpu().numpy()
+
+
 def predict(exp_id: str, wav_dir: str, out_dir: str, ar_scan: bool = False,
             batch: int = 1, device: str | None = None) -> list[str]:
     """Invert every ``*.wav`` of ``wav_dir`` into ``out_dir/<fid>.npy``;
     returns the fids written."""
-    if "_h2" in exp_id:
-        raise NotImplementedError(
-            "HuBERT features ('_h2' experiments) are not ported: they need "
-            "the transformers package and the facebook/hubert-large-ll60k "
-            "weights in the repository")
+    hubert = "_h2" in exp_id
     hop_length = hop_of(exp_id)
     exp_dir = exp_id if os.path.isdir(exp_id) else os.path.join("exp", exp_id)
     from articulatory_tpu_torch.config import load_config
@@ -68,6 +125,9 @@ def predict(exp_id: str, wav_dir: str, out_dir: str, ar_scan: bool = False,
 
     def featurize(name: str) -> np.ndarray:
         audio, sr = read_wav(os.path.join(wav_dir, name))
+        if hubert:
+            return hubert_features(audio, interp_factor_of(exp_id),
+                                   model.device).astype(np.float32)
         return wav2mfcc(audio, sr, hop_length=hop_length).T.astype(np.float32)
 
     def save(name: str, pred: np.ndarray) -> None:

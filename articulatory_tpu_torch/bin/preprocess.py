@@ -25,7 +25,7 @@ import numpy as np
 
 from articulatory_tpu_torch.data.datasets import AudioSCPDataset, FileDataset
 from articulatory_tpu_torch.ops.audio import resample, trim_silence
-from articulatory_tpu_torch.ops.stft import logmelfilterbank_np
+from articulatory_tpu_torch.ops.mel import logmelfilterbank_np
 from articulatory_tpu_torch.utils.io import read_wav, write_hdf5
 
 

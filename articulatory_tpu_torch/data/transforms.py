@@ -3,21 +3,26 @@ copy of ``articulatory_tpu/data/transforms.py``).
 
 Parity target: reference articulatory/transforms/transforms.py (EMG
 notch/drift/subsample chain, 16->22.05 kHz resample). resampy is replaced by
-scipy polyphase resampling. Host-side numpy and scipy.
+scipy polyphase resampling. Host-side numpy and scipy (``scipy.signal``
+imported where it is used: it takes seconds to import, and every CLI
+imports this module).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import scipy.signal
 
 
 def remove_drift(signal: np.ndarray, fs: float) -> np.ndarray:
+    import scipy.signal
+
     b, a = scipy.signal.butter(3, 2, "highpass", fs=fs)
     return scipy.signal.filtfilt(b, a, signal)
 
 
 def notch(signal: np.ndarray, freq: float, sample_frequency: float) -> np.ndarray:
+    import scipy.signal
+
     b, a = scipy.signal.iirnotch(freq, 30, sample_frequency)
     return scipy.signal.filtfilt(b, a, signal)
 
@@ -51,6 +56,8 @@ def preprocess_emg(x: np.ndarray) -> np.ndarray:
 
 def resample_16_22(x: np.ndarray) -> np.ndarray:
     """16 kHz -> 22.05 kHz polyphase resample, clipped to [-1, 1]."""
+    import scipy.signal
+
     x = scipy.signal.resample_poly(x, 441, 320)
     return np.clip(x, -1, 1)
 

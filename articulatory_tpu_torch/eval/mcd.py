@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.fft
 
-from articulatory_tpu_torch.ops.stft import logmelfilterbank_np
+from articulatory_tpu_torch.ops.mel import logmelfilterbank_np
 
 MCD_CONST = 10.0 * np.sqrt(2.0) / np.log(10.0)
 

@@ -24,9 +24,9 @@ plain version. On a card a capture or replay that fails raises; nothing
 falls back to the eager loop. A w2a ragged tail runs after the whole chunks
 as one exact-shape forward, as in the JAX package.
 
-Weights may be stored as int8 (``LoadedModel.quantize_int8``) or bfloat16
-(``to_bf16_weights``); the kernels read the dequantized or upcast frozen
-weights. Float64 inputs decode in float64 through ``ar_loop`` (with a
+Weights of any model may be stored as int8 (``LoadedModel.quantize_int8``)
+or bfloat16 (``to_bf16_weights``); the layers and kernels read the
+dequantized or upcast frozen weights. Float64 inputs decode in float64 through ``ar_loop`` (with a
 ``.double()`` model), for parity checks.
 
 Every generator of the zoo decodes full utterances through
@@ -51,9 +51,6 @@ common frame rate (``ops/interp.py``) and handed to the model as the
 ``m``-th entry of a per-modality list (``None`` elsewhere), an ``in_list``
 model's input; the carry moves as in the plain loop. No model of the
 registry reads such a list, in the JAX package or here.
-
-Not ported yet (it raises ``NotImplementedError``): int8 or bf16 storage
-of any generator but the HiFi-GAN.
 """
 
 from __future__ import annotations
@@ -110,17 +107,11 @@ class LoadedModel:
         self.model.remove_weight_norm()
         self.graphs.clear()
 
-    def _check_storage(self, kind: str) -> None:
-        name = type(self.model).__name__
-        if name != "HiFiGANGenerator":
-            raise NotImplementedError(f"{kind} weight storage of a {name} is "
-                                      "not ported yet")
-
     def quantize_int8(self) -> None:
-        """Fold weight norm and store the conv and dense weights as int8
-        (symmetric per output channel, ``utils/quantize.py``); the frozen
-        kernels are dequantized once and cached."""
-        self._check_storage("int8")
+        """Fold weight norm and store the conv, dense, embedding, GRU and
+        attention weights as int8 (symmetric per output channel, JAX's rule,
+        ``utils/quantize.py``); the frozen weights are dequantized once and
+        cached."""
         from articulatory_tpu_torch.utils.quantize import (
             fold_weight_norm_,
             quantize_int8_,
@@ -134,18 +125,21 @@ class LoadedModel:
 
     def to_bf16_weights(self) -> None:
         """Fold weight norm and store every float parameter as bfloat16;
-        compute dtypes stay as they are (f32 layers upcast the weights)."""
+        compute dtypes stay as they are (f32 layers upcast the weights, once:
+        the frozen weights are cached)."""
         if self.quantized:
             raise ValueError(
                 "to_bf16_weights on an int8-quantized model would cast the "
                 "dequantization scales to bf16 (silent extra rounding); "
                 "pick one weight-compression scheme")
-        self._check_storage("bf16")
-        from articulatory_tpu_torch.utils.quantize import fold_weight_norm_
+        from articulatory_tpu_torch.utils.quantize import (
+            cast_bf16_,
+            fold_weight_norm_,
+        )
 
         self.remove_weight_norm()
         fold_weight_norm_(self.model)
-        self.model.to(torch.bfloat16)
+        cast_bf16_(self.model)
         self.graphs.clear()
 
     def _input(self, c) -> torch.Tensor:
@@ -405,8 +399,8 @@ class ChunkGraph:
                 f"failed; on a card the scan decode runs only as a graph"
             ) from e
         self.weights = [t for m in model.modules()
-                        for entry in (getattr(m, "_cache", None) or {}).values()
-                        for t in entry if t is not None]
+                        for t in (getattr(m, "_frozen", None) or {}).values()
+                        if t is not None]
 
     @torch.inference_mode()
     def run(self, chunks: torch.Tensor) -> torch.Tensor:

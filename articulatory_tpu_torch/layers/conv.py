@@ -19,17 +19,24 @@ derives the effective kernel in the ops layout (``ops/conv.py``) from (g, v);
 after ``remove_weight_norm()`` it is computed once per dtype and cached.
 Conv2d's spectral norm divides the kernel by its largest singular value,
 estimated afresh at every forward (``spectral_normalize``).
-A weight may be stored as int8 (``store_int8``: buffers ``<name>_int8`` and
+A weight may be stored as int8 (``store``: buffers ``<name>_int8`` and
 ``<name>_scale``, the parameter removed; ``utils/quantize.py``), read back
 as ``q.float() * s``, or in bfloat16: the effective weight is then derived
 in bfloat16, as the JAX package's layers define it, and cast to the compute
 dtype (its jitted forward lets XLA skip some of those bf16 roundings, so
-the two differ at bf16 rounding).
+the two differ at bf16 rounding). Stored weights are frozen: a layer
+derives each in a dtype once and caches it (``_Stored.weight_as``).
 Inits follow torch's defaults (U(+-1/sqrt(fan_in)) for kernel and bias), or
 N(0, std) for ``kernel_init="normal:<std>"``, N(0, sqrt(2 / fan_in)) for
 ``"kaiming_normal_relu"`` and zero biases for ``bias_init="zeros"``; random
 numbers come from the ``generator`` passed in. ``Embed`` is
 ``torch.nn.Embedding`` (N(0, 1) init, key ``weight``).
+
+``CausalConv1d`` and ``CausalConvTranspose1d`` are the reference's
+``causal_conv.py`` layers (the JAX package's ``layers/conv.py:297-336``):
+the first left-pads the input by ``(K - 1) * dilation`` with ``pad_value``
+before its inner ``conv``, the second drops the last ``stride`` samples of
+its inner ``deconv``; keys ``conv.*`` and ``deconv.*``.
 """
 
 from __future__ import annotations
@@ -93,7 +100,12 @@ def spectral_normalize(w: torch.Tensor, out_axis: int = -1,
 
 
 class _Stored(nn.Module):
-    """Weights that may be stored as int8 (per-channel scale)."""
+    """Weights that may be stored as int8 (per-channel scale) or bfloat16,
+    and the cache of frozen weights: once ``freeze()`` is called, each
+    weight derived in a dtype (``weight_as``, a conv's ``kernel``) is
+    derived once and kept until the module is moved or loaded."""
+
+    _frozen: dict | None = None  # (name, dtype) -> weight, once frozen
 
     def stored(self, name: str) -> torch.Tensor:
         """Parameter ``name``, dequantized (``q.float() * s``) if it is
@@ -103,16 +115,54 @@ class _Stored(nn.Module):
             return getattr(self, name)
         return q.float() * self._buffers[f"{name}_scale"]
 
-    def store_int8(self, name: str, q: torch.Tensor, s: torch.Tensor) -> None:
-        """Replace parameter ``name`` by int8 values ``q`` and float32
-        scales ``s`` (broadcast against q)."""
+    def store(self, name: str, **buffers: torch.Tensor) -> None:
+        """Replace parameter ``name`` by buffers ``<name>_<key>``: int8
+        values ``int8`` and float32 scales ``scale`` (broadcast against
+        them)."""
         delattr(self, name)
-        self.register_buffer(f"{name}_int8", q)
-        self.register_buffer(f"{name}_scale", s)
+        for key, value in buffers.items():
+            self.register_buffer(f"{name}_{key}", value)
+
+    def freeze(self) -> None:
+        """Cache each weight derived from now on (dropping any cached)."""
+        self._frozen = {}
+
+    def refresh(self) -> None:
+        """Drop the cached weights (after the parameters changed); a frozen
+        module stays frozen."""
+        if self._frozen:
+            self._frozen = {}
+
+    def _derived(self, key: tuple, make) -> torch.Tensor | None:
+        """``make()``, cached under ``key`` once frozen: every call returns
+        the same tensor, so what a kernel keeps with it (resblock_pair's f32
+        weight split) is made once."""
+        if self._frozen is None:
+            return make()
+        if key not in self._frozen:
+            w = make()
+            self._frozen[key] = None if w is None else w.detach()
+        return self._frozen[key]
+
+    def weight_as(self, name: str, dtype: torch.dtype | None
+                  ) -> torch.Tensor | None:
+        """``stored(name)`` cast to ``dtype`` (as stored with None)."""
+        def make():
+            w = self.stored(name)
+            return w if w is None or dtype is None else w.to(dtype)
+        return self._derived((name, dtype), make)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.refresh()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.refresh()
+        super()._load_from_state_dict(*args, **kwargs)
 
 
 class _Conv(_Stored):
-    """Parameters and kernel cache shared by Conv1d and ConvTranspose1d."""
+    """Parameters and frozen kernel shared by the convs."""
 
     def _make_params(self, shape, fan_in: int, out_channels: int, bias: bool,
                      use_weight_norm: bool, kernel_init: str,
@@ -134,7 +184,6 @@ class _Conv(_Stored):
         else:
             self.bias = _uniform((out_channels,), 1.0 / math.sqrt(fan_in),
                                  generator)
-        self._cache: dict | None = None  # dtype -> (kernel, bias) once folded
 
     def torch_weight(self) -> torch.Tensor:
         """The effective weight in torch's layout."""
@@ -148,31 +197,14 @@ class _Conv(_Stored):
 
     def kernel(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(kernel in the ops layout, bias), contiguous, in ``dtype``."""
-        if self._cache is not None and dtype in self._cache:
-            return self._cache[dtype]
-        w = self._ops_kernel(self.torch_weight()).to(dtype).contiguous()
-        b = None if self.bias is None else self.bias.to(dtype)
-        if self._cache is not None:
-            # every call returns the same tensors, so what a kernel keeps
-            # with them (resblock_pair's f32 weight split) is made once
-            self._cache[dtype] = (w.detach(), None if b is None else b.detach())
-            return self._cache[dtype]
-        return w, b
+        w = self._derived(("kernel", dtype), lambda: self._ops_kernel(
+            self.torch_weight()).to(dtype).contiguous())
+        return w, self.weight_as("bias", dtype)
 
     def remove_weight_norm(self) -> None:
         """Freeze the weights: the kernel is derived once per dtype and
         cached. Outputs are unchanged."""
-        self._cache = {}
-
-    def _apply(self, fn, *args, **kwargs):
-        if self._cache:
-            self._cache = {}
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        if self._cache:
-            self._cache = {}
-        super()._load_from_state_dict(*args, **kwargs)
+        self.freeze()
 
 
 class Conv1d(_Conv):
@@ -298,13 +330,13 @@ class Dense(_Stored):
         self.bias = _uniform((out_features,), bound, generator) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return torch.nn.functional.linear(x, self.stored("weight").to(x.dtype),
-                                          b)
+        return torch.nn.functional.linear(x, self.weight_as("weight", x.dtype),
+                                          self.weight_as("bias", x.dtype))
 
 
-class Embed(nn.Module):
-    """torch.nn.Embedding: ``weight`` (num_embeddings, features), N(0, 1)."""
+class Embed(_Stored):
+    """torch.nn.Embedding: ``weight`` (num_embeddings, features), N(0, 1);
+    looked up in the dtype it is stored in (int8 dequantized)."""
 
     def __init__(self, num_embeddings: int, features: int,
                  generator: torch.Generator | None = None):
@@ -313,7 +345,52 @@ class Embed(nn.Module):
             generator=_default_generator(generator)))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids]
+        return self.weight_as("weight", None)[ids]
+
+
+class CausalConv1d(nn.Module):
+    """Conv1d over NLC input left-padded by ``(K - 1) * dilation`` with
+    ``pad_value``: output t sees inputs up to t only."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dilation: int = 1, bias: bool = True,
+                 use_weight_norm: bool = False, pad_value: float = 0.0,
+                 kernel_init: str = "torch_default",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.pad = (kernel_size - 1) * dilation
+        self.pad_value = pad_value
+        self.conv = Conv1d(in_channels, out_channels, kernel_size,
+                           dilation=dilation, bias=bias,
+                           use_weight_norm=use_weight_norm,
+                           kernel_init=kernel_init, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None
+                ) -> torch.Tensor:
+        x = F.pad(x, (0, 0, self.pad, 0), value=self.pad_value)
+        return self.conv(x, dtype)
+
+
+class CausalConvTranspose1d(nn.Module):
+    """Unpadded ConvTranspose1d (kernel ``2 * stride`` in the zoo) with its
+    last ``stride`` samples dropped: T frames become T * stride."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, bias: bool = True,
+                 use_weight_norm: bool = False,
+                 kernel_init: str = "torch_default",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.stride = stride
+        self.deconv = ConvTranspose1d(in_channels, out_channels, kernel_size,
+                                      stride=stride, bias=bias,
+                                      use_weight_norm=use_weight_norm,
+                                      kernel_init=kernel_init,
+                                      generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None
+                ) -> torch.Tensor:
+        return self.deconv(x, dtype)[:, : -self.stride]
 
 
 def remove_weight_norm(model: nn.Module) -> None:

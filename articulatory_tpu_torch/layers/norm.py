@@ -37,9 +37,16 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:  # one fused kernel over (N, C)
-            return F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean,
-                                self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps).reshape(x.shape)
+            # flax's dtypes (bfloat16 storage): computed in the statistics'
+            # dtype or wider, returned in that of x, scale and bias
+            dtype = torch.promote_types(x.dtype, self.running_mean.dtype)
+            out = torch.promote_types(torch.promote_types(
+                x.dtype, self.weight.dtype), self.bias.dtype)
+            return F.batch_norm(x.reshape(-1, x.shape[-1]).to(dtype),
+                                self.running_mean, self.running_var,
+                                self.weight.to(dtype), self.bias.to(dtype),
+                                False, 0.0, self.eps
+                                ).reshape(x.shape).to(out)
         dims = tuple(range(x.dim() - 1))
         var, mean = torch.var_mean(x, dim=dims, correction=0)
         if self.update_stats:

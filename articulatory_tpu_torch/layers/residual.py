@@ -13,18 +13,21 @@ them):
 
 - ``MelGANResidualStack``: ``conv_out(act(conv_dilated(act(x)))) +
   skip_layer(x)``, reflect padding; keys ``stack.2``, ``stack.4``,
-  ``skip_layer``;
+  ``skip_layer``; with ``use_causal_conv`` the dilated conv is a
+  ``CausalConv1d`` (zero left padding, as the JAX package's), keys
+  ``stack.1.conv``, ``stack.3``, ``skip_layer`` (the reference's causal
+  ``nn.Sequential`` has no pad layer);
 - ``WaveNetResidualBlock``: the gated ``tanh * sigmoid`` dilated conv with a
   1x1 aux conditioning, returning ``((out + x) * sqrt(0.5), skip)``; keys
-  ``conv``, ``conv1x1_aux``, ``conv1x1_skip``, ``conv1x1_out``;
+  ``conv``, ``conv1x1_aux``, ``conv1x1_skip``, ``conv1x1_out``; with
+  ``use_causal_conv`` the dilated conv is left-padded by ``(K - 1) *
+  dilation`` (any K);
 - ``ResBlock``: conv-BatchNorm (Gaddy & Klein), ``layers/norm.py``'s
   BatchNorm; keys ``conv1``, ``bn1``, ``conv2``, ``bn2``, ``residual_path``,
   ``res_norm``;
 - ``GBlock``: GAN-TTS, nearest upsampling and dilations (1, 3) + (9, 27);
   keys ``conv1.{1,3}``, ``res1.0`` (shifted by one after an upsample
   layer), ``conv2.{1,3}``.
-
-Causal convs (``use_causal_conv``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.activations import get_activation
-from articulatory_tpu_torch.layers.conv import Conv1d
+from articulatory_tpu_torch.layers.conv import CausalConv1d, Conv1d
 from articulatory_tpu_torch.layers.norm import BatchNorm
 from articulatory_tpu_torch.ops.resblock_pair import resblock_pair
 
@@ -47,12 +50,6 @@ def pad_layer_to_mode(pad: str) -> str:
     """Torch pad-layer class names -> ``Conv1d`` pad modes."""
     return {"ReflectionPad1d": "reflect", "ReplicationPad1d": "replicate",
             "ConstantPad1d": "zeros"}.get(pad, "zeros")
-
-
-def no_causal(use_causal_conv: bool) -> None:
-    if use_causal_conv:
-        raise NotImplementedError("causal convs (use_causal_conv) are not "
-                                  "ported yet")
 
 
 def nearest_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -122,24 +119,31 @@ class MelGANResidualStack(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         del pad_params
-        no_causal(use_causal_conv)
-        if (kernel_size - 1) % 2:
-            raise ValueError("Not support even kernel size.")
         self.act = get_activation(nonlinear_activation,
                                   nonlinear_activation_params
                                   or {"negative_slope": 0.2})
         conv = dict(bias=bias, use_weight_norm=use_weight_norm,
                     generator=generator)
-        self.stack = nn.ModuleDict({
-            "2": Conv1d(channels, channels, kernel_size, dilation=dilation,
-                        padding=(kernel_size - 1) // 2 * dilation,
-                        pad_mode=pad_layer_to_mode(pad), **conv),
-            "4": Conv1d(channels, channels, 1, **conv)})
+        if use_causal_conv:
+            # the reference's Sequential(act, CausalConv1d, act, conv)
+            self.stack = nn.ModuleDict({
+                "1": CausalConv1d(channels, channels, kernel_size,
+                                  dilation=dilation, **conv),
+                "3": Conv1d(channels, channels, 1, **conv)})
+        else:
+            if (kernel_size - 1) % 2:
+                raise ValueError("Not support even kernel size.")
+            self.stack = nn.ModuleDict({
+                "2": Conv1d(channels, channels, kernel_size,
+                            dilation=dilation,
+                            padding=(kernel_size - 1) // 2 * dilation,
+                            pad_mode=pad_layer_to_mode(pad), **conv),
+                "4": Conv1d(channels, channels, 1, **conv)})
         self.skip_layer = Conv1d(channels, channels, 1, **conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.stack["2"](self.act(x))
-        return self.stack["4"](self.act(y)) + self.skip_layer(x)
+        dilated, out = self.stack.values()
+        return out(self.act(dilated(self.act(x)))) + self.skip_layer(x)
 
 
 class WaveNetResidualBlock(nn.Module):
@@ -153,15 +157,16 @@ class WaveNetResidualBlock(nn.Module):
                  use_causal_conv: bool = False, use_weight_norm: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
-        no_causal(use_causal_conv)
-        if (kernel_size - 1) % 2:
+        if not use_causal_conv and (kernel_size - 1) % 2:
             raise ValueError("Not support even kernel size.")
         self.dropout = dropout
         conv = dict(use_weight_norm=use_weight_norm,
                     kernel_init="kaiming_normal_relu", generator=generator)
+        # causal: left padding only, so output t sees inputs up to t
+        pad = (kernel_size - 1) * dilation
         self.conv = Conv1d(residual_channels, gate_channels, kernel_size,
                            dilation=dilation,
-                           padding=(kernel_size - 1) // 2 * dilation,
+                           padding=(pad, 0) if use_causal_conv else pad // 2,
                            bias=bias, bias_init="zeros", **conv)
         if aux_channels > 0:
             self.conv1x1_aux = Conv1d(aux_channels, gate_channels, 1,

@@ -15,6 +15,10 @@ the probabilities in training.
 
 ``TransformerEncoderLayer``: post-norm, ``norm1(x + dropout(attn(x)))``,
 then ``norm2(x + dropout(linear2(dropout(relu(linear1(x))))))``.
+
+The attention's weights and the relative table may be stored as int8 or
+bfloat16 (``utils/quantize.py``) and are read in the input's dtype, as the
+LayerNorms' scales and biases are.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from articulatory_tpu_torch.layers.conv import Dense
+from articulatory_tpu_torch.layers.conv import Dense, _Stored
 
 
 def relative_position_logits(q: torch.Tensor, table: torch.Tensor,
@@ -40,7 +44,7 @@ def relative_position_logits(q: torch.Tensor, table: torch.Tensor,
     return gathered + mask
 
 
-class _RelativePositional(nn.Module):
+class _RelativePositional(_Stored):
     def __init__(self, n_head: int, max_relative_pos: int, d_qkv: int,
                  generator: torch.Generator):
         super().__init__()
@@ -49,7 +53,7 @@ class _RelativePositional(nn.Module):
                 0.0, d_qkv ** -0.5, generator=generator))
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(_Stored):
     def __init__(self, d_model: int = 256, n_head: int = 4,
                  dropout: float = 0.1, relative_positional: bool = True,
                  relative_positional_distance: int = 100,
@@ -78,18 +82,29 @@ class MultiHeadAttention(nn.Module):
             if relative_positional else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q = torch.einsum("btf,hfa->bhta", x, self.w_q)
-        k = torch.einsum("btf,hfa->bhta", x, self.w_k)
-        v = torch.einsum("btf,hfa->bhta", x, self.w_v)
+        q = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_q", x.dtype))
+        k = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_k", x.dtype))
+        v = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_v", x.dtype))
         logits = torch.einsum("bhqa,bhka->bhqk", q, k) / (self.d_qkv ** 0.5)
         if self.relative_positional is not None:
-            logits = logits + relative_position_logits(
-                q, self.relative_positional.embeddings[..., 0], self.distance)
+            table = self.relative_positional.weight_as("embeddings", x.dtype)
+            logits = logits + relative_position_logits(q, table[..., 0],
+                                                       self.distance)
         probs = torch.softmax(logits, dim=-1)
         if self.dropout > 0.0 and self.training:
             probs = F.dropout(probs, self.dropout, training=True)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
-        return torch.einsum("bhta,haf->btf", o, self.w_o)
+        return torch.einsum("bhta,haf->btf", o, self.weight_as("w_o", x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose scale and bias are read in the input's dtype
+    (bfloat16 storage)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -104,8 +119,8 @@ class TransformerEncoderLayer(nn.Module):
             relative_positional_distance, generator=generator)
         self.linear1 = Dense(d_model, dim_feedforward, generator=generator)
         self.linear2 = Dense(dim_feedforward, d_model, generator=generator)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         if self.dropout > 0.0 and self.training:

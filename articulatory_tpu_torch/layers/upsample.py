@@ -14,8 +14,14 @@ on load.
 ``ConvInUpsampleNetwork``: an unpadded ``2 * aux_context_window + 1``
 context Conv1d (``conv_in``) then ``upsample``.
 
+With ``use_causal_conv`` (the JAX package's ``layers/upsample.py:43-113``)
+each smoothing conv pads ``2 * scale`` on both sides of time and keeps the
+first T outputs (output t sees the stretched inputs up to t), and
+``conv_in`` is ``aux_context_window + 1`` wide with its last
+``aux_context_window`` outputs dropped; the keys do not change.
+
 ``interpolate_mode`` stretches by ``nearest`` repetition or ``linear``
-interpolation (``ops/interp.py``); only non-causal convs are ported.
+interpolation (``ops/interp.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from articulatory_tpu_torch.layers.conv import (
     Conv2d,
     weight_norm_weight,
 )
-from articulatory_tpu_torch.layers.residual import nearest_upsample, no_causal
+from articulatory_tpu_torch.layers.residual import nearest_upsample
 from articulatory_tpu_torch.ops.interp import interpolate_linear
 
 
@@ -55,7 +61,7 @@ class UpsampleNetwork(nn.Module):
                  freq_axis_kernel_size: int = 1,
                  use_causal_conv: bool = False):
         super().__init__()
-        no_causal(use_causal_conv)
+        self.use_causal_conv = use_causal_conv
         if interpolate_mode not in ("nearest", "linear"):
             raise ValueError(f"unsupported interpolate_mode "
                              f"{interpolate_mode!r} (supported: nearest, "
@@ -71,7 +77,8 @@ class UpsampleNetwork(nn.Module):
         freq_pad = (freq_axis_kernel_size - 1) // 2
         for i, scale in enumerate(self.scales):
             kernel = (freq_axis_kernel_size, 2 * scale + 1)
-            conv = _FoldedConv2d(1, 1, kernel, padding=(freq_pad, scale),
+            time_pad = 2 * scale if use_causal_conv else scale
+            conv = _FoldedConv2d(1, 1, kernel, padding=(freq_pad, time_pad),
                                  bias=False)
             with torch.no_grad():
                 conv.weight.fill_(1.0 / np.prod(kernel))
@@ -84,7 +91,10 @@ class UpsampleNetwork(nn.Module):
             else:
                 c = interpolate_linear(c, c.shape[1] * scale)
             # (B, T, C) -> an image (B, C, T, 1): features x time, 1 channel
-            c = conv(c.transpose(1, 2)[..., None])[..., 0].transpose(1, 2)
+            img = conv(c.transpose(1, 2)[..., None])
+            if self.use_causal_conv:
+                img = img[:, :, : c.shape[1]]
+            c = img[..., 0].transpose(1, 2)
             if self.act is not None:
                 c = self.act(c)
         return c
@@ -100,16 +110,21 @@ class ConvInUpsampleNetwork(nn.Module):
                  use_weight_norm: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        no_causal(use_causal_conv)
-        self.conv_in = Conv1d(aux_channels, aux_channels,
-                              2 * aux_context_window + 1, bias=False,
+        # causal: the context lies before the frame, trimmed after the conv
+        self.trim = aux_context_window if use_causal_conv else 0
+        width = (aux_context_window + 1 if use_causal_conv
+                 else 2 * aux_context_window + 1)
+        self.conv_in = Conv1d(aux_channels, aux_channels, width, bias=False,
                               use_weight_norm=use_weight_norm,
                               kernel_init="kaiming_normal_relu",
                               generator=generator)
         self.upsample = UpsampleNetwork(
             upsample_scales, nonlinear_activation,
             nonlinear_activation_params, interpolate_mode,
-            freq_axis_kernel_size)
+            freq_axis_kernel_size, use_causal_conv)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
-        return self.upsample(self.conv_in(c))
+        c = self.conv_in(c)
+        if self.trim:
+            c = c[:, : -self.trim]
+        return self.upsample(c)

@@ -5,7 +5,12 @@
 ConvTranspose1d, ``stacks`` ``MelGANResidualStack``s with dilations
 ``stack_kernel_size ** j``) -> activation -> reflect-padded output conv ->
 tanh. Its convs sit in ``melgan``, a dict keyed by their index in the
-reference's ``nn.Sequential`` (``melgan.1``, ``melgan.3``, ...).
+reference's ``nn.Sequential`` (``melgan.1``, ``melgan.3``, ...). With
+``use_causal_conv`` (the JAX package's ``models/melgan.py:68-117``) the
+input and output convs are ``CausalConv1d``s (zero left padding, as the
+JAX package pads), the upsamplers ``CausalConvTranspose1d``s and the
+stacks causal; the reference's causal ``nn.Sequential`` has no pad layers,
+so the keys are ``melgan.0.conv``, ``melgan.{i}.deconv``, ...
 
 ``MelGANDiscriminator``: a reflect-padded k0 * k1 conv, grouped strided
 convs (``groups = channels // 4``), then two convs; returns every layer's
@@ -14,7 +19,7 @@ output, the last the logits. Keys ``layers.0.1``, ``layers.{i}.0``,
 
 ``MelGANMultiScaleDiscriminator``: ``scales`` discriminators with an
 ``AvgPool1d`` between them (``count_include_pad`` False by default, as
-the JAX package's ``avg_pool1d``). Causal convs are not ported.
+the JAX package's ``avg_pool1d``).
 """
 
 from __future__ import annotations
@@ -27,13 +32,14 @@ from torch import nn
 
 from articulatory_tpu_torch.layers.activations import get_activation
 from articulatory_tpu_torch.layers.conv import (
+    CausalConv1d,
+    CausalConvTranspose1d,
     Conv1d,
     ConvTranspose1d,
     remove_weight_norm,
 )
 from articulatory_tpu_torch.layers.residual import (
     MelGANResidualStack,
-    no_causal,
     pad_layer_to_mode,
 )
 from articulatory_tpu_torch.ops.conv import avg_pool1d
@@ -54,13 +60,12 @@ class MelGANGenerator(nn.Module):
                  use_weight_norm: bool = True, use_causal_conv: bool = False,
                  seed: int = 0):
         super().__init__()
-        no_causal(use_causal_conv)
         if channels < np.prod(upsample_scales):
             raise ValueError("channels must be >= prod(upsample_scales)")
         if channels % (2 ** len(upsample_scales)):
             raise ValueError("channels must be divisible by "
                              "2 ** len(upsample_scales)")
-        if (kernel_size - 1) % 2:
+        if not use_causal_conv and (kernel_size - 1) % 2:
             raise ValueError("Not support even kernel size.")
         generator = torch.Generator().manual_seed(seed)
         act_params = nonlinear_activation_params or {"negative_slope": 0.2}
@@ -69,37 +74,48 @@ class MelGANGenerator(nn.Module):
         pad_mode = pad_layer_to_mode(pad)
         conv = dict(bias=bias, use_weight_norm=use_weight_norm,
                     generator=generator)
-        layers = {1: Conv1d(in_channels, channels, kernel_size,
-                            padding=(kernel_size - 1) // 2,
-                            pad_mode=pad_mode, **conv)}
-        idx = 2
+
+        def edge_conv(c_in: int, c_out: int) -> nn.Module:
+            if use_causal_conv:
+                return CausalConv1d(c_in, c_out, kernel_size, **conv)
+            return Conv1d(c_in, c_out, kernel_size,
+                          padding=(kernel_size - 1) // 2, pad_mode=pad_mode,
+                          **conv)
+
+        # the index of each conv in the reference's nn.Sequential: a pad
+        # layer precedes the edge convs unless they are causal
+        idx = 0 if use_causal_conv else 1
+        layers = {idx: edge_conv(in_channels, channels)}
+        idx += 1
         ch = channels
         for i, scale in enumerate(upsample_scales):
             out = channels // (2 ** (i + 1))
             idx += 1  # the activation
-            layers[idx] = ConvTranspose1d(
-                ch, out, scale * 2, stride=scale,
-                padding=scale // 2 + scale % 2, output_padding=scale % 2,
-                **conv)
+            layers[idx] = (
+                CausalConvTranspose1d(ch, out, scale * 2, stride=scale,
+                                      **conv) if use_causal_conv else
+                ConvTranspose1d(ch, out, scale * 2, stride=scale,
+                                padding=scale // 2 + scale % 2,
+                                output_padding=scale % 2, **conv))
             idx += 1
             for j in range(stacks):
                 layers[idx] = MelGANResidualStack(
                     stack_kernel_size, out, stack_kernel_size ** j, bias,
                     nonlinear_activation, act_params, pad, pad_params,
+                    use_causal_conv=use_causal_conv,
                     use_weight_norm=use_weight_norm, generator=generator)
                 idx += 1
             ch = out
-        idx += 2  # the final activation and pad layer
-        layers[idx] = Conv1d(ch, out_channels, kernel_size,
-                             padding=(kernel_size - 1) // 2,
-                             pad_mode=pad_mode, **conv)
+        idx += 1 if use_causal_conv else 2  # the activation (and pad layer)
+        layers[idx] = edge_conv(ch, out_channels)
         self.melgan = nn.ModuleDict({str(k): v for k, v in layers.items()})
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         modules = list(self.melgan.values())
         x = modules[0](c)
         for m in modules[1:-1]:
-            x = m(self.act(x)) if isinstance(m, ConvTranspose1d) else m(x)
+            upsample = isinstance(m, (ConvTranspose1d, CausalConvTranspose1d))
+            x = m(self.act(x)) if upsample else m(x)
         x = modules[-1](self.act(x))
         return torch.tanh(x) if self.use_final_nonlinear_activation else x
 

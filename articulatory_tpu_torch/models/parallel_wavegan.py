@@ -5,7 +5,10 @@
 features ``c`` (B, T' + 2 * aux_context_window, aux_channels), upsampled by
 ``upsample_net`` to T, through ``layers`` ``WaveNetResidualBlock``s
 (dilation ``2 ** (layer % layers_per_stack)``); the skips summed times
-``sqrt(1 / layers)`` -> ReLU -> 1x1 -> ReLU -> 1x1. Keys ``first_conv``,
+``sqrt(1 / layers)`` -> ReLU -> 1x1 -> ReLU -> 1x1. With
+``use_causal_conv`` (the JAX package's ``models/parallel_wavegan.py:40-94``)
+the blocks' dilated convs and the upsampling network are causal; the keys
+stay the same. Keys ``first_conv``,
 ``upsample_net``, ``conv_layers.{i}``, ``last_conv_layers.{1,3}``. The
 noise is an argument: training draws it from a seeded ``torch.Generator``
 (or takes the legacy collater's), decoding from ``noise_generator``.
@@ -14,8 +17,8 @@ noise is an argument: training draws it from a seeded ``torch.Generator``
 ``conv_layers.{2 i}``). ``ResidualParallelWaveGANDiscriminator``: a WaveNet
 stack without aux features (keys ``first_conv.0``, ``conv_layers.{i}``,
 ``last_conv_layers.{1,3}``); as in the JAX package, its dropout never runs
-(the training step calls discriminators deterministically). Causal convs
-are not ported.
+(the training step calls discriminators deterministically); its
+``use_causal_conv`` makes the blocks causal.
 """
 
 from __future__ import annotations
@@ -29,10 +32,7 @@ from torch import nn
 
 from articulatory_tpu_torch.layers.activations import get_activation
 from articulatory_tpu_torch.layers.conv import Conv1d, remove_weight_norm
-from articulatory_tpu_torch.layers.residual import (
-    WaveNetResidualBlock,
-    no_causal,
-)
+from articulatory_tpu_torch.layers.residual import WaveNetResidualBlock
 from articulatory_tpu_torch.layers.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
@@ -53,7 +53,6 @@ class ParallelWaveGANGenerator(nn.Module):
                  upsample_net: str = "ConvInUpsampleNetwork",
                  upsample_params: dict | None = None, seed: int = 0):
         super().__init__()
-        no_causal(use_causal_conv)
         if layers % stacks:
             raise ValueError("layers must be a multiple of stacks")
         generator = torch.Generator().manual_seed(seed)
@@ -68,7 +67,7 @@ class ParallelWaveGANGenerator(nn.Module):
                                  generator=generator, **_KAIMING)
         self.upsample_net = None
         if upsample_conditional_features:
-            params.pop("use_causal_conv", None)
+            params["use_causal_conv"] = use_causal_conv
             if upsample_net == "ConvInUpsampleNetwork":
                 self.upsample_net = ConvInUpsampleNetwork(
                     aux_channels=aux_channels,
@@ -82,7 +81,8 @@ class ParallelWaveGANGenerator(nn.Module):
         self.conv_layers = nn.ModuleList([WaveNetResidualBlock(
             kernel_size, residual_channels, gate_channels, skip_channels,
             aux_channels, dropout, 2 ** (layer % self.layers_per_stack), bias,
-            use_weight_norm=use_weight_norm, generator=generator)
+            use_causal_conv, use_weight_norm=use_weight_norm,
+            generator=generator)
             for layer in range(layers)])
         self.last_conv_layers = nn.ModuleDict({
             "1": Conv1d(skip_channels, skip_channels, 1,
@@ -182,7 +182,6 @@ class ResidualParallelWaveGANDiscriminator(nn.Module):
                  nonlinear_activation_params: dict | None = None,
                  seed: int = 0):
         super().__init__()
-        no_causal(use_causal_conv)
         if (kernel_size - 1) % 2 or layers % stacks:
             raise ValueError("odd kernel_size and layers a multiple of "
                              "stacks only")
@@ -197,7 +196,7 @@ class ResidualParallelWaveGANDiscriminator(nn.Module):
             generator=generator, **_KAIMING)})
         self.conv_layers = nn.ModuleList([WaveNetResidualBlock(
             kernel_size, residual_channels, gate_channels, skip_channels, -1,
-            dropout, 2 ** (layer % per_stack), bias,
+            dropout, 2 ** (layer % per_stack), bias, use_causal_conv,
             use_weight_norm=use_weight_norm, generator=generator)
             for layer in range(layers)])
         self.last_conv_layers = nn.ModuleDict({

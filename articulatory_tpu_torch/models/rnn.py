@@ -30,6 +30,26 @@ from articulatory_tpu_torch.layers.norm import BatchNorm
 from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 
 
+class StoredGRU(nn.GRU):
+    """``nn.GRU`` whose weights may be stored as int8 (buffers
+    ``<name>_int8``, ``<name>_scale``) or bfloat16 (``<name>_bf16``); the
+    parameters stay float32 and hold the stored values, dequantized or
+    upcast (the JAX package computes with them so: its GRU promotes the
+    stored weights against the float32 input)."""
+
+    def store(self, name: str, **buffers: torch.Tensor) -> None:
+        """Keep ``buffers`` as ``<name>_<key>`` and write their value into
+        parameter ``name``, in place (the flat weight buffer stays)."""
+        for key, value in buffers.items():
+            self.register_buffer(f"{name}_{key}", value)
+        if "int8" in buffers:
+            value = buffers["int8"].float() * buffers["scale"]
+        else:
+            value = buffers["bf16"].float()
+        with torch.no_grad():
+            getattr(self, name).copy_(value)
+
+
 class BiGRU(nn.Module):
     def __init__(self, in_channels: int = 80, hidden_size: int = 256,
                  dropout: float = 0.3, out_channels: int = 1,
@@ -53,10 +73,10 @@ class BiGRU(nn.Module):
         if use_spk_emb:
             self.spk_fc = Dense(spk_emb_size, spk_emb_hidden,
                                 generator=generator)
-        self.gru1 = nn.GRU(in_channels, hidden_size, batch_first=True,
-                           bidirectional=True)
-        self.gru2 = nn.GRU(2 * hidden_size, hidden_size, batch_first=True,
-                           bidirectional=True)
+        self.gru1 = StoredGRU(in_channels, hidden_size, batch_first=True,
+                              bidirectional=True)
+        self.gru2 = StoredGRU(2 * hidden_size, hidden_size, batch_first=True,
+                              bidirectional=True)
         bound = hidden_size ** -0.5
         with torch.no_grad():  # torch's GRU init, from the seeded generator
             for p in (*self.gru1.parameters(), *self.gru2.parameters()):

@@ -6,6 +6,11 @@ positional ``filters.mel`` (``htk=False``, ``norm='slaney'``). A fixed
 matrix, designed once on the host; an ``fmax`` above Nyquist (the e2w mel
 loss's 11025 at 16 kHz) is taken as given, as librosa and the JAX package
 do: the top filters then reach past the last FFT bin.
+
+``logmelfilterbank_np`` is the host (numpy, float64) log-mel of feature
+extraction and MCD: librosa's centred STFT magnitude (``padded_window``,
+the periodic Hann window zero-padded centred to ``n_fft``), the mel
+matmul, a clamp at ``eps`` and the log.
 """
 
 from __future__ import annotations
@@ -86,3 +91,45 @@ def mel_filterbank(sr: float, n_fft: int, n_mels: int = 128,
     elif norm is not None:
         raise ValueError(f"Unsupported norm={norm}")
     return weights.astype(dtype)
+
+
+def periodic_hann(win_length: int) -> np.ndarray:
+    """Periodic Hann window (``torch.hann_window``), float64."""
+    n = np.arange(win_length, dtype=np.float64)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+
+
+def padded_window(window: str, win_length: int, n_fft: int) -> np.ndarray:
+    """The ``win_length`` window zero-padded centred to ``n_fft``, float64."""
+    if window not in ("hann", "hann_window"):
+        raise ValueError(f"Unsupported window: {window}")
+    w = periodic_hann(win_length)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        w = np.pad(w, (lpad, n_fft - win_length - lpad))
+    return w
+
+
+def logmelfilterbank_np(audio: np.ndarray, sampling_rate: int, *,
+                        fft_size: int = 1024, hop_size: int = 256,
+                        win_length: int | None = None, window: str = "hann",
+                        num_mels: int = 80, fmin: float | None = None,
+                        fmax: float | None = None, eps: float = 1e-10,
+                        log_base: float | None = 10.0) -> np.ndarray:
+    """Log-mel ``(n_frames, num_mels)`` float32 of a 1-D wave, accumulated in
+    float64 (``log_base`` 10, 2 or None for the natural log)."""
+    w = padded_window(window, win_length or fft_size, fft_size)
+    pad = fft_size // 2
+    x = np.pad(audio.astype(np.float64), (pad, pad), mode="reflect")
+    n_frames = (len(x) - fft_size) // hop_size + 1
+    idx = np.arange(fft_size)[None, :] + hop_size * np.arange(n_frames)[:, None]
+    spc = np.abs(np.fft.rfft(x[idx] * w, axis=-1))  # (frames, bins)
+    fmin = 0 if fmin is None else fmin
+    fmax = sampling_rate / 2 if fmax is None else fmax
+    mel_basis = mel_filterbank(sampling_rate, fft_size, num_mels, fmin, fmax,
+                               dtype=np.float64)
+    mel = np.maximum(eps, spc @ mel_basis.T)
+    logs = {None: np.log, 10.0: np.log10, 2.0: np.log2}
+    if log_base not in logs:
+        raise ValueError(f"log_base {log_base} is not supported.")
+    return logs[log_base](mel).astype(np.float32)

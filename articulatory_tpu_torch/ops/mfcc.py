@@ -13,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.fft
 
-from articulatory_tpu_torch.ops.mel import mel_filterbank
-from articulatory_tpu_torch.ops.stft import padded_window
+from articulatory_tpu_torch.ops.mel import mel_filterbank, padded_window
 
 
 def melspectrogram_np(y: np.ndarray, sr: int, n_fft: int = 2048,

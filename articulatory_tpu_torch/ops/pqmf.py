@@ -23,13 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy.signal.windows import kaiser
 from torch import nn
 
 
 def design_prototype_filter(taps: int = 62, cutoff_ratio: float = 0.142,
                             beta: float = 9.0) -> np.ndarray:
     """Kaiser-windowed lowpass prototype, ``(taps + 1,)``."""
+    from scipy.signal.windows import kaiser  # seconds to import: used here only
+
     if taps % 2 != 0:
         raise ValueError("The number of taps must be an even number.")
     if not 0.0 < cutoff_ratio < 1.0:

@@ -148,11 +148,12 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
 
 def jax_bigru_to_state_dict(params: Mapping[str, Any],
                             mutables: Mapping[str, Any],
-                            generator_params: Mapping[str, Any]
-                            ) -> dict[str, torch.Tensor]:
+                            generator_params: Mapping[str, Any],
+                            steps: int = 0) -> dict[str, torch.Tensor]:
     """JAX ``BiGRU`` params and mutables (``{"batch_stats": {"bn": {"mean",
     "var"}}}``) -> the port's state dict (the keys of the JAX package's
-    ``utils/torch_export.py::export_bigru``)."""
+    ``utils/torch_export.py::export_bigru``; ``num_batches_tracked`` the
+    step count)."""
     sd: dict[str, torch.Tensor] = {}
     for name in ("gru1", "gru2"):
         for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
@@ -162,7 +163,7 @@ def jax_bigru_to_state_dict(params: Mapping[str, Any],
                 sd[f"{name}.{dst}_l0{suffix}"] = _tensor(layer[src])
     _linear(sd, "fc1.0", params["fc1"])
     stats = mutables.get("batch_stats", mutables)["bn"]
-    _batch_norm(sd, "bn", params["bn"], stats)
+    _batch_norm(sd, "bn", params["bn"], stats, steps)
     _linear(sd, "fc2.0" if generator_params.get("use_tanh", False) else "fc2",
             params["fc2"])
     if generator_params.get("use_ar", False):
@@ -205,23 +206,43 @@ def jax_melgan_generator_to_state_dict(params: Mapping[str, Any],
                                        generator_params: Mapping[str, Any]
                                        ) -> dict[str, torch.Tensor]:
     """JAX ``MelGANGenerator`` -> ``melgan.{i}`` keys (``export_melgan_
-    generator``)."""
+    generator``); a causal one (``use_causal_conv``, whose JAX layers nest
+    ``conv`` / ``deconv``) -> the reference's causal layout, ``melgan.0.conv``,
+    ``melgan.{i}.deconv``, ``melgan.{i}.stack.1.conv``, ``stack.3``."""
     sd: dict[str, torch.Tensor] = {}
     scales = generator_params.get("upsample_scales", (8, 8, 2, 2))
     stacks = generator_params.get("stacks", 3)
-    _conv1d(sd, "melgan.1", params["first_conv"])
-    idx = 2
+    causal = generator_params.get("use_causal_conv", False)
+    # the reference's causal Sequential has no pad layers
+    idx = 0 if causal else 1
+    if causal:
+        _conv1d(sd, "melgan.0.conv", params["first_conv"]["conv"])
+    else:
+        _conv1d(sd, "melgan.1", params["first_conv"])
+    idx += 1
     for i in range(len(scales)):
         idx += 1  # the activation
-        _conv_transpose1d(sd, f"melgan.{idx}", params[f"upsample_{i}"])
+        if causal:
+            _conv_transpose1d(sd, f"melgan.{idx}.deconv",
+                              params[f"upsample_{i}"]["deconv"])
+        else:
+            _conv_transpose1d(sd, f"melgan.{idx}", params[f"upsample_{i}"])
         idx += 1
         for j in range(stacks):
             stack = params[f"stack_{i}_{j}"]
-            _conv1d(sd, f"melgan.{idx}.stack.2", stack["conv_dilated"])
-            _conv1d(sd, f"melgan.{idx}.stack.4", stack["conv_out"])
+            if causal:
+                _conv1d(sd, f"melgan.{idx}.stack.1.conv",
+                        stack["conv_dilated"]["conv"])
+                _conv1d(sd, f"melgan.{idx}.stack.3", stack["conv_out"])
+            else:
+                _conv1d(sd, f"melgan.{idx}.stack.2", stack["conv_dilated"])
+                _conv1d(sd, f"melgan.{idx}.stack.4", stack["conv_out"])
             _conv1d(sd, f"melgan.{idx}.skip_layer", stack["conv_skip"])
             idx += 1
-    _conv1d(sd, f"melgan.{idx + 2}", params["last_conv"])
+    if causal:
+        _conv1d(sd, f"melgan.{idx + 1}.conv", params["last_conv"]["conv"])
+    else:
+        _conv1d(sd, f"melgan.{idx + 2}", params["last_conv"])
     return sd
 
 
@@ -240,7 +261,8 @@ def jax_pwg_generator_to_state_dict(params: Mapping[str, Any],
                                     generator_params: Mapping[str, Any]
                                     ) -> dict[str, torch.Tensor]:
     """JAX ``ParallelWaveGANGenerator`` -> the reference's keys
-    (``export_pwg_generator``)."""
+    (``export_pwg_generator``); a causal one has the same keys (its
+    ``conv_in`` is ``aux_context_window + 1`` wide)."""
     sd: dict[str, torch.Tensor] = {}
     up = generator_params.get("upsample_params",
                               {"upsample_scales": [4, 4, 4, 4]})
@@ -439,7 +461,8 @@ def generator_to_state_dict(generator_type: str, params: Mapping[str, Any],
             raise ValueError(f"a JAX {generator_type} checkpoint without its "
                              "BatchNorm statistics (mutables)")
         if generator_type == "BiGRU":
-            return jax_bigru_to_state_dict(params, mutables, generator_params)
+            return jax_bigru_to_state_dict(params, mutables, generator_params,
+                                           steps)
         return jax_transformer_to_state_dict(params, mutables,
                                              generator_params, steps)
     raise NotImplementedError(f"carrying a JAX {generator_type} is not "

@@ -8,8 +8,10 @@ dilations (1, 3, 5), AR 512), in phase 7 of
 ``egs/mri/voc1/conf/mri2w_hifigan_car.yaml``, in phases 8-11 of the
 inversion BiGRU of ``benchmarks/inversion_bench.py`` and the stream server,
 in phases 12-13 of the generator zoo on
-``egs/ema/voc1/conf/e2w_hifigan.yaml``, and in phases 14-18 of its
-conditioned, chained and multimodal forms, through their entry points:
+``egs/ema/voc1/conf/e2w_hifigan.yaml``, in phases 14-18 of its
+conditioned, chained and multimodal forms, and in phases 21-24 of the
+remaining entry points, weight storage, causal convs and SSL inversion,
+through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -160,17 +162,20 @@ Phases, each raising on failure:
    full-width f32 HiFi-CAR on MRI-rate frames (36 pairs a chunk), chunks
    against the same callable on the CPU from the card's carry;
 19. recipe: ``egs/ema/voc1/run.sh``'s stages on the port alone
-   (``phase_recipe``) over a synthetic corpus in its layout: stage 1
-   (``bin/preprocess.py`` in two shards as processes,
-   ``compute_statistics``, ``normalize``), stage 2 (e2w_hifigan_car.yaml as
-   it stands, format npy, from the corpus cache on the card, with a
-   profiled step: 72 pair and 12 head kernels counted, the device time
-   split into pair kernels, head kernels, convolutions and the rest, the
-   busy share; the step from the cache, the host loader and the native
-   loader in turns; the device time under the kernels' recompute
-   backward in the profiled step; SizeAwareSampler with remove_short_samples), preemption (SIGTERM to
-   ``bin/train.py``, exit 0, the checkpoint at its step, ``--resume``),
-   stage 3 (``bin/decode.py --ar-scan``, ``bin/compute_mcd.py``: finite);
+   (``phase_recipe``) over a synthetic corpus in its layout: stages 1-3
+   through ``articulatory_tpu_torch/recipe/run.sh`` from a recipe
+   directory (``bin/preprocess.py`` in two jobs a set through
+   ``utils/run_jobs.py``, ``compute_statistics``, ``normalize``, a short
+   ``bin/train.py`` run, ``bin/decode.py`` of the dev and eval sets,
+   ``bin/compute_mcd.py``: finite), then stage 2 in this process
+   (e2w_hifigan_car.yaml as it stands, format npy, from the corpus cache
+   on the card, with a profiled step: 72 pair and 12 head kernels counted,
+   the device time split into pair kernels, head kernels, convolutions and
+   the rest, the busy share; the step from the cache, the host loader and
+   the native loader in turns; the device time under the kernels'
+   recompute backward in the profiled step; SizeAwareSampler with
+   remove_short_samples), preemption (SIGTERM to ``bin/train.py``, exit 0,
+   the checkpoint at its step, ``--resume``);
 20. hybrid-train (run right after phase 6): the JAX package's default
    training precision, the generator with ``compute_dtype: bfloat16`` and
    ``hybrid_precision`` (stages 0-2 on the bf16 pair, the last on the f32
@@ -182,7 +187,22 @@ Phases, each raising on failure:
    step) timed in turns (median of STEP_ROUNDS each, with their parts),
    one profiled hybrid step split as phase 19's, one ``use_remat`` step (a
    third generator forward) and one m2w step (80 mels), each with its
-   launches counted.
+   launches counted;
+21. entry: at the EMA width, in f32 and hybrid, ``bin/predict_wav.py`` on
+   a JAX msgpack checkpoint (36 pairs a chunk; its wavs equal to
+   ``bin/decode.py``'s eager ones), ``bin/model_stats.py`` over 100-800
+   frames (latency, RTF), and ``bin/convert_checkpoint.py --to-torch``,
+   whose pickle decodes bit-equal to the msgpack;
+22. storage-zoo: int8 and bf16 weights of every family of phase 13 and of
+   the AR BiGRU through the graph loop, each against its float32 twin
+   (STORAGE_TOL of max |y|), samples/s in turns (27 pairs a multi-band
+   forward);
+23. causal-melgan, causal-pwg: phase 13 on causal MelGAN and Parallel
+   WaveGAN (step median, decode samples/s, f32 against float64);
+24. ssl: the ``_h2`` inversion: 1024-wide hidden states interpolated on
+   the card into the AR BiGRU, eager and graph, against the CPU; a HuBERT
+   of hubert-large-ll60k's config with random weights on the card against
+   the CPU, and ``bin/predict_ema.py`` on an ``_h2`` experiment.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -200,6 +220,7 @@ import contextlib
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2341,7 +2362,7 @@ def _zoo_noise(model, x):
 
 
 def phase_zoo(port: dict, family: str, config: dict, seed: int,
-              device_name: str, tmp: str) -> dict:
+              device_name: str, tmp: str, tag: str | None = None) -> dict:
     """[zoo-<family>] ``bin/train.py::train`` for ZOO_WARMUP_STEPS steps on
     a synthetic corpus (launch counts; the generator gated off, as the
     recipe's ``generator_train_start_steps`` 1 has it), then one untimed
@@ -2357,7 +2378,7 @@ def phase_zoo(port: dict, family: str, config: dict, seed: int,
     train_cli, gan, decode = port["train"], port["gan"], port["decode"]
     pair, head = port["resblock_pair"], port["scale_disc_head"]
     split, head_split = port["split_tf32"], port["split_weights"]
-    tag = f"zoo-{family}"
+    tag = tag or f"zoo-{family}"
     w2a = config["dataset_mode"] == "w2a"
     _write_zoo_corpus(tmp, seed, config, ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS,
                       "tr", dev=8)
@@ -3011,6 +3032,7 @@ RECIPE_PROFILE = [8, 9]  # profile_steps: one step, after the warm-up
 RECIPE_TURNS = ("cache", "host", "native", "native", "host", "cache")
 RECIPE_TURN_STEPS = 2
 RECIPE_SAMPLER_STEPS = 3
+RECIPE_SCRIPT_JOBS = 4  # recipe/run.sh's preprocess jobs a set
 # the device split of the profiled step: the hand kernels by name; cuDNN's
 # convolutions (the pairs' recompute backward among them) by the op that
 # launched them
@@ -3155,23 +3177,27 @@ def signal_after(proc, marker: str, sig, timeout: float) -> str:
 
 
 def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
-    """The EMA recipe on the port alone: stage 1 (``bin/preprocess.py`` in
-    two shards as processes, ``compute_statistics``, ``normalize``; format
-    npy), stage 2 (``train()`` of e2w_hifigan_car.yaml as it stands, B 64 x
-    2000, from the corpus cache on the card, ``profile_steps`` over one
-    step: 72 pair and 12 head kernels in it, its device split and busy
-    share; the step timed in turns from the cache, the host loader and the
-    native loader; 3 steps with ``SizeAwareSampler`` and
-    ``remove_short_samples``), preemption (``bin/train.py`` as a process,
-    SIGTERM after a logged step: exit 0 and the checkpoint at that step,
-    then ``--resume`` to the end), stage 3 (``bin/decode.py --ar-scan`` of
-    the eval set, ``bin/compute_mcd.py`` against its wavs: finite)."""
+    """The EMA recipe on the port alone, from a recipe directory: stage 1
+    through ``articulatory_tpu_torch/recipe/run.sh --stop_stage 1``
+    (``bin/preprocess.py`` in RECIPE_SCRIPT_JOBS jobs a set through
+    ``utils/run_jobs.py``, ``compute_statistics``, ``normalize``; format
+    npy: the dumps and statistics checked), stage 2 in this process
+    (``train()`` of e2w_hifigan_car.yaml as it stands, B 64 x 2000, from
+    the corpus cache on the card, ``profile_steps`` over one step: 72 pair
+    and 12 head kernels in it, its device split and busy share; the step
+    timed in turns from the cache, the host loader and the native loader;
+    3 steps with ``SizeAwareSampler`` and ``remove_short_samples``),
+    preemption (``bin/train.py`` as a process, SIGTERM after a logged
+    step: exit 0 and the checkpoint at that step, then ``--resume`` to the
+    end), and stage 3 through ``run.sh --stage 3 --checkpoint`` of the
+    stage-2 checkpoint (``bin/decode.py`` of the dev and eval sets: the
+    wavs checked, ``bin/compute_mcd.py`` of the eval wavs finite). The
+    script's stage 2 runs in the CPU test only."""
     import signal
 
     import yaml
 
-    from articulatory_tpu_torch.bin import compute_mcd, compute_statistics
-    from articulatory_tpu_torch.bin import normalize
+    from articulatory_tpu_torch.bin import compute_mcd
     from articulatory_tpu_torch.data.device_cache import DeviceCachedBatcher
     from articulatory_tpu_torch.data.loader import DataLoader
     from articulatory_tpu_torch.data.native_loader import NativeDataLoader
@@ -3184,53 +3210,54 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
     with open(RECIPE_CONF) as f:
         recipe = yaml.load(f, Loader=yaml.Loader)
     recipe["format"] = "npy"  # the card's machine has no h5py
-    conf = os.path.join(tmp, "conf.yaml")
-    with open(conf, "w") as f:
-        yaml.dump(recipe, f)
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
 
-    # stage 1: preprocess (the training set in two shards), all sets at once
-    start = time.perf_counter()
-    jobs = []
-    for name in ("tr", "dev", "eval"):
-        with open(os.path.join(tmp, "data", name, "wav.scp")) as f:
-            lines = f.readlines()
-        shards = [lines[0::2], lines[1::2]] if name == "tr" else [lines]
-        for j, shard in enumerate(shards):
-            scp = os.path.join(tmp, "dump", name, "raw", f"wav.{j + 1}.scp")
-            os.makedirs(os.path.dirname(scp), exist_ok=True)
-            with open(scp, "w") as f:
-                f.writelines(shard)
-            jobs.append(subprocess.Popen(
-                [sys.executable, "-m", "articulatory_tpu_torch.bin.preprocess",
-                 "--wav-scp", scp, "--dumpdir", os.path.dirname(scp),
-                 "--config", conf, "--verbose", "0"], env=env, cwd=ROOT))
-    for job in jobs:
-        if job.wait() != 0:
-            raise AssertionError(f"[recipe] preprocess exit {job.returncode}")
-    stage_s["preprocess"] = time.perf_counter() - start
-    start = time.perf_counter()
+    # tmp laid out as a recipe directory: its data/, path.sh, egs/ema/voc1's
+    # cmd.sh and utils/, and conf/ with the recipe's config
+    os.makedirs(os.path.join(tmp, "conf"))
+    with open(os.path.join(tmp, "conf", "recipe.yaml"), "w") as f:
+        yaml.dump(recipe, f)
+    with open(os.path.join(tmp, "path.sh"), "w") as f:
+        f.write(f"export PYTHONPATH={ROOT}:${{PYTHONPATH:-}}\n")
+    egs = os.path.join(ROOT, "egs", "ema", "voc1")
+    shutil.copy(os.path.join(egs, "cmd.sh"), tmp)
+    shutil.copytree(os.path.join(egs, "utils"), os.path.join(tmp, "utils"))
+    script_env = dict(env, PATH=os.path.dirname(sys.executable) + os.pathsep
+                      + env.get("PATH", ""))
+    marks = []
+
+    def run_script(stage: str, *args: str) -> None:
+        start = time.perf_counter()
+        script = subprocess.run(
+            ["bash", os.path.join(ROOT, "articulatory_tpu_torch", "recipe",
+                                  "run.sh"), "--conf", "conf/recipe.yaml",
+             "--n_jobs", str(RECIPE_SCRIPT_JOBS), "--train_set", "tr",
+             "--dev_set", "dev", "--eval_set", "eval", "--expdir",
+             "exp_script", "--device", "cuda", *args],
+            cwd=tmp, env=script_env, capture_output=True, text=True)
+        stage_s[f"run.sh {stage}"] = time.perf_counter() - start
+        if script.returncode != 0:
+            raise AssertionError(f"[recipe] run.sh {stage} exit "
+                                 f"{script.returncode}: "
+                                 f"{script.stdout[-2000:]}"
+                                 f"{script.stderr[-3000:]}")
+        marks.extend(line for line in script.stdout.splitlines()
+                     if line.startswith(("Stage", "Finished")))
+
+    run_script("stage 1", "--stop_stage", "1")
     dump = os.path.join(tmp, "dump")
-    compute_statistics.main(["--rootdir", f"{dump}/tr/raw", "--dumpdir",
-                             f"{dump}/tr", "--config", conf, "--verbose",
-                             "0"])
     stats = np.load(f"{dump}/tr/stats.npy")
     if stats.shape != (2, recipe["num_mels"]) or not np.isfinite(stats).all():
         raise AssertionError(f"[recipe] stats {stats.shape} not finite")
-    stage_s["compute_statistics"] = time.perf_counter() - start
-    start = time.perf_counter()
-    for name in ("tr", "dev", "eval"):
-        normalize.main(["--rootdir", f"{dump}/{name}/raw", "--dumpdir",
-                        f"{dump}/{name}/norm", "--stats",
-                        f"{dump}/tr/stats.npy", "--config", conf,
-                        "--verbose", "0"])
-    stage_s["normalize"] = time.perf_counter() - start
     n_norm = len([f for f in os.listdir(f"{dump}/tr/norm")
                   if f.endswith("-wave.npy")])
     if n_norm != RECIPE_TRAIN + RECIPE_SHORT:
         raise AssertionError(f"[recipe] {n_norm} normalised training "
                              f"utterances")
+    log(f"[recipe] recipe/run.sh stage 1 (preprocess in "
+        f"{RECIPE_SCRIPT_JOBS} jobs a set through utils/run_jobs.py, "
+        f"statistics, normalize) in {stage_s['run.sh stage 1']:.3f} s")
 
     # stage 2: the recipe's training config from the corpus cache
     config = dict(recipe, train_max_steps=RECIPE_STEPS,
@@ -3394,17 +3421,25 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
         f"resumed to step {resumed.steps} ({preempt_s:.3f} s with the "
         f"process)")
 
-    # stage 3: decode the eval set, score it
+    # stage 3 through the recipe script, of stage 2's checkpoint; the
+    # eval set's wavs scored
+    ckpt = f"checkpoint-{RECIPE_STEPS}steps.ckpt"
+    run_script("stage 3", "--stage", "3", "--checkpoint",
+               os.path.join(outdir, ckpt))
+    gen_root = os.path.join(tmp, "exp_script", "wav", ckpt)
+    for name in ("dev", "eval"):
+        for i in range(RECIPE_DEV):
+            y, _ = port["read_wav"](os.path.join(gen_root, name,
+                                                 f"{name}_{i:03d}_gen.wav"))
+            if not len(y) or not np.isfinite(y).all():
+                raise AssertionError(f"[recipe] run.sh decoded {name}_{i:03d}"
+                                     f" to {y.shape}, not finite")
+    log(f"[recipe] recipe/run.sh stage 3 (bin/decode.py of the dev and "
+        f"eval sets from {ckpt}) in {stage_s['run.sh stage 3']:.3f} s; "
+        + "; ".join(marks))
     start = time.perf_counter()
-    gen_dir = os.path.join(tmp, "decoded")
-    port["decode"].main(["--feats-scp", os.path.join(tmp, "data", "eval",
-                                                     "feats.scp"),
-                         "--checkpoint", os.path.join(
-                             outdir, f"checkpoint-{RECIPE_STEPS}steps.ckpt"),
-                         "--outdir", gen_dir, "--ar-scan", "--verbose", "0"])
-    stage_s["decode"] = time.perf_counter() - start
-    start = time.perf_counter()
-    mcds = compute_mcd.compute_mcd(gen_dir, wav_dirs["eval"])
+    mcds = compute_mcd.compute_mcd(os.path.join(gen_root, "eval"),
+                                   wav_dirs["eval"])
     stage_s["compute_mcd"] = time.perf_counter() - start
     if len(mcds) != RECIPE_DEV or not all(np.isfinite(v)
                                           for v in mcds.values()):
@@ -3425,6 +3460,528 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
             "mean_losses": {k: v / RECIPE_STEPS for k, v in losses.items()}}
 
 
+# the entry points at e2w_hifigan_car.yaml's full width (phase 21): a JAX
+# msgpack checkpoint of GENERATOR_PARAMS; ENTRY_UTTS utterances of
+# ENTRY_FRAMES frames (3 chunks each) for predict_wav and the decode CLI;
+# model_stats over ENTRY_LENGTHS frames, ENTRY_ITERS forwards each
+ENTRY_UTTS, ENTRY_FRAMES = 2, 300
+ENTRY_LENGTHS = [100, 200, 400, 800]
+ENTRY_ITERS = 5
+
+
+def write_msgpack(path: str, tree: dict) -> str:
+    """``tree`` (nested dicts of numpy arrays and ints) as a flax
+    ``msgpack_serialize`` file: each array an ext type 1 holding (shape,
+    dtype name, C-order bytes)."""
+    import msgpack
+
+    def default(obj):
+        if isinstance(obj, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb(
+                [list(obj.shape), obj.dtype.name,
+                 np.ascontiguousarray(obj).tobytes()]))
+        raise TypeError(f"cannot pack {type(obj)}")
+
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(tree, default=default, use_bin_type=True))
+    return path
+
+
+def checked_pair(kernel, plain, errs: dict):
+    """The pair as ``kernel`` computes it, each call also computed by
+    ``plain`` on the same inputs; the largest error of max |y| of each
+    (dtype, shape) goes into ``errs``."""
+    def pair(x, *args, **kwargs):
+        y = kernel(x, *args, **kwargs)
+        ref = plain(x, *args, **kwargs).float()
+        err = ((y.float() - ref).abs().max() / ref.abs().max()).item()
+        key = (x.dtype, tuple(x.shape))
+        errs[key] = max(errs.get(key, 0.0), err)
+        return y
+    return pair
+
+
+def phase_entry(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """[entry] The entry points at full width, in f32 and hybrid:
+    ``bin/predict_wav.py`` on an ENTRY_UTTS-utterance npy feats.scp of a
+    JAX msgpack checkpoint (36 pair launches a chunk; its wavs equal to
+    ``bin/decode.py``'s eager ones), ``bin/model_stats.py`` over
+    ENTRY_LENGTHS (latency, RTF; 36 pairs a forward), and
+    ``bin/convert_checkpoint.py --to-torch``, whose pickle decodes bit-equal
+    to the msgpack on the card (36 pairs a chunk). model_stats' shapes (B
+    1, up to T 64,000) are held against the plain pair twice: each pair
+    call of a second model_stats run against the plain pair on its inputs
+    (KERNEL_TOL of max |y|), and the checkpoint's forward of random
+    features at the longest length against the same forward on plain pairs
+    (CHUNK_TOL)."""
+    import yaml
+
+    inference, pair, plain, residual, read_wav = (
+        port[k] for k in ("inference", "resblock_pair", "plain", "residual",
+                          "read_wav"))
+    gp = GENERATOR_PARAMS
+    exp = os.path.join(tmp, "exp")
+    os.makedirs(exp)
+    ckpt = write_msgpack(os.path.join(exp, "ckpt.pkl"), {
+        "model": {"generator": numpy_generator_params(gp, seed)},
+        "steps": 0, "epochs": 0})
+    with open(os.path.join(exp, "config.yml"), "w") as f:
+        yaml.dump(CONFIG, f)
+    rng = np.random.default_rng(seed + 21)
+    scp = os.path.join(tmp, "feats.scp")
+    with open(scp, "w") as f:
+        for n in range(ENTRY_UTTS):
+            path = os.path.join(tmp, f"utt{n}.npy")
+            np.save(path, rng.standard_normal((ENTRY_FRAMES, N_FEATS)
+                                              ).astype(np.float32))
+            f.write(f"utt{n} {path}\n")
+    chunks = -(-ENTRY_FRAMES // CHUNK_FRAMES)
+    modes = {"f32": CONFIG, "hybrid_bf16": dict(CONFIG, generator_params=dict(
+        gp, compute_dtype="bfloat16", hybrid_precision=True))}
+    results = {}
+    for mode, config in modes.items():
+        out_p, out_d = (os.path.join(tmp, f"{name}_{mode}")
+                        for name in ("predict", "decode"))
+        pair.launches = 0
+        start = time.perf_counter()
+        written = port["predict_wav"].predict_wav(scp, out_p, ckpt,
+                                                  dict(config), device="cuda")
+        seconds = time.perf_counter() - start
+        launches = pair.launches
+        if written != [f"utt{n}" for n in range(ENTRY_UTTS)] or \
+                launches != 36 * chunks * ENTRY_UTTS:
+            raise AssertionError(f"[entry] {mode} predict_wav wrote "
+                                 f"{written}, {launches} pair launches, "
+                                 f"expected {36 * chunks * ENTRY_UTTS}")
+        port["decode"].decode(config, ckpt, out_d, feats_scp=scp,
+                              device="cuda")
+        for fid in written:
+            got, sr = read_wav(os.path.join(out_p, f"{fid}.wav"))
+            want, _ = read_wav(os.path.join(out_d, f"{fid}_gen.wav"))
+            if got.shape != (ENTRY_FRAMES * CONFIG["hop_size"],) or \
+                    not np.array_equal(got, want):
+                raise AssertionError(f"[entry] {mode} predict_wav {fid}: "
+                                     f"{got.shape}, not decode's eager wav")
+        log(f"[entry] {mode} bin/predict_wav.py: {len(written)} x "
+            f"{ENTRY_FRAMES} frames in {seconds:.3f} s (load included), "
+            f"{launches} pair launches ({chunks} chunks each), wavs equal "
+            f"to bin/decode.py's eager ones")
+        pair.launches = 0
+        stats = port["model_stats"].model_stats(config, ENTRY_LENGTHS,
+                                                ENTRY_ITERS, 1, "cuda")
+        stats_launches = pair.launches
+        if stats_launches != 36 * len(ENTRY_LENGTHS) * (ENTRY_ITERS + 1):
+            raise AssertionError(f"[entry] {mode} model_stats: "
+                                 f"{stats_launches} pair launches")
+        log(f"[entry] {mode} bin/model_stats.py on {device_name}: "
+            f"{stats['params']:,} parameters; " + ", ".join(
+                f"{r['frames']} frames {r['latency_ms']:.3f} ms (RTF "
+                f"{r['rtf']:.6f})" for r in stats["lengths"])
+            + f"; {stats_launches} pair launches")
+        results[mode] = {"predict_seconds": seconds,
+                         "predict_launches": launches, "model_stats": stats,
+                         "model_stats_launches": stats_launches}
+        results[mode].update(_entry_pair_checks(
+            port, config, ckpt, mode, np.random.default_rng(seed + 23)))
+
+    pkl = os.path.join(tmp, "export", "ckpt.pkl")
+    port["convert_checkpoint"].main(["--to-torch", "--checkpoint", ckpt,
+                                     "--out", pkl])
+    x = np.load(os.path.join(tmp, "utt0.npy"))
+    outs = {}
+    pair.launches = 0
+    for name, path in (("msgpack", ckpt), ("pickle", pkl)):
+        model = inference.load_model(path, CONFIG, device="cuda")
+        model.remove_weight_norm()
+        outs[name] = inference.ar_loop(model, x, CONFIG)
+    convert_launches = pair.launches
+    if not np.array_equal(outs["msgpack"], outs["pickle"]) or \
+            convert_launches != 2 * 36 * chunks:
+        raise AssertionError(f"[entry] the converted pickle decodes "
+                             f"{np.abs(outs['msgpack'] - outs['pickle']).max()}"
+                             f" from the msgpack; {convert_launches} pair "
+                             f"launches")
+    log(f"[entry] bin/convert_checkpoint.py --to-torch: the pickle decodes "
+        f"bit-equal to the msgpack ({convert_launches} pair launches)")
+    results["convert_launches"] = convert_launches
+    return results
+
+
+def _entry_pair_checks(port: dict, config: dict, ckpt: str, mode: str,
+                       rng) -> dict:
+    """model_stats' pair shapes against the plain pair (see
+    ``phase_entry``)."""
+    inference, pair, plain, residual = (port[k] for k in (
+        "inference", "resblock_pair", "plain", "residual"))
+    errs = {}
+    with swapped(residual, "resblock_pair", checked_pair(pair, plain, errs)):
+        port["model_stats"].model_stats(config, ENTRY_LENGTHS, 1, 1, "cuda")
+    worst = {}
+    for (dtype, shape), err in errs.items():
+        if not err <= KERNEL_TOL[dtype]:  # NaN fails too
+            raise AssertionError(f"[entry] {mode} model_stats pair {dtype} "
+                                 f"{shape}: {err:.3e} of max |y| from the "
+                                 f"plain pair > {KERNEL_TOL[dtype]}")
+        name = str(dtype).replace("torch.", "")
+        worst[name] = max(worst.get(name, 0.0), err)
+    lengths = sorted({shape[1] for _, shape in errs})
+    model = inference.load_model(ckpt, config, device="cuda")
+    model.remove_weight_norm()
+    gp = config["generator_params"]
+    frames = max(ENTRY_LENGTHS)
+    c = torch.from_numpy(rng.standard_normal((1, frames, N_FEATS)).astype(
+        np.float32)).cuda()
+    prev = torch.from_numpy(0.5 * rng.standard_normal(
+        (1, gp["ar_input"], 1)).astype(np.float32)).cuda()
+    y = model(c, ar=prev).float()
+    with swapped(residual, "resblock_pair", plain):
+        ref = model(c, ar=prev).float()
+    forward_err = (y - ref).abs().max().item()
+    if not torch.isfinite(y).all() or not forward_err <= CHUNK_TOL[mode]:
+        raise AssertionError(f"[entry] {mode} forward of {frames} frames: "
+                             f"max abs error {forward_err:.3e} against the "
+                             f"plain pairs > {CHUNK_TOL[mode]}")
+    log(f"[entry] {mode} model_stats' pairs against the plain pair on their "
+        f"inputs: {len(errs)} shapes (B 1, T {lengths[0]}-{lengths[-1]}), "
+        "largest error of max |y| " + ", ".join(
+            f"{k} {v:.3e} (limit {KERNEL_TOL[getattr(torch, k)]})"
+            for k, v in worst.items())
+        + f"; a {frames}-frame forward of random features against plain "
+        f"pairs: max abs {forward_err:.3e} (limit {CHUNK_TOL[mode]})")
+    return {"model_stats_pair_rel_err": worst,
+            "forward_plain_abs_err": forward_err}
+
+
+# int8 and bf16 weight storage of the zoo (phase 22): each family of
+# zoo_configs at full width, STORAGE_BATCH x STORAGE_SECONDS s a forward,
+# STORAGE_ROUNDS forwards timed; a stored model against its float32 twin
+# (the same effective weights in float32), of max |y|
+STORAGE_BATCH, STORAGE_SECONDS, STORAGE_ROUNDS = 4, 10, 3
+STORAGE_TOL = 1e-4
+
+
+def storage_twin(model, twin) -> None:
+    """Give ``twin`` (the same architecture, float32 weights) the weights
+    ``model`` computes with: each conv's effective kernel and each layer's
+    weights as stored, dequantized or upcast to float32; then freeze it."""
+    from articulatory_tpu_torch.layers.conv import _Conv, _Stored
+
+    with torch.no_grad():
+        for a, b in zip(model.modules(), twin.modules()):
+            if isinstance(a, _Conv):
+                w = a.torch_weight().float()
+                if b.use_weight_norm:
+                    b.weight_v.copy_(w)
+                    b.weight_g.copy_(w.square().sum(
+                        dim=tuple(range(1, w.dim())), keepdim=True).sqrt())
+                else:
+                    b.weight.copy_(w)
+                if a.bias is not None:
+                    b.bias.copy_(a.bias.float())
+                continue
+            for name, p in b.named_parameters(recurse=False):
+                p.copy_(a.weight_as(name, torch.float32)
+                        if isinstance(a, _Stored) else getattr(a, name))
+    twin.remove_weight_norm()
+
+
+def _storage_rate(fn, samples: int) -> float:
+    """Samples/s of STORAGE_ROUNDS calls of ``fn``, by CUDA events."""
+    fn()
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    begin.record()
+    for _ in range(STORAGE_ROUNDS):
+        fn()
+    end.record()
+    end.synchronize()
+    return samples * STORAGE_ROUNDS / (begin.elapsed_time(end) / 1e3)
+
+
+def phase_storage_zoo(port: dict, seed: int, device_name: str,
+                      tmp: str) -> dict:
+    """[storage-zoo] int8 and bf16 weights (``LoadedModel.quantize_int8``,
+    ``to_bf16_weights``) for every family of the zoo at full width and for
+    the AR BiGRU of [w2a-ar] through the graph loop (``ar_loop_scan``):
+    each stored model's output against its float32 twin's on plain pairs
+    (STORAGE_TOL of max |y|), samples/s of f32, int8 and bf16 storage in
+    turns; 27 pair launches a multi-band forward."""
+    inference, pair = port["inference"], port["resblock_pair"]
+    results = {}
+    rng = np.random.default_rng(seed + 22)
+    frames = STORAGE_SECONDS * 200
+    for family, config in zoo_configs().items():
+        gen = port["build_model"](config["generator_type"],
+                                  config["generator_params"], seed=seed)
+        ckpt = os.path.join(tmp, f"{family}.pth")
+        torch.save({"model": {"generator": gen.state_dict()}}, ckpt)
+        pad = 2 * getattr(gen, "aux_context_window", 0)
+        x = torch.from_numpy(rng.standard_normal(
+            (STORAGE_BATCH, frames + pad, 13)).astype(np.float32)).cuda()
+        z = _zoo_noise(gen, x)
+        models, outs, rates, launches = {}, {}, {}, {}
+        for kind in ("f32", "int8", "bf16"):
+            model = inference.load_model(ckpt, config, device="cuda")
+            model.remove_weight_norm()
+            if kind == "int8":
+                model.quantize_int8()
+            elif kind == "bf16":
+                model.to_bf16_weights()
+            models[kind] = model
+            pair.launches = 0
+            with torch.inference_mode():
+                outs[kind] = _zoo_forward(model.model, x, z).float()
+            launches[kind] = pair.launches
+            if family == "mb-hifigan" and pair.launches != 27:
+                raise AssertionError(f"[storage-zoo] {family} {kind}: "
+                                     f"{pair.launches} pair launches a "
+                                     f"forward, expected 27")
+        errs = {}
+        for kind in ("int8", "bf16"):
+            twin = inference.load_model(ckpt, config, device="cuda")
+            storage_twin(models[kind].model, twin.model)
+            with torch.inference_mode(), swapped(
+                    port["residual"], "resblock_pair", port["plain"]):
+                want = _zoo_forward(twin.model, x, z).float()
+            errs[kind] = ((outs[kind] - want).abs().max()
+                          / want.abs().max()).item()
+            if not torch.isfinite(outs[kind]).all() or \
+                    errs[kind] > STORAGE_TOL:
+                raise AssertionError(f"[storage-zoo] {family} {kind}: "
+                                     f"{errs[kind]:.3e} of max |y| from its "
+                                     f"float32 twin (limit {STORAGE_TOL})")
+        samples = STORAGE_BATCH * STORAGE_SECONDS * 16000
+        with torch.inference_mode():
+            for kind in ("f32", "int8", "bf16", "bf16", "int8", "f32"):
+                rate = _storage_rate(lambda: _zoo_forward(
+                    models[kind].model, x, z), samples)
+                rates.setdefault(kind, []).append(rate)
+        rates = {k: float(np.median(v)) for k, v in rates.items()}
+        log(f"[storage-zoo] {family}: B {STORAGE_BATCH} x {STORAGE_SECONDS} "
+            f"s on {device_name}, samples/s of 16 kHz audio " + ", ".join(
+                f"{k} {v:.1f}" for k, v in rates.items())
+            + "; against the float32 twin " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f" of max |y| (limit {STORAGE_TOL})")
+        results[family] = {"samples_per_s": rates, "twin_rel_err": errs,
+                           "pair_launches": launches}
+
+    # the AR BiGRU through the graph loop
+    gp = dict(W2A_AR_GP, in_channels=13 + W2A_AR_GP["ar_output"])
+    config = dict(W2A_CONFIG, generator_params=gp)
+    ckpt = bigru_checkpoint(port, gp, seed, os.path.join(tmp, "bigru.pth"))
+    one = rng.standard_normal((frames, 13)).astype(np.float32)
+    outs, rtf, errs = {}, {}, {}
+    for kind in ("f32", "int8", "bf16"):
+        model = inference.load_model(ckpt, config, device="cuda")
+        if kind == "int8":
+            model.quantize_int8()
+        elif kind == "bf16":
+            model.to_bf16_weights()
+        outs[kind] = inference.ar_loop_scan(model, one, config)  # captures
+        start = time.perf_counter()
+        again = inference.ar_loop_scan(model, one, config)
+        rtf[kind] = (time.perf_counter() - start) / STORAGE_SECONDS
+        if kind != "f32":
+            twin = inference.load_model(ckpt, config, device="cuda")
+            storage_twin(model.model, twin.model)
+            want = inference.ar_loop_scan(twin, one, config)
+            errs[kind] = float(np.abs(outs[kind] - want).max()
+                               / np.abs(want).max())
+            if errs[kind] > STORAGE_TOL or not np.array_equal(again,
+                                                              outs[kind]):
+                raise AssertionError(f"[storage-zoo] bigru-ar {kind}: "
+                                     f"{errs[kind]:.3e} of max |y| from its "
+                                     f"float32 twin, or replays differ")
+    log(f"[storage-zoo] bigru-ar (graph loop, one {STORAGE_SECONDS} s "
+        f"stream): RTF " + ", ".join(f"{k} {v:.6f}" for k, v in rtf.items())
+        + "; against the float32 twin " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+    results["bigru-ar"] = {"rtf": rtf, "twin_rel_err": errs}
+    return results
+
+
+def causal_configs() -> dict:
+    """[causal] e2w_hifigan.yaml's MelGAN and Parallel WaveGAN of
+    ``zoo_configs`` with causal convs."""
+    zoo = zoo_configs()
+    return {f"causal-{family}": dict(zoo[family], generator_params=dict(
+        zoo[family]["generator_params"], use_causal_conv=True))
+        for family in ("melgan", "pwg")}
+
+
+# the _h2 inversion (phase 24): facebook/hubert-large-ll60k's published
+# config (24 layers, 1024 wide, 16 heads, FFN 4096, the layer-normed conv
+# feature extractor), random weights from the seed (no download); 50 hidden
+# states a second (a 320-sample hop at 16 kHz), interpolated x4 to the 200
+# Hz EMA rate (x2 for hprc), into the AR BiGRU of [w2a-ar]
+SSL_WIDTH, SSL_STATE_RATE = 1024, 50
+HUBERT_LARGE = dict(
+    hidden_size=SSL_WIDTH, num_hidden_layers=24, num_attention_heads=16,
+    intermediate_size=4096, feat_extract_norm="layer",
+    do_stable_layer_norm=True, conv_bias=True, conv_dim=[512] * 7,
+    conv_kernel=[10, 3, 3, 3, 3, 2, 2], conv_stride=[5, 2, 2, 2, 2, 2, 2],
+    num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16)
+SSL_FEATURE_TOL = 1e-6  # the card's interpolation against the CPU's
+SSL_HUBERT_TOL = 1e-4  # the card's HuBERT forward against the CPU's, of max
+SSL_WAVS, SSL_WAV_SECONDS = 2, 4  # bin/predict_ema.py's input
+
+
+def phase_ssl(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """[ssl] The ``_h2`` inversion at SSL_WIDTH: random
+    ``last_hidden_state``s of STORAGE_SECONDS s interpolated on the card
+    (``bin/predict_ema.py::interpolate_states``, x4 and x2) against the
+    CPU's, then through the AR BiGRU's ``ar_loop`` (eager) and
+    ``ar_loop_scan`` (graph): bit-equal, and each chunk against the CPU
+    model's forward from the card's carry (W2A_F64_TOL of max |y|); a
+    HuBERT of hubert-large-ll60k's config with random weights, saved and
+    loaded through ``ARTICULATORY_HUBERT_MODEL``: its hidden states on the
+    card against the CPU's (SSL_HUBERT_TOL of max |h|), and
+    ``bin/predict_ema.py`` on SSL_WAVS wavs of an ``_h2`` experiment,
+    eager and ``--ar-scan``, against each other and the BiGRU on its
+    features (W2A_F64_TOL of max |y|; each computes HuBERT afresh)."""
+    import yaml
+    from transformers import HubertConfig, HubertModel
+
+    inference, predict_ema = port["inference"], port["predict_ema"]
+    gp = dict(W2A_AR_GP, in_channels=SSL_WIDTH + W2A_AR_GP["ar_output"])
+    config = dict(W2A_CONFIG, generator_params=gp)
+    exp = os.path.join(tmp, "exp", "mngu0_w2a_h2")
+    os.makedirs(exp)
+    ckpt = bigru_checkpoint(port, gp, seed,
+                            os.path.join(exp, "best_mel_ckpt.pkl"))
+    with open(os.path.join(exp, "config.yml"), "w") as f:
+        yaml.dump(config, f)
+    rng = np.random.default_rng(seed + 24)
+    states = torch.from_numpy(rng.standard_normal(
+        (1, STORAGE_SECONDS * SSL_STATE_RATE, SSL_WIDTH)).astype(
+            np.float32)).cuda()
+    feat_errs = {}
+    for factor in (4, 2):
+        got = predict_ema.interpolate_states(states, factor)
+        want = predict_ema.interpolate_states(states.cpu(), factor)
+        feat_errs[factor] = (got.cpu() - want).abs().max().item()
+        if got.shape != (states.shape[1] * factor, SSL_WIDTH) or \
+                feat_errs[factor] > SSL_FEATURE_TOL:
+            raise AssertionError(f"[ssl] x{factor} features {got.shape}, "
+                                 f"{feat_errs[factor]:.3e} from the CPU's")
+    feats = predict_ema.interpolate_states(states, 4).cpu().numpy()
+    model = inference.load_model(ckpt, config, device="cuda")
+    times, outs = run_turns({
+        "eager": lambda: inference.ar_loop(model, feats, config),
+        "graph": lambda: inference.ar_loop_scan(model, feats, config)},
+        TURNS[:4])
+    if not np.array_equal(outs["graph"], outs["eager"]):
+        raise AssertionError("[ssl] the graph loop differs from the eager "
+                             "one")
+    y = outs["eager"]
+    cpu = inference.load_model(ckpt, config, device="cpu")
+    ck = inference.chunking(config)
+    worst = 0.0
+    for start in range(0, len(y), ck.in_chunk_len):
+        rows = y[start:start + ck.in_chunk_len]
+        prev = (y[None, start - ck.past_out_len:start] if start else
+                np.zeros((1, ck.past_out_len, gp["out_channels"]),
+                         np.float32))
+        out = cpu(feats[None, start:start + len(rows)], prev)[0].numpy()
+        worst = max(worst, float(np.abs(out - rows).max()))
+    err = worst / float(np.abs(y).max())
+    if y.shape != (len(feats), gp["out_channels"]) or err > W2A_F64_TOL:
+        raise AssertionError(f"[ssl] {y.shape}; chunks {err:.3e} of max |y| "
+                             f"from the CPU's (limit {W2A_F64_TOL})")
+    rtf = {k: float(np.median(v)) / STORAGE_SECONDS for k, v in times.items()}
+    log(f"[ssl] {SSL_WIDTH}-wide hidden states of {STORAGE_SECONDS} s on "
+        f"{device_name}: interpolated x4 / x2 on the card, "
+        f"{feat_errs[4]:.3e} / {feat_errs[2]:.3e} from the CPU's; the AR "
+        f"BiGRU, eager and graph bit-equal, RTF eager {rtf['eager']:.6f}, "
+        f"graph {rtf['graph']:.6f}; chunks {err:.3e} of max |y| from the "
+        f"CPU's under the card's carry (limit {W2A_F64_TOL})")
+
+    # the HuBERT forward: hubert-large-ll60k's config, random weights
+    start = time.perf_counter()
+    torch.manual_seed(seed)
+    hubert_dir = os.path.join(tmp, "hubert")
+    HubertModel(HubertConfig(**HUBERT_LARGE)).save_pretrained(hubert_dir)
+    os.environ["ARTICULATORY_HUBERT_MODEL"] = hubert_dir
+    predict_ema._HUBERT = None
+    wav_dir = os.path.join(tmp, "wavs")
+    n = SSL_WAV_SECONDS * 16000
+    for i in range(SSL_WAVS):
+        port["write_wav"](os.path.join(wav_dir, f"utt{i}.wav"),
+                          0.1 * rng.standard_normal(n + 320 * i), 16000)
+    audio, _ = port["read_wav"](os.path.join(wav_dir, "utt0.wav"))
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    card = predict_ema.hubert_states(audio, "cuda")
+    torch.cuda.synchronize()
+    hubert_s = time.perf_counter() - begin
+    card = card.cpu()
+    host = predict_ema.hubert_states(audio, "cpu")
+    hubert_err = ((card - host).abs().max() / host.abs().max()).item()
+    if card.shape != (1, SSL_WAV_SECONDS * SSL_STATE_RATE - 1, SSL_WIDTH) \
+            or hubert_err > SSL_HUBERT_TOL:
+        raise AssertionError(f"[ssl] HuBERT states {tuple(card.shape)}, "
+                             f"{hubert_err:.3e} of max |h| from the CPU's "
+                             f"(limit {SSL_HUBERT_TOL})")
+    predicted = {}
+    for name, ar_scan in (("eager", False), ("graph", True)):
+        out_dir = os.path.join(tmp, f"pred_{name}")
+        written = predict_ema.predict(exp, wav_dir, out_dir,
+                                      ar_scan=ar_scan, device="cuda")
+        predicted[name] = [np.load(os.path.join(out_dir, f"{fid}.npy"))
+                           for fid in written]
+    direct = inference.ar_loop(model, predict_ema.hubert_features(
+        audio, 4, "cuda"), config)
+    # each run computes its HuBERT features afresh
+    gaps = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in (*zip(*predicted.values()),
+                         (predicted["eager"][0], direct))]
+    if max(gaps) > W2A_F64_TOL or not all(
+            np.isfinite(a).all() for a in predicted["eager"]):
+        raise AssertionError(f"[ssl] predict_ema --ar-scan against eager and "
+                             f"eager against the BiGRU on its features: "
+                             f"{gaps} of max |y| (limit {W2A_F64_TOL}), or "
+                             f"not finite")
+    del os.environ["ARTICULATORY_HUBERT_MODEL"]
+    log(f"[ssl] HuBERT (hubert-large-ll60k's config, random weights, saved "
+        f"and loaded through ARTICULATORY_HUBERT_MODEL) on {device_name}: "
+        f"{SSL_WAV_SECONDS} s in {1e3 * hubert_s:.3f} ms, states "
+        f"{hubert_err:.3e} of max |h| from the CPU's (limit "
+        f"{SSL_HUBERT_TOL}); bin/predict_ema.py on {SSL_WAVS} wavs of an "
+        f"_h2 experiment: {[a.shape for a in predicted['eager']]}, "
+        f"--ar-scan {gaps[0]:.3e} / {gaps[1]:.3e} of max |y| from eager, "
+        f"eager {gaps[2]:.3e} from the BiGRU on its features (limit "
+        f"{W2A_F64_TOL}); "
+        f"{time.perf_counter() - start:.3f} s with the model's build")
+    return {"feature_err": feat_errs, "rtf": rtf, "chunk_rel_err": err,
+            "hubert_ms": 1e3 * hubert_s, "hubert_rel_err": hubert_err}
+
+def training_port() -> dict:
+    """The port's modules and kernel wrappers that the training phases
+    (``phase_train``, ``phase_hybrid_train`` and those built on them)
+    take; ``bin/ab_phase.py`` runs ``phase_hybrid_train`` with it too."""
+    from articulatory_tpu_torch import inference
+    from articulatory_tpu_torch.bin import train
+    from articulatory_tpu_torch.data import collate
+    from articulatory_tpu_torch.layers import residual
+    from articulatory_tpu_torch.models import build_model, hifigan
+    from articulatory_tpu_torch.ops import resblock_pair as pair
+    from articulatory_tpu_torch.ops import scale_disc_head as head
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
+    from articulatory_tpu_torch.train.trainer import to_device
+
+    return dict(
+        train=train, gan=gan, inference=inference, residual=residual,
+        hifigan=hifigan, build_model=build_model, to_device=to_device,
+        resblock_pair=pair.resblock_pair,
+        resblock_pair_plain=pair.resblock_pair_plain,
+        split_tf32=pair.split_tf32, scale_disc_head=head.scale_disc_head,
+        split_weights=head.split_weights,
+        scale_disc_head_plain=head.scale_disc_head_plain,
+        build_optimizer=build_optimizer, collate=collate)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3433,11 +3990,11 @@ def main() -> int:
     smi, device_name = phase_device()
     sys.path.insert(0, ROOT)
     from articulatory_tpu_torch import inference, streaming
-    from articulatory_tpu_torch.bin import decode, predict_ema
-    from articulatory_tpu_torch.bin import train as train_cli
-    from articulatory_tpu_torch.data import collate
+    from articulatory_tpu_torch.bin import convert_checkpoint, decode
+    from articulatory_tpu_torch.bin import model_stats, predict_ema
+    from articulatory_tpu_torch.bin import predict_wav
     from articulatory_tpu_torch.layers import residual
-    from articulatory_tpu_torch.models import build_model, hifigan
+    from articulatory_tpu_torch.models import build_model
     from articulatory_tpu_torch.ops import _build
     from articulatory_tpu_torch.ops.interp import interpolate_linear_scale
     from articulatory_tpu_torch.ops.resblock_pair import (
@@ -3452,9 +4009,6 @@ def main() -> int:
         split_weights,
         split_weights_plain,
     )
-    from articulatory_tpu_torch.train import gan
-    from articulatory_tpu_torch.train.optimizers import build_optimizer
-    from articulatory_tpu_torch.train.trainer import to_device
     from articulatory_tpu_torch.utils import weights
     from articulatory_tpu_torch.utils.checkpoint import load_checkpoint
     from articulatory_tpu_torch.utils.device import set_float32_parity
@@ -3513,19 +4067,11 @@ def main() -> int:
                 warmup_steps=inference.WARMUP_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         slice_results = phase_slice(port, args.seed, device_name, tmp)
-    train_port = dict(
-        train=train_cli, gan=gan, inference=inference, residual=residual,
-        hifigan=hifigan, build_model=build_model, to_device=to_device,
-        resblock_pair=resblock_pair, resblock_pair_plain=resblock_pair_plain,
-        split_tf32=split_tf32, scale_disc_head=scale_disc_head,
-        split_weights=split_weights,
-        scale_disc_head_plain=scale_disc_head_plain)
+    train_port = training_port()
     with tempfile.TemporaryDirectory() as tmp:
         _write_corpus(tmp, args.seed)
         train_results = phase_train(train_port, args.seed, tmp)
-        hybrid_port = dict(train_port, build_optimizer=build_optimizer,
-                           collate=collate)
-        hybrid = phase_hybrid_train(hybrid_port, args.seed, tmp)
+        hybrid = phase_hybrid_train(train_port, args.seed, tmp)
 
     # the MRI recipe: its pair and head shapes, its decode, its training
     mri = mri_config()
@@ -3602,7 +4148,6 @@ def main() -> int:
     # conditioning and cascades
     cond_port = dict(zoo_port, weights=weights, plain=resblock_pair_plain,
                      split=split_tf32, warmup_steps=inference.WARMUP_STEPS,
-                     build_optimizer=build_optimizer,
                      interpolate_linear_scale=interpolate_linear_scale)
     with tempfile.TemporaryDirectory() as tmp:
         cond_train = phase_cond_train(cond_port, args.seed, tmp)
@@ -3616,9 +4161,33 @@ def main() -> int:
 
     # the recipe end to end on the port alone
     recipe_port = dict(train_port, decode=decode, write_wav=write_wav,
-                       load_checkpoint=load_checkpoint)
+                       read_wav=read_wav, load_checkpoint=load_checkpoint)
     with tempfile.TemporaryDirectory() as tmp:
         recipe = phase_recipe(recipe_port, args.seed, device_name, tmp)
+
+    # the entry points, int8 / bf16 storage of the zoo, causal convs, and
+    # the _h2 inversion after HuBERT
+    entry_port = dict(inference=inference, resblock_pair=resblock_pair,
+                      plain=resblock_pair_plain, residual=residual,
+                      read_wav=read_wav, decode=decode,
+                      predict_wav=predict_wav, model_stats=model_stats,
+                      convert_checkpoint=convert_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = phase_entry(entry_port, args.seed, device_name, tmp)
+    storage_port = dict(inference=inference, resblock_pair=resblock_pair,
+                        plain=resblock_pair_plain, residual=residual,
+                        build_model=build_model, weights=weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage = phase_storage_zoo(storage_port, args.seed, device_name, tmp)
+    causal = {}
+    for family, config in causal_configs().items():
+        with tempfile.TemporaryDirectory() as tmp:
+            causal[family] = phase_zoo(zoo_port, family, config, args.seed,
+                                       device_name, tmp, tag=family)
+    ssl_port = dict(inference=inference, predict_ema=predict_ema,
+                    weights=weights, read_wav=read_wav, write_wav=write_wav)
+    with tempfile.TemporaryDirectory() as tmp:
+        ssl = phase_ssl(ssl_port, args.seed, device_name, tmp)
 
     f32 = by_dtype["float32"]
     pair_entry = {
@@ -3732,6 +4301,15 @@ def main() -> int:
         "launches_m2w_step": hybrid["m2w_step"]["launches"]["resblock_pair"],
         "launches_hybrid_profiled": hybrid["profiled_step"]["kernel_counts"][
             "resblock_pair_wgmma"],
+        # [entry]: predict_wav (36 a chunk), model_stats (36 a forward) per
+        # precision, and the converted pickle's and the msgpack's decodes
+        "launches_predict_wav": {mode: entry[mode]["predict_launches"]
+                                 for mode in ("f32", "hybrid_bf16")},
+        "launches_model_stats": {mode: entry[mode]["model_stats_launches"]
+                                 for mode in ("f32", "hybrid_bf16")},
+        "launches_convert_decode": entry["convert_launches"],
+        # [storage-zoo]: one multi-band forward per weight storage
+        "launches_storage_multiband": storage["mb-hifigan"]["pair_launches"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -3824,7 +4402,9 @@ def main() -> int:
                    "mb_head_shapes": mb_head_rows, "zoo": zoo,
                    "cond_train": cond_train, "cond_decode": cond_decode,
                    "cascade": cascade, "ph2a": ph2a, "mult": mult,
-                   "recipe": recipe, "kernels": kernels}, f, indent=1)
+                   "recipe": recipe, "entry": entry, "storage_zoo": storage,
+                   "causal": causal, "ssl": ssl, "kernels": kernels}, f,
+                  indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,6 +25,13 @@ setup(
             "articulatory-tpu-compute-mcd=articulatory_tpu.bin.compute_mcd:main",
             "articulatory-tpu-model-stats=articulatory_tpu.bin.model_stats:main",
             "articulatory-tpu-convert-checkpoint=articulatory_tpu.bin.convert_checkpoint:main",
+        ] + [
+            # the PyTorch port's entry points (articulatory_tpu_torch/bin)
+            f"articulatory-tpu-torch-{name.replace('_', '-')}="
+            f"articulatory_tpu_torch.bin.{name}:main"
+            for name in ("preprocess", "compute_statistics", "normalize",
+                         "train", "decode", "compute_mcd", "model_stats",
+                         "convert_checkpoint", "predict_wav", "predict_ema")
         ],
     },
 )

@@ -254,10 +254,10 @@ def _jax_run(name, dtype):
     return before, after, jax.device_get(metrics), eval_metrics
 
 
-def _gen_sd(case, params, mutables, second=False):
+def _gen_sd(case, params, mutables, second=False, steps=0):
     return weights.generator_to_state_dict(
         case.gen2_type if second else case.gen_type, params, mutables,
-        case.gp2 if second else case.gp)
+        case.gp2 if second else case.gp, steps)
 
 
 def _port_state(name, dtype):
@@ -410,7 +410,9 @@ def test_jax_checkpoint_generator2_carries_across(tmp_path):
         p.data.zero_()
     restore_state(state, load_checkpoint(str(tmp_path / "jax.pkl")),
                   _config(case), load_only_params=True)
-    for model, want in ((state.generator, _gen_sd(case, pg, mg)),
+    # a BatchNorm's num_batches_tracked is the checkpoint's step count, as
+    # in JAX's export_bigru
+    for model, want in ((state.generator, _gen_sd(case, pg, mg, steps=3)),
                         (state.generator2, _gen_sd(case, pg2, {}, True))):
         got = model.state_dict()
         assert sorted(got) == sorted(want)

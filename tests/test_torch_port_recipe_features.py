@@ -4,6 +4,7 @@ against the JAX package's CLIs on the same small corpus. Dumps are compared
 bit for bit, the statistics at rtol 1e-6 (the port's accumulator replaces
 scikit-learn's ``StandardScaler``)."""
 
+import subprocess
 import sys
 
 import numpy as np
@@ -17,7 +18,7 @@ from articulatory_tpu.bin import normalize as jax_normalize
 from articulatory_tpu.bin import preprocess as jax_preprocess
 from articulatory_tpu.ops.stft import logmelfilterbank_np as jax_logmel
 from articulatory_tpu_torch.bin import compute_statistics, normalize, preprocess
-from articulatory_tpu_torch.ops.stft import logmelfilterbank_np
+from articulatory_tpu_torch.ops.mel import logmelfilterbank_np
 from articulatory_tpu_torch.utils.io import find_files, read_hdf5
 
 torch.set_num_threads(1)
@@ -182,3 +183,15 @@ def test_normalize_scp_path_matches_jax(tmp_path, monkeypatch, skip_wav):
     ours = _outputs(tmp_path / "ours", "npy")
     _assert_same(ours, _outputs(tmp_path / "theirs", "npy"))
     assert len(ours) == (4 if skip_wav else 8)
+
+
+@pytest.mark.parametrize("cli", ["preprocess", "compute_statistics",
+                                 "normalize", "compute_mcd"])
+def test_feature_clis_start_without_torch(cli):
+    """Stage 1 of the recipe starts these CLIs one process after another,
+    so they import neither torch nor scipy.signal (seconds a process)."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import sys, articulatory_tpu_torch.bin.{cli}; "
+         "print('torch' in sys.modules, 'scipy.signal' in sys.modules)"],
+        capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from articulatory_tpu.ops.pallas.resblock import resblock_pair_reference
-from articulatory_tpu_torch.layers.conv import Conv1d
+from articulatory_tpu_torch.layers.conv import Conv1d, Dense
 from articulatory_tpu_torch.ops import _build
 from articulatory_tpu_torch.ops import resblock_pair as port
 
@@ -245,3 +245,26 @@ def test_frozen_conv_returns_the_same_kernel_every_call():
         first = conv.kernel(torch.float32)
         again = conv.kernel(torch.float32)
     assert first[0] is again[0] and first[1] is again[1]
+
+
+@pytest.mark.parametrize("layer", ["conv", "dense"])
+def test_frozen_weights_are_derived_again_after_a_load(layer):
+    """A frozen layer (a conv's kernel, a dense weight) keeps what it
+    derived until ``load_state_dict`` gives it new weights."""
+    def make(seed):
+        generator = torch.Generator().manual_seed(seed)
+        if layer == "conv":
+            return Conv1d(4, 4, 3, use_weight_norm=True, generator=generator)
+        return Dense(4, 4, generator=generator)
+
+    frozen, other = make(0), make(1)
+    if layer == "conv":
+        frozen.remove_weight_norm()
+    else:
+        frozen.freeze()
+    x = torch.randn(2, 5, 4, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        before = frozen(x)
+        assert torch.equal(frozen(x), before)
+        frozen.load_state_dict(other.state_dict())
+        torch.testing.assert_close(frozen(x), other(x), rtol=0, atol=0)

@@ -202,14 +202,19 @@ def test_bigru_weight_storage_and_training_raise(tmp_path):
     _, params, mutables = _jax(gp)
     path = _save(tmp_path / "ckpt.pkl", params, mutables)
     model = inference.load_model(path, _w2a_config(gp), device="cpu")
-    for store in ("quantize_int8", "to_bf16_weights"):
-        with pytest.raises(NotImplementedError, match="BiGRU"):
-            getattr(model, store)()
-    with pytest.raises(NotImplementedError, match="int8"):
-        inference.load_model(path, dict(_w2a_config(gp), weight_quant="int8"),
-                             device="cpu")
+    # int8 and bf16 storage run since the zoo's rest (held against JAX's in
+    # tests/test_torch_port_storage_zoo.py); the two schemes still exclude
+    # each other, as in the JAX package
+    quantized = inference.load_model(
+        path, dict(_w2a_config(gp), weight_quant="int8"), device="cpu")
+    assert quantized.quantized
+    with pytest.raises(ValueError, match="pick one"):
+        quantized.to_bf16_weights()
+    model.to_bf16_weights()
+    assert model.model.fc1[0].weight.dtype == torch.bfloat16
     # training runs since the zoo's port (batch statistics; held against
     # JAX's step in tests/test_torch_port_zoo_train.py)
+    model = inference.load_model(path, _w2a_config(gp), device="cpu")
     model.model.train()
     with torch.no_grad():
         out = model.model(torch.randn(2, 4, FEATS))

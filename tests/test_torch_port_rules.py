@@ -1,7 +1,7 @@
 """Rules the port keeps: it imports no JAX and nothing of the JAX package,
 and neither sklearn nor tqdm (the card's machine has neither); optional
-packages (yaml, h5py, msgpack, triton, matplotlib, tensorboardX) load only
-inside the functions that need them; entry points run on CUDA unless asked
+packages (yaml, h5py, msgpack, triton, matplotlib, tensorboardX,
+transformers) load only inside the functions that need them; entry points run on CUDA unless asked
 for the CPU, and raise without a card instead of dropping to the CPU."""
 
 import ast
@@ -26,7 +26,8 @@ PORT_FILES = sorted(p for p in PACKAGE.rglob("*.py")  # build/ is output
     ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "articulatory_tpu",
           "sklearn", "tqdm")
-OPTIONAL = ("yaml", "h5py", "msgpack", "triton", "matplotlib", "tensorboardX")
+OPTIONAL = ("yaml", "h5py", "msgpack", "triton", "matplotlib", "tensorboardX",
+            "transformers")
 
 
 def _imports(tree):
