@@ -21,7 +21,8 @@ generators decode chunk by chunk (``ar_loop``), or ``--decode-batch-size``
 utterances at a time (``ar_loop_batched``); ``--ar-scan`` runs either
 through the captured chunk step (a CUDA graph on a card); ``a2w_mult``
 and ``a2w_pcd`` decode sequentially through the eager loop, as in the JAX
-package. Others decode in one forward.
+package. Others decode in one forward (``--sequence-parallel N``: in N time
+tiles, ``parallel/sp.py``).
 ``--int8-weights`` / ``--bf16-weights`` store the weights as int8 or
 bfloat16. Input transforms (``transform`` / ``input_transform``) apply to
 the features.
@@ -105,9 +106,11 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
            decode_batch_size: int = 1, normalize_before: bool = False,
            bucket_frames: int = 64, ar_scan: bool = False,
            ar_scan_bucket: int = 4, int8_weights: bool = False,
-           bf16_weights: bool = False, device=None) -> dict:
+           bf16_weights: bool = False, sequence_parallel: int = 0,
+           device=None) -> dict:
     """Decode every utterance of a dump directory or feats.scp into
-    ``outdir``. Returns ``{"utterances", "seconds_audio", "seconds_elapsed",
+    ``outdir``; ``sequence_parallel`` N > 1 tiles non-AR forwards N ways.
+    Returns ``{"utterances", "seconds_audio", "seconds_elapsed",
     "rtf"}`` (``rtf``: the mean per-utterance RTF, or the batched run's
     effective one)."""
     dataset = _dataset(config, dumpdir, feats_scp)
@@ -129,6 +132,17 @@ def decode(config: dict, checkpoint: str, outdir: str, *,
     w2a = mode == "w2a"
     # the chunked-AR loops: wave decode and w2a inversion
     ar_chunked = use_ar and not do_wsola and (is_wave or w2a)
+    if sequence_parallel > 1:
+        if use_ar or w2a:
+            logging.warning(
+                "--sequence-parallel ignored: AR chunked decode is serial "
+                "with tiny per-chunk shapes, and inversion models are not "
+                "convolutional; SP targets full-utterance (non-AR) "
+                "synthesis.")
+        else:
+            model.enable_sequence_parallel(sequence_parallel)
+            logging.info(f"Sequence-parallel inference over "
+                         f"{sequence_parallel} time tiles.")
     sr, hop = config["sampling_rate"], config["hop_size"]
     # phoneme ids feed an embedding (reference decode.py:346)
     dtype = np.int32 if mode in _PHONEME_MODES else np.float32
@@ -243,16 +257,19 @@ def main(argv: list[str] | None = None) -> None:
                         help="with --ar-scan, round each utterance's chunk "
                              "count up to this multiple (0 = exact)")
     parser.add_argument("--sequence-parallel", default=0, type=int,
-                        help="not ported yet (raises for N > 1)")
+                        help="tile the time axis of full-utterance (non-AR) "
+                             "forwards N ways (parallel/sp.py), one tile's "
+                             "activations at a time; ignored for AR and "
+                             "inversion models. Frame counts not divisible "
+                             "by N are zero-padded and trimmed: only the "
+                             "last receptive-field window can differ from "
+                             "the unsharded forward.")
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose > 1 else
         logging.INFO if args.verbose > 0 else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s")
-    if args.sequence_parallel > 1:
-        parser.error("--sequence-parallel is not yet ported to "
-                     "articulatory_tpu_torch")
     exclusive = ("--bf16-weights is exclusive with int8 weights (flag or "
                  "config weight_quant: int8)")
     if args.bf16_weights and args.int8_weights:
@@ -270,7 +287,8 @@ def main(argv: list[str] | None = None) -> None:
            normalize_before=args.normalize_before,
            bucket_frames=args.bucket_frames, ar_scan=args.ar_scan,
            ar_scan_bucket=args.ar_scan_bucket, int8_weights=args.int8_weights,
-           bf16_weights=args.bf16_weights, device=args.device)
+           bf16_weights=args.bf16_weights,
+           sequence_parallel=args.sequence_parallel, device=args.device)
 
 
 if __name__ == "__main__":

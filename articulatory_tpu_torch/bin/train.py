@@ -39,8 +39,23 @@ the host loader; ``use_native_loader`` assembles a2w batches in host C++
 
 ``train(config, ...)`` takes the config as a dict (``main`` reads the YAML),
 writes ``<outdir>/config.yml`` and the checkpoints, and returns the
-``Trainer`` after its run. Distributed training and tensor parallelism are
-not ported yet and raise.
+``Trainer`` after its run.
+
+Several processes (``parallel/mesh.py``): ``--coordinator-address``,
+``--num-processes`` and ``--process-id``, or the environment the launcher
+sets (``python -m articulatory_tpu_torch.distributed.launch
+--nproc_per_node N bin/train.py ...``), start the process group; a rank
+asked for ``cuda`` runs on ``cuda:{LOCAL_RANK % device_count}``, and
+ranks other than 0 log warnings only. ``batch_size`` is per data-parallel
+rank (the global batch is ``batch_size`` x their number); each rank loads
+its shard of the training and dev sets (``data/loader.py``). The device
+cache and the native loader stay single-process, as JAX keeps its cache,
+and warn otherwise. ``tensor_parallel: N`` (or ``--tensor-parallel N``)
+splits the generator over N consecutive ranks (``parallel/tp.py``); the
+discriminator stays replicated. Checkpoints are written full, by rank 0.
+The collater's window draws are seeded per batch from ``--seed``, the epoch
+and the rank, and the step's draws per step (``train/gan.py``), so a
+``--resume`` continues as the uninterrupted run would, bit for bit.
 """
 
 from __future__ import annotations
@@ -63,6 +78,7 @@ from articulatory_tpu_torch.data.transforms import (
     get_transform,
 )
 from articulatory_tpu_torch.models import build_model
+from articulatory_tpu_torch.parallel import mesh
 from articulatory_tpu_torch.train.gan import (
     GANCriterion,
     GANTrainState,
@@ -83,9 +99,6 @@ from articulatory_tpu_torch.utils.device import resolve_device
 from articulatory_tpu_torch.utils.io import read_hdf5
 
 def _check_config(config: dict) -> None:
-    if int(config.get("tensor_parallel", 1)) > 1:
-        raise NotImplementedError("config keys not ported yet: "
-                                  "['tensor_parallel']")
     if config.get("use_pcd", False):
         raise ValueError(
             "use_pcd: no collater makes the 'pitch' and 'periodicity' batch "
@@ -200,8 +213,14 @@ def _batch_sampler(config: dict, train_set, train_dumpdir: str, seed: int
 
 def _fast_loader(config: dict, train_set, batch_sampler, seed: int, dev):
     """The device cache or the native loader where the config asks for one
-    and allows it, else None (the host loader)."""
+    and allows it (one data-parallel rank), else None (the host loader)."""
     gp = config["generator_params"]
+    if mesh.layout().dp > 1:
+        for key in ("use_device_cache", "use_native_loader"):
+            if config.get(key, False):
+                logging.warning(f"{key} is single-process; the ranks use "
+                                f"the host loader's shards")
+        return None
     random_window = (config.get("package_mode", "random_window")
                      == "random_window")
     if config.get("use_device_cache", False):
@@ -252,37 +271,49 @@ def dump_config(config: dict, outdir: str) -> None:
 
 def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
           data_root: str = "data", pretrain: str = "", pretrain2: str = "",
-          resume: str = "", seed: int = 0, device=None) -> Trainer:
+          resume: str = "", seed: int = 0, device=None,
+          tensor_parallel: int | None = None) -> Trainer:
     """Train from ``config`` on ``device`` (default cuda; raises without a
     card) until ``train_max_steps``. ``pretrain`` loads the models'
     weights, ``pretrain2`` a cascade's generator2 and the discriminator
     from another checkpoint's generator and discriminator, ``resume`` the
-    whole state, in that order."""
-    dev = resolve_device(device)
+    whole state, in that order. In a process group (``main`` starts it)
+    the ranks split into ``tensor_parallel`` x data-parallel groups."""
+    dev = resolve_device(mesh.rank_device(device))
     _check_config(config)
+    tp = int(tensor_parallel or config.get("tensor_parallel", 1) or 1)
     config = dict(config, train_dumpdir=train_dumpdir, dev_dumpdir=dev_dumpdir,
                   outdir=outdir, data_root=data_root, pretrain=pretrain,
                   pretrain2=pretrain2, resume=resume, seed=seed,
-                  version="0.1.0-torch")
-    dump_config(config, outdir)
+                  tensor_parallel=tp, version="0.1.0-torch")
+    if tp > 1 and config["generator_type"] != "HiFiGANGenerator":
+        raise ValueError(f"tensor_parallel splits HiFiGANGenerator only, "
+                         f"not {config['generator_type']}")
+    lay = mesh.make_groups(tp) if mesh.world_size() > 1 or tp > 1 else \
+        mesh.layout()
+    if mesh.is_main():
+        dump_config(config, outdir)
+    else:
+        os.makedirs(outdir, exist_ok=True)
 
     train_set, dev_set, train_collater, dev_collater = build_datasets(
         config, train_dumpdir, dev_dumpdir, data_root)
     logging.info(f"The number of training files = {len(train_set)}.")
     logging.info(f"The number of development files = {len(dev_set)}.")
     workers = config.get("num_workers", 0)
+    shards = dict(shard_id=lay.dp_rank, num_shards=lay.dp, collate_seed=seed)
     batch_sampler = _batch_sampler(config, train_set, train_dumpdir, seed)
     train_loader = (_fast_loader(config, train_set, batch_sampler, seed, dev)
                     or DataLoader(train_set, batch_size=config["batch_size"],
                                   shuffle=True, collate_fn=train_collater,
                                   drop_last=True, batch_sampler=batch_sampler,
-                                  num_workers=workers, seed=seed))
+                                  num_workers=workers, seed=seed, **shards))
     data_loader = {
         "train": train_loader,
-        "dev": DataLoader(dev_set, batch_size=min(config["batch_size"],
-                                                  max(1, len(dev_set))),
-                          shuffle=True, collate_fn=dev_collater,
-                          drop_last=True, num_workers=workers, seed=seed),
+        "dev": DataLoader(dev_set, batch_size=min(
+            config["batch_size"], max(1, len(dev_set) // lay.dp)),
+            shuffle=True, collate_fn=dev_collater, drop_last=True,
+            num_workers=workers, seed=seed, **shards),
     }
 
     criterion = GANCriterion(config)
@@ -304,18 +335,17 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
     opts, schedulers = {}, {}
     for name, model in (("generator", generator),
                         ("discriminator", discriminator)):
+        opts[name] = _optimizer(config, name, model)
         opt_params = config.get(f"{name}_optimizer_params", {})
-        opts[name] = build_optimizer(
-            config.get(f"{name}_optimizer_type", "RAdam"), opt_params,
-            config.get(f"{name}_grad_norm", -1), model.parameters())
         schedulers[name] = build_scheduler(
             config.get(f"{name}_scheduler_type", "StepLR"),
             opt_params.get("lr", 1e-3),
             config.get(f"{name}_scheduler_params", {}))
     state = GANTrainState(generator=generator, discriminator=discriminator,
                           opt_g=opts["generator"], opt_d=opts["discriminator"],
-                          draws=RandomDraws(seed), generator2=generator2)
-    epochs = 0
+                          draws=RandomDraws(seed, lay.dp_rank, lay.dp),
+                          generator2=generator2)
+    epochs = epoch_batches = 0
     if pretrain:
         restore_state(state, load_checkpoint(pretrain), config,
                       load_only_params=True)
@@ -333,18 +363,52 @@ def train(config: dict, *, train_dumpdir: str, dev_dumpdir: str, outdir: str,
             config.get("discriminator_params", {})))
         logging.info(f"Successfully loaded stage-2 from {pretrain2}.")
     if resume:
-        epochs = restore_state(state, load_checkpoint(resume), config,
-                               schedulers=schedulers)
+        payload = load_checkpoint(resume)
+        epochs = restore_state(state, payload, config, schedulers=schedulers)
+        epoch_batches = int(payload.get("epoch_batches", 0))
         logging.info(f"Successfully resumed from {resume}.")
+    # every rank starts from rank 0's weights
+    for model in (generator, discriminator, generator2):
+        if model is not None:
+            mesh.replicate(model)
+    if tp > 1:
+        _split_generator(state, config, lay)
 
     trainer = Trainer(config=config, state=state,
                       train_step=make_train_step(criterion, config),
                       eval_step=make_eval_step(criterion, config),
                       schedulers=schedulers, data_loader=data_loader,
-                      outdir=outdir, device=dev, epochs=epochs)
-    trainer.data_loader["train"].set_epoch(epochs)
+                      outdir=outdir, device=dev, epochs=epochs,
+                      epoch_batches=epoch_batches)
+    trainer.data_loader["train"].set_epoch(epochs, start=epoch_batches)
     trainer.run()
     return trainer
+
+
+def _optimizer(config: dict, name: str, model):
+    return build_optimizer(
+        config.get(f"{name}_optimizer_type", "RAdam"),
+        config.get(f"{name}_optimizer_params", {}),
+        config.get(f"{name}_grad_norm", -1), model.parameters())
+
+
+def _split_generator(state: GANTrainState, config: dict,
+                     lay: mesh.Layout) -> None:
+    """Split the (restored) generator over the TP group, and its optimizer
+    state with it: the rank's optimizer holds the rank's parameters and
+    clips by the global gradient norm."""
+    from articulatory_tpu_torch.parallel import tp
+
+    full_opt = state.opt_g.state_dict()
+    tp.shard_generator_(state.generator, lay.tp_group, lay.tp_rank, lay.tp)
+    state.opt_g = _optimizer(config, "generator", state.generator)
+    tp.load_optimizer_state(state.opt_g, full_opt, state.generator)
+    state.opt_g.norm_fn = tp.clip_norm_fn(state.generator)
+    held = sum(p.numel() for p in state.generator.parameters())
+    plan = state.generator.tp
+    full = sum(int(np.prod(plan.full_shapes[n])) for n in plan.full_names)
+    logging.warning(f"tensor parallel rank {lay.tp_rank} of {lay.tp}: "
+                    f"{held:,} of the generator's {full:,} parameters")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -375,12 +439,23 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--verbose", type=int, default=1)
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default; raises without a card) or cpu")
-    for flag, kind in (("--coordinator-address", str),
-                       ("--num-processes", int), ("--process-id", int),
-                       ("--tensor-parallel", int)):
-        parser.add_argument(flag, default=None, type=kind,
-                            help="not ported yet (raises)")
+    parser.add_argument("--coordinator-address", default=None, type=str,
+                        help="host:port (or a file:// URL) of the process "
+                             "group's rendezvous; default the launcher's "
+                             "environment")
+    parser.add_argument("--num-processes", default=None, type=int)
+    parser.add_argument("--process-id", default=None, type=int)
+    parser.add_argument("--tensor-parallel", default=None, type=int,
+                        help="split the generator over N consecutive ranks "
+                             "(overrides the config's tensor_parallel)")
     return parser
+
+
+def _distributed(args) -> bool:
+    env = os.environ
+    return (args.coordinator_address is not None
+            or "JAX_COORDINATOR_ADDRESS" in env
+            or ("MASTER_ADDR" in env and "RANK" in env))
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -390,22 +465,28 @@ def main(argv: list[str] | None = None) -> None:
         level=logging.DEBUG if args.verbose > 1 else
         logging.INFO if args.verbose > 0 else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s")
-    asked = [f for f in ("coordinator_address", "num_processes", "process_id",
-                         "tensor_parallel") if getattr(args, f) is not None]
-    if asked:
-        parser.error(", ".join("--" + f.replace("_", "-") for f in asked)
-                     + " is not yet ported to articulatory_tpu_torch")
     for stage in ("train", "dev"):
         if getattr(args, f"{stage}_dumpdir") is None:
             parser.error(f"--{stage}-dumpdir is required")
 
     from articulatory_tpu_torch.config import load_config
 
-    train(load_config(args.config), train_dumpdir=args.train_dumpdir,
-          dev_dumpdir=args.dev_dumpdir, outdir=args.outdir,
-          data_root=args.data_root, pretrain=args.pretrain,
-          pretrain2=args.pretrain2, resume=args.resume, seed=args.seed,
-          device=args.device)
+    config = load_config(args.config)
+    if _distributed(args):
+        mesh.init_distributed(args.coordinator_address, args.num_processes,
+                              args.process_id,
+                              device=mesh.rank_device(args.device))
+        if not mesh.is_main() and args.verbose <= 1:
+            # the reference's non-rank-0 squelch (train.py:1461-1463)
+            logging.getLogger().setLevel(logging.WARNING)
+    try:
+        train(config, train_dumpdir=args.train_dumpdir,
+              dev_dumpdir=args.dev_dumpdir, outdir=args.outdir,
+              data_root=args.data_root, pretrain=args.pretrain,
+              pretrain2=args.pretrain2, resume=args.resume, seed=args.seed,
+              device=args.device, tensor_parallel=args.tensor_parallel)
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -196,7 +196,9 @@ class SpeechCollater:
         self.start_offset = aux_context_window
         self.end_offset = -(self.batch_max_frames + aux_context_window)
 
-    def __call__(self, batch: list[dict]) -> dict:
+    def __call__(self, batch: list[dict],
+                 rng: np.random.Generator | None = None) -> dict:
+        rng = self.rng if rng is None else rng
         kept = []
         for d in batch:
             art = d["art"][: int(len(d["audio"]) / self.hop_size)]
@@ -217,7 +219,7 @@ class SpeechCollater:
                                [d["ph"] for d, _ in kept] if self.use_ph
                                else None)
         start_frames = np.array([
-            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in arts])
         wav_starts = start_frames * self.hop_size
         art_starts = start_frames - self.aux_context_window
@@ -312,11 +314,13 @@ class CollaterMelArt:
         self.start_offset = aux_context_window
         self.end_offset = -(self.batch_max_frames + aux_context_window)
 
-    def __call__(self, batch) -> dict:
+    def __call__(self, batch, rng: np.random.Generator | None = None
+                 ) -> dict:
+        rng = self.rng if rng is None else rng
         cs = [b[0] for b in batch]
         arts = [b[1] for b in batch]
         start_frames = np.array([
-            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in cs])
         starts = start_frames - self.aux_context_window
         ends = start_frames + self.batch_max_frames + self.aux_context_window
@@ -348,12 +352,14 @@ class Collater:
         self.end_offset = -(self.batch_max_frames + aux_context_window)
         self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
 
-    def __call__(self, batch) -> dict:
+    def __call__(self, batch, rng: np.random.Generator | None = None
+                 ) -> dict:
+        rng = self.rng if rng is None else rng
         batch = [b for b in batch if len(b[1]) > self.mel_threshold]
         xs = [b[0] for b in batch]
         cs = [b[1] for b in batch]
         start_frames = np.array([
-            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in cs])
         x_starts = start_frames * self.hop_size
         c_starts = start_frames - self.aux_context_window
@@ -365,7 +371,7 @@ class Collater:
                            ).astype(np.float32)
         out: dict = {"y": y_batch}
         if self.use_noise_input:
-            z_batch = self.rng.standard_normal(y_batch.shape).astype(
+            z_batch = rng.standard_normal(y_batch.shape).astype(
                 np.float32)
             out["x"] = (z_batch, c_batch)
         else:

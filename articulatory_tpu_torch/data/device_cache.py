@@ -107,7 +107,7 @@ class DeviceCachedBatcher:
         self.hop = int(config["hop_size"])
         self.batch_size = batch_size
         self.seed = seed
-        self.epoch = 0
+        self.epoch = self.start = 0
         self.device = torch.device(device)
         self.is_melart = mode in ("a2m", "m2a")
         self.frames = int(config["batch_max_steps"]) // self.hop
@@ -148,8 +148,9 @@ class DeviceCachedBatcher:
                      f"{self.resident_bytes / 1e6:.1f} MB resident on "
                      f"{self.device}")
 
-    def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
+    def set_epoch(self, epoch: int, start: int = 0) -> None:
+        """The epoch's draws, from its batch ``start`` on."""
+        self.epoch, self.start = epoch, start
 
     def __len__(self) -> int:
         return self.steps_per_epoch
@@ -193,5 +194,7 @@ class DeviceCachedBatcher:
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed + self.epoch)
-        for _ in range(self.steps_per_epoch):
-            yield self.batch_at(*self.sample_indices(rng))
+        for b in range(self.steps_per_epoch):
+            draws = self.sample_indices(rng)
+            if b >= self.start:
+                yield self.batch_at(*draws)

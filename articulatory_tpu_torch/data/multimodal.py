@@ -145,7 +145,9 @@ class SpeechCollaterMult:
                               for h, sr in zip(hop_sizes, sampling_rates)]
         self.rng = rng or np.random.default_rng()
 
-    def __call__(self, batch) -> dict:
+    def __call__(self, batch, rng: np.random.Generator | None = None
+                 ) -> dict:
+        rng = self.rng if rng is None else rng
         audios: list[list[np.ndarray]] = [[] for _ in self.hop_sizes]
         arts: list[list[np.ndarray]] = [[] for _ in self.hop_sizes]
         for audio, art, modality_i in batch:
@@ -163,7 +165,7 @@ class SpeechCollaterMult:
         flat_audios = [a for group in audios for a in group]
         art_lengths = [len(a) for group in arts for a in group]
         start_frames = np.array([
-            self.rng.integers(0, n - self.batch_max_frames)
+            rng.integers(0, n - self.batch_max_frames)
             for n in art_lengths])
         y_starts = start_frames * self.hop_size
         y_batch = np.stack([y[s:s + self.batch_max_steps] for y, s in

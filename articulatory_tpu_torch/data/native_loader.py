@@ -116,7 +116,7 @@ class NativeDataLoader:
                                      n_threads)
         self.batch_size = batch_size
         self.seed = seed
-        self.epoch = 0
+        self.epoch = self.start = 0
         for audio_path, art_path in zip(dataset.audio_files,
                                         dataset.art_files):
             if audio_path.endswith(".h5"):
@@ -126,8 +126,9 @@ class NativeDataLoader:
         self.indices = [i for i in range(len(self.batcher))
                         if self.batcher.utt_frames(i) > frames]
 
-    def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
+    def set_epoch(self, epoch: int, start: int = 0) -> None:
+        """The epoch's batches, from batch ``start`` on."""
+        self.epoch, self.start = epoch, start
 
     def __len__(self) -> int:
         return len(self.indices) // self.batch_size
@@ -135,7 +136,7 @@ class NativeDataLoader:
     def __iter__(self):
         order = np.asarray(self.indices)
         np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        for b in range(len(self)):
+        for b in range(self.start, len(self)):
             seed = (self.seed * 1_000_003 + self.epoch * 7919 + b) & 0xFFFFFFFF
             yield self.batcher.collate(
                 list(order[b * self.batch_size:(b + 1) * self.batch_size]),

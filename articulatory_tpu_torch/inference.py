@@ -95,6 +95,27 @@ class LoadedModel:
     # PWG / StyleMelGAN noise, seeded 0 at first use
     noise: torch.Generator | None = dataclasses.field(default=None,
                                                       repr=False)
+    # time tiles of non-AR forwards (enable_sequence_parallel)
+    sp: object | None = dataclasses.field(default=None, repr=False)
+
+    def enable_sequence_parallel(self, n: int, devices=None) -> None:
+        """Tile the time axis of full-utterance forwards ``n`` ways
+        (``parallel/sp.py``), tile i on ``devices[i]`` (default the model's
+        device n times: one tile's activations at a time). A forward fed
+        an AR carry takes the unsharded path, as in JAX. JAX raises when
+        it has fewer devices than n; here devices may repeat."""
+        from articulatory_tpu_torch.parallel.sp import (
+            SequenceParallel,
+            receptive_field_frames,
+        )
+
+        if type(self.model).__name__ != "HiFiGANGenerator":
+            raise ValueError("sequence parallelism tiles HiFiGANGenerator "
+                             "forwards only (its receptive field bounds "
+                             "the halo)")
+        self.sp = SequenceParallel(
+            self.model, n, receptive_field_frames(
+                self.config.get("generator_params", {})), devices)
 
     def normalize(self, c: np.ndarray) -> np.ndarray:
         if self.mean is None:
@@ -172,6 +193,8 @@ class LoadedModel:
                 self.noise = torch.Generator(self.device).manual_seed(0)
             return self.model.inference(c, self.noise)
         if ar is None:
+            if self.sp is not None:
+                return self.sp(c, lambda m, x: waveform(m(x)))
             return waveform(self.model(c))
         return waveform(self.model(c, torch.as_tensor(
             ar, device=self.device, dtype=dtype)))

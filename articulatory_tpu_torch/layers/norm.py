@@ -8,6 +8,13 @@ takes the unbiased one); in evaluation it uses the running statistics. The
 keys are torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
 ``num_batches_tracked``), so reference pickles load straight in.
 
+Under data parallelism (a data-parallel group of more than one rank,
+``parallel/mesh.py``) training reduces the statistics over the global
+batch, the shards' sums all-reduced (and their gradients with them), as
+GSPMD computes flax's statistics over a batch-sharded input: every rank
+normalises with, and moves its running statistics by, the same global mean
+and biased variance.
+
 ``frozen_stats(module)`` keeps every BatchNorm's statistics in place for
 the forwards inside it (the training step's regeneration pass, and a
 generator step its schedule turns off, as JAX's masked update does).
@@ -20,6 +27,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from articulatory_tpu_torch.parallel import mesh
 
 
 class BatchNorm(nn.Module):
@@ -48,7 +57,11 @@ class BatchNorm(nn.Module):
                                 False, 0.0, self.eps
                                 ).reshape(x.shape).to(out)
         dims = tuple(range(x.dim() - 1))
-        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        group = mesh.layout().dp_group
+        if mesh.group_size(group) > 1:
+            var, mean = _global_var_mean(x, dims, group)
+        else:
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -57,6 +70,16 @@ class BatchNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * scale + self.bias
+
+
+def _global_var_mean(x: torch.Tensor, dims: tuple, group
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The biased variance and mean over the ranks' equal shards of the
+    batch (two passes, each shard's sum all-reduced)."""
+    n = x.numel() // x.shape[-1] * mesh.group_size(group)
+    mean = mesh.reduce_both(x.sum(dim=dims), group) / n
+    var = mesh.reduce_both((x - mean).square().sum(dim=dims), group) / n
+    return var, mean
 
 
 @contextlib.contextmanager

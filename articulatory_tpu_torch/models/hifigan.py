@@ -32,7 +32,10 @@ The conditioning (embeddings, ``spk_fc``, ``ph_fc``) runs in f32 whatever
 
 Module names follow the reference's state-dict keys: ``input_conv``,
 ``upsamples.{i}.1``, ``blocks.{i*n+j}``, ``output_conv.1``, ``ar_model``,
-``spk_emb_mat``, ``spk_fc``, ``ph_emb_mat``, ``ph_fc``. ``time_packing``,
+``spk_emb_mat``, ``spk_fc``, ``ph_emb_mat``, ``ph_fc``. ``run_stages(c,
+start, stop)`` runs a range of the pipeline stages (``parallel/pp.py``);
+a generator split by ``parallel/tp.py`` runs its rank's part of each.
+``time_packing``,
 ``final_scale`` and ``extra_art`` are accepted and ignored.
 
 The discriminators return lists of feature maps, each cast back to f32 when
@@ -76,6 +79,7 @@ from articulatory_tpu_torch.layers.past_encoder import PastFCEncoder
 from articulatory_tpu_torch.layers.residual import HiFiGANResidualBlock
 from articulatory_tpu_torch.ops.conv import avg_pool1d, leaky_relu
 from articulatory_tpu_torch.ops.scale_disc_head import scale_disc_head
+from articulatory_tpu_torch.parallel import tp as tp_ops
 
 
 class HiFiGANGenerator(nn.Module):
@@ -137,6 +141,8 @@ class HiFiGANGenerator(nn.Module):
         self.compute_dtype = compute_dtype
         self.hybrid_precision = hybrid_precision
         self.num_blocks = len(resblock_kernel_sizes)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.tp = None  # a parallel/tp.py Plan once split
         # with weight norm off the reference's post-norm N(0, 0.01) reset is
         # effective (under weight norm it is a no-op)
         kinit = "torch_default" if use_weight_norm else "normal:0.01"
@@ -186,33 +192,73 @@ class HiFiGANGenerator(nn.Module):
             self.ph_fc = Dense(channels // (2 ** len(upsample_scales)), num_ph,
                                generator=generator)
 
+    @property
+    def num_pipeline_stages(self) -> int:
+        """Stage 0 is the conditioning and the input conv, stages 1..U one
+        upsample + MRF group each, stage U + 1 the output conv (and the
+        phoneme head)."""
+        return len(self.upsamples) + 2
+
     def forward(self, c: torch.Tensor, ar: torch.Tensor | None = None,
                 spk_id: torch.Tensor | None = None,
                 ph: torch.Tensor | None = None):
-        if self.use_ar:
-            ar_feats = self.ar_model(ar)  # (B, ar_output), f32
-            c = torch.cat([c, ar_feats[:, None, :].expand(
-                c.shape[0], c.shape[1], ar_feats.shape[-1])], dim=-1)
-        if self.use_spk_id:
-            c = c + self.spk_fc(self.spk_emb_mat(spk_id))[:, None, :]
-        if self.use_ph:
-            c = torch.cat([c, self.ph_emb_mat(ph)], dim=-1)
+        return self.run_stages(c, 0, self.num_pipeline_stages, ar=ar,
+                               spk_id=spk_id, ph=ph)
+
+    def run_stages(self, c: torch.Tensor, start: int, stop: int,
+                   ar: torch.Tensor | None = None,
+                   spk_id: torch.Tensor | None = None,
+                   ph: torch.Tensor | None = None):
+        """Pipeline stages ``[start, stop)`` only (JAX's ``run_stages``):
+        ``run_stages(c, 0, num_pipeline_stages)`` is the forward, and
+        chaining contiguous ranges reproduces it bit for bit (a handoff is
+        the raw activation between stages, its dtype kept). A generator
+        split for tensor parallelism (``parallel/tp.py``, ``self.tp``)
+        runs its rank's part of every stage."""
+        n_stages = self.num_pipeline_stages
+        if not 0 <= start < stop <= n_stages:
+            raise ValueError(
+                f"stage range [{start}, {stop}) is not a non-empty subrange "
+                f"of [0, {n_stages})")
+        tp = self.tp
         head_dt = None if self.hybrid_precision else self.compute_dtype
-        c = self.input_conv(c, head_dt)
+        if start == 0:
+            if self.use_ar:
+                ar_feats = self.ar_model(ar)  # (B, ar_output), f32
+                c = torch.cat([c, ar_feats[:, None, :].expand(
+                    c.shape[0], c.shape[1], ar_feats.shape[-1])], dim=-1)
+            if self.use_spk_id:
+                c = c + self.spk_fc(self.spk_emb_mat(spk_id))[:, None, :]
+            if self.use_ph:
+                c = torch.cat([c, self.ph_emb_mat(ph)], dim=-1)
+            c = (self.input_conv(c, head_dt) if tp is None else
+                 tp_ops.conv1d_split(self.input_conv, c, head_dt, tp))
         n_up = len(self.upsamples)
         for i, up in enumerate(self.upsamples):
+            if not start <= i + 1 < stop:
+                continue
             # hybrid precision: the final stage stays f32 (it feeds the AR
             # carry)
             stage_dt = (None if self.hybrid_precision and i == n_up - 1
                         else self.compute_dtype)
             if stage_dt is None and c.dtype == torch.bfloat16:
                 c = c.float()
+            nb = self.num_blocks
+            if tp is not None:
+                c = tp_ops.conv_transpose1d_split(up[1], self.act(c),
+                                                  stage_dt, tp)
+                c = tp_ops.mrf_split(self.blocks, c, i * nb, nb, stage_dt, tp)
+                continue
             c = up[1](self.act(c), stage_dt)
             cs = 0.0
-            for j in range(self.num_blocks):
-                cs = cs + self.blocks[i * self.num_blocks + j](c, stage_dt)
-            c = cs / self.num_blocks
-        out = self.output_conv[1](leaky_relu(c, 0.01), head_dt)
+            for j in range(nb):
+                cs = cs + self.blocks[i * nb + j](c, stage_dt)
+            c = cs / nb
+        if stop < n_stages:
+            return c
+        pre = leaky_relu(c, 0.01)
+        out = (self.output_conv[1](pre, head_dt) if tp is None else
+               tp_ops.conv1d_split(self.output_conv[1], pre, head_dt, tp))
         if self.use_tanh:
             out = torch.tanh(out)
         out = _f32(out)

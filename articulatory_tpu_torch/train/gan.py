@@ -58,8 +58,10 @@ so a step does not wait for the card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import hashlib
 import logging
 from typing import Sequence
 
@@ -83,38 +85,59 @@ from articulatory_tpu_torch.models import (
 )
 from articulatory_tpu_torch.ops.interp import interpolate_linear
 from articulatory_tpu_torch.ops.pqmf import PQMF
+from articulatory_tpu_torch.parallel import mesh, tp
 from articulatory_tpu_torch.train.optimizers import Optimizer
 
 INVERSION_MODES = ("art", "a2m", "w2a", "m2a", "ph2a", "ph2m")
 
 
 class RandomDraws:
-    """The step's random numbers, from generators seeded with ``seed``:
-    normal noise on the device of ``like`` and window offsets on the host
-    (Python ints, so drawing them waits for nothing). ``tag`` names the
-    pass a draw is for (``generator``, ``regeneration``,
-    ``generator_windows``, ``real_windows``, ``fake_windows``,
-    ``eval_*``); a test may replay another framework's draws by tag."""
+    """The step's random numbers: normal noise on the device of ``like``
+    and window offsets on the host (Python ints, so drawing them waits for
+    nothing). ``tag`` names the pass a draw is for (``generator``,
+    ``regeneration``, ``generator_windows``, ``real_windows``,
+    ``fake_windows``, ``eval_*``); a test may replay another framework's
+    draws by tag.
 
-    def __init__(self, seed: int = 0):
-        self.seed = seed
-        self._noise: dict[torch.device, torch.Generator] = {}
-        self._windows = torch.Generator().manual_seed(seed)
+    Each draw comes from a generator seeded by a hash of ``(seed, steps,
+    index, tag, n)``: ``at(steps, index)`` keys the draws that follow by the
+    step (and an evaluation batch's index), and ``n`` counts the draws of a
+    tag since. The draws are so a pure function of the step, as the JAX
+    trainer's ``fold_in`` keys are: a run resumed at step k draws what the
+    uninterrupted run drew, and every rank draws the same values. Noise has
+    one row an utterance: with ``world`` data-parallel ranks each draws the
+    global batch's rows and keeps its own (rank ``rank``), so a step of
+    several ranks draws what one rank draws on their concatenated batch."""
+
+    def __init__(self, seed: int = 0, rank: int = 0, world: int = 1):
+        self.seed, self.rank, self.world = seed, rank, world
+        self.at(0)
+
+    def at(self, steps: int, index: int | None = None) -> None:
+        """Key the following draws by ``steps`` (and ``index``)."""
+        self._key = (int(steps), index)
+        self._counts: collections.Counter = collections.Counter()
+
+    def _generator(self, tag: str, device) -> torch.Generator:
+        n = self._counts[tag]
+        self._counts[tag] += 1
+        key = f"{self.seed}/{self._key[0]}/{self._key[1]}/{tag}/{n}"
+        digest = hashlib.sha256(key.encode()).digest()
+        return torch.Generator(device).manual_seed(
+            int.from_bytes(digest[:8], "little") >> 1)
 
     def normal(self, shape: Sequence[int], like: torch.Tensor,
                tag: str) -> torch.Tensor:
-        del tag
-        gen = self._noise.get(like.device)
-        if gen is None:
-            gen = self._noise[like.device] = torch.Generator(
-                like.device).manual_seed(self.seed)
-        return torch.randn(tuple(shape), generator=gen, device=like.device,
-                           dtype=like.dtype)
+        shape = tuple(shape)
+        rows = shape[0]
+        z = torch.randn((rows * self.world,) + shape[1:],
+                        generator=self._generator(tag, like.device),
+                        device=like.device, dtype=like.dtype)
+        return z[self.rank * rows:(self.rank + 1) * rows]
 
     def offsets(self, bounds: Sequence[int], tag: str) -> list[int]:
-        del tag
-        return [int(torch.randint(0, b, (1,), generator=self._windows))
-                for b in bounds]
+        gen = self._generator(tag, "cpu")
+        return [int(torch.randint(0, b, (1,), generator=gen)) for b in bounds]
 
 
 @dataclasses.dataclass
@@ -412,6 +435,8 @@ def make_train_step(criterion: GANCriterion, config: dict):
 
     def train_step(state: GANTrainState, batch: dict, lr_g: float,
                    lr_d: float) -> dict:
+        state.draws.at(state.steps)
+        lay = mesh.layout()
         gen_on = state.steps > gen_start
         disc_on = state.steps > disc_start
         # BatchNorm statistics move only with a generator update
@@ -425,6 +450,9 @@ def make_train_step(criterion: GANCriterion, config: dict):
             grads = torch.autograd.grad(gen_loss, params, allow_unused=True)
             for p, g in zip(params, grads):
                 p.grad = torch.zeros_like(p) if g is None else g
+            mesh.all_reduce_grads(params, lay.dp_group)
+            if getattr(state.generator, "tp", None) is not None:
+                tp.sync_replicated_grads(state.generator)
             state.opt_g.step(lr_g)
             state.opt_g.zero_grad()
 
@@ -441,6 +469,10 @@ def make_train_step(criterion: GANCriterion, config: dict):
         if disc_on:
             state.opt_d.zero_grad()
             dis_loss.backward()
+            mesh.all_reduce_grads(state.opt_d.params, lay.dp_group)
+            # replicated across a TP group: its first rank's gradients
+            mesh.follow_first([p.grad for p in state.opt_d.params
+                               if p.grad is not None], lay.tp_group)
             state.opt_d.step(lr_d)
             state.opt_d.zero_grad()
         state.steps += 1
@@ -453,7 +485,8 @@ def make_train_step(criterion: GANCriterion, config: dict):
 def make_eval_step(criterion: GANCriterion, config: dict):
     """``eval_step(state, batch) -> (metrics, y_)``: the losses without
     updates, the generator in evaluation mode (BatchNorm running
-    statistics, no dropout)."""
+    statistics, no dropout). Its draws follow ``state.draws``'s key, which
+    the trainer sets to the step and the batch's index in the evaluation."""
     _check_fuse_disc(config)
 
     @torch.no_grad()

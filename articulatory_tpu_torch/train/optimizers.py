@@ -56,6 +56,9 @@ class Optimizer:
     def __init__(self, optimizer: torch.optim.Optimizer, grad_norm: float):
         self.optimizer = optimizer
         self.grad_norm = grad_norm
+        # the global norm of the gradients, where they are split over
+        # ranks (``parallel/tp.py::clip_norm_fn``); None: the local norm
+        self.norm_fn = None
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -69,8 +72,9 @@ class Optimizer:
             group["lr"] = lr
         if self.grad_norm and self.grad_norm > 0:
             grads = [p.grad for p in self.params if p.grad is not None]
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            norm = (self.norm_fn(self.params) if self.norm_fn is not None
+                    else torch.linalg.vector_norm(torch.stack(
+                        [torch.linalg.vector_norm(g) for g in grads])))
             scale = torch.where(norm < self.grad_norm, torch.ones_like(norm),
                                 self.grad_norm / norm)
             torch._foreach_mul_(grads, scale)

@@ -40,6 +40,20 @@
 tensorboardX and matplotlib are imported when first needed; where one is
 missing, that is logged once and its output skipped (the wavs are still
 written).
+
+Several ranks (``parallel/mesh.py``): every rank steps, evaluates and takes
+the save decisions; only rank 0 logs, writes the scalars, the
+intermediate results, ``best_mel_step.txt`` and the checkpoints (written
+full, then a barrier), and opens the profiler window. The logged training
+and evaluation metrics are averaged over the ranks, ``best_mel_loss`` is
+rank 0's (broadcast when the trainer starts), and
+``samples_per_sec_per_chip`` counts the global batch (``batch_size`` a
+data-parallel rank) over the cards in use.
+
+``epoch_batches`` counts the batches taken in the current epoch; it is
+saved with the checkpoints, and a resume starts the epoch's loader after
+them (``set_epoch(epoch, start)``), so a resumed run takes the batches the
+uninterrupted run would have.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from articulatory_tpu_torch.parallel import mesh
 from articulatory_tpu_torch.utils.checkpoint import save_checkpoint
 from articulatory_tpu_torch.utils.io import write_wav
 
@@ -93,7 +108,8 @@ def _summary_writer(outdir: str):
 class Trainer:
     def __init__(self, *, config: dict, state, train_step, eval_step,
                  schedulers: dict, data_loader: dict, outdir: str,
-                 device: torch.device, epochs: int = 0, writer=None):
+                 device: torch.device, epochs: int = 0, writer=None,
+                 epoch_batches: int = 0):
         self.config = config
         self.state = state
         self.train_step = train_step
@@ -103,6 +119,8 @@ class Trainer:
         self.outdir = outdir
         self.device = device
         self.epochs = epochs
+        self.epoch_batches = epoch_batches
+        self.is_main = mesh.is_main()
         self.finish_train = False
         self.total_train_loss: dict = defaultdict(float)
         self._train_count = 0
@@ -114,6 +132,8 @@ class Trainer:
             fields = open(best_path).read().split()
             if len(fields) >= 2:
                 self.best_mel_loss = float(fields[1])
+        if mesh.world_size() > 1:  # rank 0 keeps the file
+            self.best_mel_loss = mesh.broadcast_float(self.best_mel_loss)
         self._plateau = {k: type(v).__name__ == "ReduceLROnPlateau"
                          for k, v in schedulers.items()}
         self.profiler = None
@@ -121,8 +141,8 @@ class Trainer:
         self._orbax_logged = False
         self._plot_missing_logged = False
         self._own_writer = writer is None
-        self.writer = writer if writer is not None else _summary_writer(
-            outdir)
+        self.writer = writer if writer is not None else (
+            _summary_writer(outdir) if self.is_main else None)
 
     @property
     def steps(self) -> int:
@@ -130,15 +150,19 @@ class Trainer:
 
     def run(self) -> None:
         previous = self._install_preemption_handler()
+        failed = True
         try:
             while not self.finish_train:
                 self._train_epoch()
+            failed = False
         finally:
             if self._profiling:
                 self._stop_profiler()
-            self.save_checkpoint(os.path.join(
-                self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
-            logging.info(f"Successfully saved checkpoint @ {self.steps} steps.")
+            # a failing rank saves nothing: the save's collectives would
+            # wait for ranks that are still stepping
+            if not failed or mesh.world_size() == 1:
+                self.save_checkpoint(os.path.join(
+                    self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
             if self._own_writer and self.writer is not None:
@@ -162,7 +186,7 @@ class Trainer:
 
     def _profile_window(self) -> None:
         window = self.config.get("profile_steps")
-        if not window:
+        if not window or not self.is_main:
             return
         lo, hi = int(window[0]), int(window[1])
         if not self._profiling and lo <= self.steps < hi:
@@ -195,12 +219,14 @@ class Trainer:
     def _train_epoch(self) -> None:
         for batch in self.data_loader["train"]:
             self._train_step(batch)
+            self.epoch_batches += 1
             self._check_log_interval()
             self._check_eval_interval()
             self._check_save_interval()
             if self.finish_train:
                 return
         self.epochs += 1
+        self.epoch_batches = 0
         self.data_loader["train"].set_epoch(self.epochs)
 
     def _train_step(self, batch: dict) -> None:
@@ -236,18 +262,26 @@ class Trainer:
                 or self._train_count == 0):
             return
         elapsed = time.time() - self._last_log_time
-        for key, total in sorted(self.total_train_loss.items()):
-            avg = float(total) / self._train_count
-            logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
+        averages = mesh.average({k: float(v) / self._train_count
+                                 for k, v in self.total_train_loss.items()})
+        for key, avg in sorted(averages.items()):
+            if self.is_main:
+                logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
             self._scalar(key, avg)
         steps_per_sec = self._train_count / max(elapsed, 1e-9)
-        logging.info(f"(Steps: {self.steps}) {steps_per_sec:.3f} steps/s.")
+        if self.is_main:
+            logging.info(f"(Steps: {self.steps}) {steps_per_sec:.3f} "
+                         f"steps/s.")
         self._scalar("train/steps_per_sec", steps_per_sec)
+        # batch_size is a data-parallel rank's; the global batch over the
+        # cards in use
         samples_per_step = (self.config.get("batch_size", 1)
+                            * mesh.layout().dp
                             * self.config.get("batch_max_steps", 0))
-        if samples_per_step:  # one process on one card
+        if samples_per_step:
             self._scalar("train/samples_per_sec_per_chip",
-                         steps_per_sec * samples_per_step)
+                         steps_per_sec * samples_per_step
+                         / mesh.cards(self.device))
         self._scalar("train/lr_generator", self.schedulers["generator"].lr)
         self.total_train_loss = defaultdict(float)
         self._train_count = 0
@@ -261,14 +295,17 @@ class Trainer:
         if self.steps % self.config.get("save_interval_steps", 5000) == 0:
             self.save_checkpoint(os.path.join(
                 self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
-            logging.info(f"Successfully saved checkpoint @ {self.steps} steps.")
 
     def _eval_epoch(self) -> None:
-        logging.info(f"(Steps: {self.steps}) Start evaluation.")
+        if self.is_main:
+            logging.info(f"(Steps: {self.steps}) Start evaluation.")
         totals: dict = defaultdict(float)
         count = 0
         first = None
+        draws = getattr(self.state, "draws", None)
         for batch in self.data_loader.get("dev", []):
+            if draws is not None:  # keyed by the step and the batch
+                draws.at(self.steps, count)
             metrics, y_ = self.eval_step(self.state,
                                          to_device(batch, self.device))
             for k, v in metrics.items():
@@ -278,19 +315,25 @@ class Trainer:
             count += 1
         if count == 0:
             return
-        averages = {k: float(v) / count for k, v in totals.items()}
+        # every rank sees equally many dev batches (wrap-padded shards)
+        averages = mesh.average({k: float(v) / count
+                                 for k, v in totals.items()})
         for key, avg in sorted(averages.items()):
-            logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
+            if self.is_main:
+                logging.info(f"(Steps: {self.steps}) {key} = {avg:.4f}.")
             self._scalar(key, avg)
         mel = averages.get("eval/mel_loss")
         if mel is not None and mel < self.best_mel_loss:
             self.best_mel_loss = mel
             self.save_checkpoint(os.path.join(self.outdir, "best_mel_ckpt.pkl"))
-            with open(os.path.join(self.outdir, "best_mel_step.txt"), "w") as f:
-                f.write(f"{self.steps} {self.best_mel_loss}")
-            logging.info(f"(Steps: {self.steps}) New best eval/mel_loss "
-                         f"{self.best_mel_loss:.4f}.")
-        self._save_intermediate(*first)
+            if self.is_main:
+                with open(os.path.join(self.outdir, "best_mel_step.txt"),
+                          "w") as f:
+                    f.write(f"{self.steps} {self.best_mel_loss}")
+                logging.info(f"(Steps: {self.steps}) New best eval/mel_loss "
+                             f"{self.best_mel_loss:.4f}.")
+        if self.is_main:
+            self._save_intermediate(*first)
 
     def _scalar(self, tag: str, value: float) -> None:
         if self.writer is not None:
@@ -303,6 +346,8 @@ class Trainer:
                         else np.asarray(y) for y in (batch["y"], y_gen))
         n = min(self.config.get("num_save_intermediate_results", 4),
                 len(y_gen), len(y_ref))
+        if n <= 0:
+            return
         dirname = os.path.join(self.outdir, f"predictions/{self.steps}steps")
         os.makedirs(dirname, exist_ok=True)
         sr = self.config.get("sampling_rate", 16000)
@@ -347,4 +392,7 @@ class Trainer:
                             "the same path instead")
             self._orbax_logged = True
         save_checkpoint(path, self.state, schedulers=self.schedulers,
-                        epochs=self.epochs)
+                        epochs=self.epochs, epoch_batches=self.epoch_batches)
+        if self.is_main:
+            logging.info(f"Successfully saved checkpoint @ {self.steps} "
+                         f"steps.")

@@ -17,7 +17,8 @@ BatchNorm statistics from ``payload["mutables"]``; a cascade's
 ``generator2``, which the reference saves as a 1-tuple). ``save_checkpoint``
 writes a training state as a torch pickle in the reference's layout,
 ``{"model": {"generator", "discriminator"[, "generator2"]}, "optimizer":
-{...}, "scheduler": {...}, "steps", "epochs"}``, which ``load_model``
+{...}, "scheduler": {...}, "steps", "epochs", "epoch_batches"}`` (the
+batches taken in the current epoch), which ``load_model``
 decodes from and ``restore_state`` resumes from, as it resumes a JAX
 checkpoint: the per-parameter trees of its optax state (every optimizer
 of the JAX package's ``build_optimizer``) go through the same layout map as
@@ -152,20 +153,33 @@ def _cpu(tree):
 
 
 def save_checkpoint(path: str, state, schedulers: dict | None = None,
-                    epochs: int = 0) -> None:
+                    epochs: int = 0, epoch_batches: int = 0) -> None:
     """Write a ``train/gan.py::GANTrainState`` (and the host schedulers) as
-    one torch pickle, atomically."""
-    model = {"generator": state.generator.state_dict(),
+    one torch pickle, atomically. With several ranks every rank calls it: a
+    generator split for tensor parallelism is gathered full (weights and
+    optimizer state), rank 0 writes, and a barrier follows."""
+    from articulatory_tpu_torch.parallel import mesh, tp
+
+    if getattr(state.generator, "tp", None) is not None:
+        generator, opt_g = tp.full_state(state.generator, state.opt_g)
+    else:
+        generator, opt_g = (state.generator.state_dict(),
+                            state.opt_g.state_dict())
+    if not mesh.is_main():
+        mesh.barrier()
+        return
+    model = {"generator": generator,
              "discriminator": state.discriminator.state_dict()}
     if getattr(state, "generator2", None) is not None:
         model["generator2"] = state.generator2.state_dict()
     payload = _cpu({
         "model": model,
-        "optimizer": {"generator": state.opt_g.state_dict(),
+        "optimizer": {"generator": opt_g,
                       "discriminator": state.opt_d.state_dict()},
         "scheduler": {k: v.state_dict() for k, v in (schedulers or {}).items()},
         "steps": int(state.steps),
         "epochs": int(epochs),
+        "epoch_batches": int(epoch_batches),
     })
     folder = os.path.dirname(path)
     if folder:
@@ -173,6 +187,7 @@ def save_checkpoint(path: str, state, schedulers: dict | None = None,
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    mesh.barrier()
 
 
 def restore_state(state, payload: dict, config: dict,

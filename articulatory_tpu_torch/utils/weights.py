@@ -33,10 +33,16 @@ mutables, ``num_batches_tracked`` from the step count. A cascade's
 ``fold_weight_norm`` is ``remove_weight_norm`` on a state dict: each
 ``weight_v`` becomes the effective weight and ``weight_g`` its norm, so the
 forward computes the same kernel from an exactly normalised v.
+
+``split_tp_state_dict`` gives a rank of a tensor-parallel group its part of
+a full HiFi-GAN generator state dict (``parallel/tp.py``'s layout:
+``tp_key_spec``), and ``gather_tp_state_dicts`` puts the ranks' parts back
+together into the full state dict.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -506,3 +512,135 @@ def fold_weight_norm(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         out[f"{prefix}_v"] = torch.from_numpy(w_eff.astype(v.dtype)).to(v_t.device)
         out[f"{prefix}_g"] = torch.from_numpy(new_g.astype(g.dtype)).to(g_t.device)
     return out
+
+
+# Tensor parallelism (parallel/tp.py): how a HiFi-GAN generator's full state
+# dict lies over the ranks of a TP group, and its split and gather.
+
+_UPSAMPLE = re.compile(r"upsamples\.(\d+)\.1\.(weight_v|weight_g|weight)$")
+_BLOCK = re.compile(r"blocks\.(\d+)\.")
+_CONV_IN = re.compile(r"(input_conv|output_conv\.1)\.(weight_v|weight)$")
+
+
+def channel_ranges(channels: int, size: int) -> list[tuple[int, int]]:
+    """``size`` contiguous ranges over ``channels``, differing by at most
+    one channel."""
+    if channels < size:
+        raise ValueError(f"{channels} channels cannot be split {size} ways")
+    base, extra = divmod(channels, size)
+    out, start = [], 0
+    for r in range(size):
+        stop = start + base + (1 if r < extra else 0)
+        out.append((start, stop))
+        start = stop
+    return out
+
+
+def block_owners(kernel_sizes, size: int) -> list[int]:
+    """The rank of each MRF block: the largest kernels first, each to the
+    rank with the fewest taps so far (ties to the higher rank)."""
+    if size > len(kernel_sizes):
+        raise ValueError(f"tensor_parallel {size} exceeds the MRF's "
+                         f"{len(kernel_sizes)} residual blocks")
+    load = [0] * size
+    owners = [0] * len(kernel_sizes)
+    for j in sorted(range(len(kernel_sizes)),
+                    key=lambda j: (-kernel_sizes[j], j)):
+        r = min(range(size), key=lambda r: (load[r], -r))
+        owners[j] = r
+        load[r] += kernel_sizes[j]
+    return owners
+
+
+def tp_key_spec(key: str, shape, size: int, num_blocks: int,
+                owners: list[int]):
+    """How the full state-dict entry ``key`` (of ``shape``) lies over a TP
+    group of ``size``: ``("split", dim)``, ``("owned", rank)`` or
+    ``("replicated",)``. A conv with fewer input channels than ranks stays
+    replicated."""
+    for pattern, dim in ((_CONV_IN, 1), (_UPSAMPLE, 0)):
+        if pattern.match(key):
+            return ("split", dim) if shape[dim] >= size else ("replicated",)
+    m = _BLOCK.match(key)
+    if m:
+        return ("owned", owners[int(m.group(1)) % num_blocks])
+    return ("replicated",)
+
+
+def tp_part(t: torch.Tensor, spec, rank: int, size: int) -> torch.Tensor | None:
+    if spec[0] == "split":
+        start, stop = channel_ranges(t.shape[spec[1]], size)[rank]
+        return t.narrow(spec[1], start, stop - start)
+    if spec[0] == "owned":
+        return t if spec[1] == rank else None
+    return t
+
+
+def _plan_args(gp: dict) -> tuple[int, list[int]]:
+    kernels = list(gp.get("resblock_kernel_sizes", (3, 7, 11)))
+    return len(kernels), kernels
+
+
+def split_tp_state_dict(sd: dict, generator_params: dict, rank: int, size: int
+                     ) -> dict:
+    """The entries of a full generator state dict that rank ``rank`` of a
+    TP group of ``size`` holds (the blocks of other ranks left out)."""
+    nb, kernels = _plan_args(generator_params)
+    owners = block_owners(kernels, size)
+    out = {}
+    for key, t in sd.items():
+        part = tp_part(t, tp_key_spec(key, t.shape, size, nb, owners), rank,
+                       size)
+        if part is not None:
+            out[key] = part.clone()
+    return out
+
+
+def _in_channels(key: str, gp: dict) -> int:
+    """The input channels of the HiFi-GAN conv that ``key`` belongs to."""
+    channels = gp.get("channels", 512)
+    m = _UPSAMPLE.match(key)
+    if m:
+        return channels // 2 ** int(m.group(1))
+    if key.startswith("output_conv"):
+        return channels // 2 ** len(gp.get("upsample_scales", (8, 8, 2, 2)))
+    if key.startswith("input_conv"):
+        return gp.get("in_channels", 80) + (gp.get("ph_emb_size", 8)
+                                            if gp.get("use_ph") else 0)
+    return 0
+
+
+def gather_tp_state_dicts(sds: list[dict], generator_params: dict) -> dict:
+    """The full generator state dict from every rank's (``sds[r]`` rank
+    r's), in the generator's module order."""
+    size = len(sds)
+    nb, kernels = _plan_args(generator_params)
+    owners = block_owners(kernels, size)
+    keys = list(dict.fromkeys(k for sd in sds for k in sd))
+    keys.sort(key=_generator_key_order)
+    out = {}
+    for key in keys:
+        held = next(sd[key] for sd in sds if key in sd)
+        shape = list(held.shape)
+        if held.dim() >= 2:  # a conv weight: the full input channel count
+            shape[1 if _CONV_IN.match(key) else 0] = _in_channels(
+                key, generator_params)
+        spec = tp_key_spec(key, shape, size, nb, owners)
+        if spec[0] == "split":
+            out[key] = torch.cat([sd[key] for sd in sds], dim=spec[1])
+        elif spec[0] == "owned":
+            out[key] = sds[spec[1]][key]
+        else:
+            out[key] = sds[0][key]
+    return out
+
+
+def _generator_key_order(key: str):
+    """A generator's module order (the conditioning, the input conv, the
+    upsamplers, the blocks, the output conv) and the module's index; a
+    stable sort keeps a module's own key order."""
+    head = key.split(".")[0]
+    order = ["ar_model", "input_conv", "upsamples", "blocks", "output_conv",
+             "spk_emb_mat", "spk_fc", "ph_emb_mat", "ph_fc"]
+    nums = [int(n) for n in re.findall(r"\.(\d+)\.", "." + key + ".")]
+    return (order.index(head) if head in order else len(order), nums[:1])

@@ -9,9 +9,10 @@ dilations (1, 3, 5), AR 512), in phase 7 of
 inversion BiGRU of ``benchmarks/inversion_bench.py`` and the stream server,
 in phases 12-13 of the generator zoo on
 ``egs/ema/voc1/conf/e2w_hifigan.yaml``, in phases 14-18 of its
-conditioned, chained and multimodal forms, and in phases 21-24 of the
+conditioned, chained and multimodal forms, in phases 21-24 of the
 remaining entry points, weight storage, causal convs and SSL inversion,
-through their entry points:
+and in phases 25-28 of its data-, tensor-, pipeline- and
+sequence-parallel paths, through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -202,7 +203,30 @@ Phases, each raising on failure:
 24. ssl: the ``_h2`` inversion: 1024-wide hidden states interpolated on
    the card into the AR BiGRU, eager and graph, against the CPU; a HuBERT
    of hubert-large-ll60k's config with random weights on the card against
-   the CPU, and ``bin/predict_ema.py`` on an ``_h2`` experiment.
+   the CPU, and ``bin/predict_ema.py`` on an ``_h2`` experiment;
+25. dp: ``python -m articulatory_tpu_torch.distributed.launch
+   --nproc_per_node 2`` on this script's rank worker (``--rank-worker``),
+   which runs ``bin/train.py``'s ``main``: two ranks sharing the card
+   (gloo), f32, B 32 x 2000 a rank (the global batch is phase 6's B 64),
+   3 steps on phase 6's corpus with an evaluation; both ranks' parameters
+   bit-equal after every step, 72 pair and 12 head launches a step on
+   each rank, the step-1 all-reduced gradients against one process's on
+   the concatenated batch (GRAD_TOL[0] pooled per model); the step median
+   per rank, the backend and the time inside the collectives;
+26. tp: the same with ``tensor_parallel: 2`` (one TP group sharing B 16),
+   2 steps: the gathered generator bit-equal on both ranks, each rank's
+   pairs those of its MRF blocks, the gathered gradients against one
+   process's, the checkpoint full; each rank's parameter count;
+27. pp: ``PipelinedGenerator`` of the EMA HiFi-CAR over 2 and 3 stage
+   groups on cuda:0 (a stream each), B 16 chunks of 100 frames with the
+   512-sample carry, 2 and 4 microbatches, f32 and hybrid: bit-equal to
+   the monolith on the same microbatches, within KERNEL_TOL of the
+   whole-batch forward, 36 pairs a microbatch, its time against the
+   monolith's;
+28. sp: the EMA widths without AR, one 60 s utterance (12,000 frames) in
+   4 time tiles (``LoadedModel.enable_sequence_parallel``) against the
+   unsharded forward (SP_TOL of max |y|), the peak memory of both, and
+   ``bin/decode.py --sequence-parallel 4`` against the unsharded decode.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -218,6 +242,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import shutil
@@ -3956,6 +3981,487 @@ def phase_ssl(port: dict, seed: int, device_name: str, tmp: str) -> dict:
     return {"feature_err": feat_errs, "rtf": rtf, "chunk_rel_err": err,
             "hubert_ms": 1e3 * hubert_s, "hubert_rel_err": hubert_err}
 
+# [dp] / [tp]: data and tensor parallelism through the launcher and the
+# train CLI, two ranks sharing the card (gloo: NCCL refuses two ranks on
+# one device), at TRAIN_CONFIG's widths on phase 6's corpus; PAR_BATCH is
+# a data-parallel rank's (dp: the global batch is the single-process
+# shape, 64; tp: one TP group of both ranks shares B 16)
+PAR_STEPS = {"dp": 3, "tp": 2}
+PAR_BATCH = {"dp": 32, "tp": 16}
+PAR_GRAD_STEP = 1  # the step whose all-reduced gradients are checked
+PAR_TIMEOUT_S = 600
+
+
+def parallel_config(mode: str) -> dict:
+    # both models update from step 0, so step PAR_GRAD_STEP reduces both
+    return dict(TRAIN_CONFIG, batch_size=PAR_BATCH[mode],
+                train_max_steps=PAR_STEPS[mode],
+                generator_train_start_steps=0,
+                eval_interval_steps=PAR_STEPS[mode],
+                num_save_intermediate_results=0,
+                tensor_parallel=2 if mode == "tp" else 1)
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_worker(workdir: str) -> int:
+    """One rank of [dp] / [tp], started by the launcher: ``bin/train.py``'s
+    ``main`` on ``workdir``'s spec, each step's launches, time, collective
+    seconds and parameter digest recorded (a TP generator gathered full),
+    and at PAR_GRAD_STEP the weights before and after, the rank's batch and
+    the all-reduced gradients saved for the one-rank reference."""
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    from articulatory_tpu_torch.parallel import mesh, tp
+
+    port = training_port()
+    train_cli = port["train"]
+    records, grads, keep = [], [], {"on": False}
+    reduce_grads = mesh.all_reduce_grads
+
+    def reduce_and_keep(params, group):
+        reduce_grads(params, group)
+        if keep["on"]:
+            grads.append([torch.zeros_like(p) if p.grad is None
+                          else p.grad.detach().clone() for p in params])
+
+    def full_generator(state) -> dict:
+        sd = (state.generator.state_dict() if state.generator.tp is None
+              else tp.full_state(state.generator)[0])
+        return {k: v.detach().clone() for k, v in sd.items()}
+
+    def full_grads(state, local: list) -> dict:
+        gen = state.generator
+        names = [n for n, _ in gen.named_parameters()]
+        if gen.tp is None:
+            return dict(zip(names, local))
+        plan, held = gen.tp, dict(zip(names, local))
+        return {n: tp._gathered(held.get(n), n, plan, local[0])
+                for n in plan.full_names}
+
+    make_train_step = train_cli.make_train_step
+
+    def make(criterion, config):
+        step = make_train_step(criterion, config)
+
+        def recorded(state, batch, lr_g, lr_d):
+            k, rank = state.steps, mesh.rank()
+            if k == PAR_GRAD_STEP:
+                pre = {"generator": full_generator(state),
+                       "discriminator": {
+                           k: v.detach().clone() for k, v in
+                           state.discriminator.state_dict().items()}}
+                torch.save({key: value.cpu() for key, value in batch.items()
+                            if torch.is_tensor(value)} | {
+                    "x": tuple(v.cpu() for v in batch["x"])},
+                    os.path.join(workdir, f"batch{rank}.pt"))
+                keep["on"] = True
+            reset_counts(port)
+            calls, seconds = (mesh.COLLECTIVES["calls"],
+                              mesh.COLLECTIVES["seconds"])
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step(state, batch, lr_g, lr_d)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            counts = read_counts(port)
+            gen = full_generator(state)
+            records.append({
+                "step": k, "seconds": elapsed, "launches": counts,
+                "collective_calls": mesh.COLLECTIVES["calls"] - calls,
+                "collective_seconds": mesh.COLLECTIVES["seconds"] - seconds,
+                "digest": _digest(list(gen.values()) + list(
+                    state.discriminator.state_dict().values())),
+                "generator_loss": float(metrics["train/generator_loss"])})
+            if k == PAR_GRAD_STEP:
+                keep["on"] = False
+                got_g = full_grads(state, grads[0])
+                names_d = [n for n, _ in state.discriminator.named_parameters()]
+                if rank == 0:
+                    torch.save({**pre, "generator_after": gen,
+                                "grads_generator": got_g,
+                                "grads_discriminator": dict(zip(
+                                    names_d, grads[1]))},
+                               os.path.join(workdir, "step.pt"))
+            return metrics
+
+        return recorded
+
+    mesh.all_reduce_grads = reduce_and_keep
+    train_cli.make_train_step = make
+    held = {}
+    split_generator = train_cli._split_generator
+
+    def split_and_count(state, config, lay):
+        split_generator(state, config, lay)
+        plan = state.generator.tp
+        held.update(
+            params=sum(p.numel() for p in state.generator.parameters()),
+            full=sum(int(np.prod(plan.full_shapes[n]))
+                     for n in plan.full_names),
+            blocks=[j for j in range(len(plan.owners)) if plan.mine(j)])
+
+    train_cli._split_generator = split_and_count
+    rank = int(os.environ["RANK"])
+    backend = {}
+    init = mesh.init_distributed
+
+    def init_and_keep(*args, **kwargs):
+        backend["name"] = init(*args, **kwargs)
+        return backend["name"]
+
+    mesh.init_distributed = init_and_keep
+    train_cli.main(spec["argv"])
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "backend": backend.get("name"),
+                   "records": records, "held": held}, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
+    """[dp] or [tp]: ``python -m articulatory_tpu_torch.distributed.launch
+    --nproc_per_node 2`` on this script's rank worker, which runs
+    ``bin/train.py``'s ``main`` (``parallel_config(mode)``) on the corpus
+    under ``tmp``; holds every step's parameters bit-equal on both ranks,
+    each rank's launches a step (dp: 72 pairs and 12 heads; tp: the pairs
+    of the rank's MRF blocks, 12 heads), the final checkpoint full, and the
+    step-PAR_GRAD_STEP all-reduced gradients (a TP generator's gathered)
+    against one process's on the concatenated batch (pooled relative L2 <=
+    GRAD_TOL[0] per model)."""
+    gan, train_cli = port["gan"], port["train"]
+    config = parallel_config(mode)
+    workdir = os.path.join(tmp, f"par-{mode}")
+    os.makedirs(workdir)
+    import yaml
+
+    cfg_path = os.path.join(workdir, "config.yml")
+    with open(cfg_path, "w") as f:
+        yaml.dump(config, f)
+    outdir = os.path.join(workdir, "exp")
+    argv = ["--train-dumpdir", os.path.join(tmp, "dump/tr/norm"),
+            "--dev-dumpdir", os.path.join(tmp, "dump/dev/norm"),
+            "--outdir", outdir, "--config", cfg_path,
+            "--data-root", os.path.join(tmp, "data"), "--device", "cuda",
+            "--seed", str(seed)]
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump({"argv": argv}, f)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, ARTICULATORY_TIME_COLLECTIVES="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "articulatory_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--master_port", str(_free_port()),
+         os.path.join(ROOT, "chip_smoke.py"), "--rank-worker", workdir],
+        env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=PAR_TIMEOUT_S)
+    run_seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"[{mode}] the launcher exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    build = [ln for ln in proc.stderr.splitlines()
+             if "launcher: kernels built" in ln]
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    steps = PAR_STEPS[mode]
+    if any(len(r["records"]) != steps for r in ranks):
+        raise AssertionError(f"[{mode}] steps recorded "
+                             f"{[len(r['records']) for r in ranks]}")
+    for a, b in zip(ranks[0]["records"], ranks[1]["records"]):
+        if a["digest"] != b["digest"]:
+            raise AssertionError(f"[{mode}] the ranks' parameters differ "
+                                 f"after step {a['step']}")
+    one_step = expected_launches(config, 1)
+    pairs_a_block = (sum(len(d) for d in config["generator_params"][
+        "resblock_dilations"]) // len(config["generator_params"][
+            "resblock_kernel_sizes"]) * len(config["generator_params"][
+                "upsample_scales"]) * 2)
+    for r in ranks:
+        want = dict(one_step)
+        if mode == "tp":
+            n = pairs_a_block * len(r["held"]["blocks"])
+            want = dict(one_step, resblock_pair={"torch.float32": n},
+                        split_tf32=n)
+        for rec in r["records"]:
+            if rec["launches"] != want:
+                raise AssertionError(
+                    f"[{mode}] rank {r['rank']} step {rec['step']}: "
+                    f"launches {rec['launches']}, expected {want}")
+    ckpt = port["load_checkpoint"](os.path.join(
+        outdir, f"checkpoint-{steps}steps.ckpt"))
+    full = port["build_model"](config["generator_type"],
+                               config["generator_params"], seed=seed)
+    if {k: tuple(v.shape) for k, v in ckpt["model"]["generator"].items()} \
+            != {k: tuple(v.shape) for k, v in full.state_dict().items()}:
+        raise AssertionError(f"[{mode}] the checkpoint's generator is not "
+                             f"the full model")
+
+    # the one-process reference on the ranks' concatenated batch
+    saved = torch.load(os.path.join(workdir, "step.pt"))
+    parts = [torch.load(os.path.join(workdir, f"batch{r}.pt"))
+             for r in range(2)]
+    if mode == "tp":  # one TP group: both ranks had the same batch
+        same = all(torch.equal(a, b) for a, b in zip(
+            [parts[0]["y"], *parts[0]["x"]], [parts[1]["y"], *parts[1]["x"]]))
+        if not same:
+            raise AssertionError("[tp] the TP ranks' batches differ")
+        parts = parts[:1]
+    batch = {k: (tuple(torch.cat([p[k][i] for p in parts]).cuda()
+                       for i in range(len(parts[0][k])))
+                 if isinstance(parts[0][k], tuple) else
+                 torch.cat([p[k] for p in parts]).cuda())
+             for k in parts[0]}
+    disc = port["build_model"](config["discriminator_type"],
+                               config["discriminator_params"],
+                               seed=seed + 1).cuda()
+    full.cuda().load_state_dict(saved["generator"])
+    disc.load_state_dict(saved["discriminator"])
+    state = gan.GANTrainState(generator=full, discriminator=disc, opt_g=None,
+                              opt_d=None, steps=PAR_GRAD_STEP)
+    state.draws.at(PAR_GRAD_STEP)
+    criterion = gan.GANCriterion(config)
+    gen_loss, _ = gan.generator_loss(state, criterion, config, batch)
+    gen_names = [n for n, _ in full.named_parameters()]
+    want_g = _grads(gen_loss, list(full.parameters()))
+    full.load_state_dict(saved["generator_after"])
+    with torch.no_grad():
+        fake = gan.synthesize(criterion, gan.generate(
+            full, batch, state.draws, "regeneration"))
+    dis_loss, _ = gan.discriminator_loss(state, criterion, config, batch,
+                                         fake)
+    want_d = _grads(dis_loss, list(disc.parameters()))
+    disc_names = [n for n, _ in disc.named_parameters()]
+    gaps = {}
+    for name, names, want, got in (
+            ("generator", gen_names, want_g, saved["grads_generator"]),
+            ("discriminator", disc_names, want_d,
+             saved["grads_discriminator"])):
+        pooled, per = _grad_gaps([got[n].cuda() for n in names], want)
+        gaps[name] = {"pooled_rel_l2": pooled, "worst_tensor_rel_l2": per}
+        if pooled > GRAD_TOL[0]:
+            raise AssertionError(f"[{mode}] {name} all-reduced gradients "
+                                 f"differ from one process's by {pooled:.3e}"
+                                 f" pooled > {GRAD_TOL[0]}")
+    del state, full, disc, batch, fake
+    torch.cuda.empty_cache()
+
+    result = {"run_seconds": run_seconds, "backend": ranks[0]["backend"],
+              "launcher_build": build[0] if build else None,
+              "grad_gaps": gaps, "ranks": ranks,
+              "launches_per_step": {r["rank"]: r["records"][-1]["launches"]
+                                    for r in ranks}}
+    for r in ranks:
+        secs = [rec["seconds"] for rec in r["records"]]
+        coll = [rec["collective_seconds"] for rec in r["records"]]
+        r["step_ms_median"] = 1e3 * float(np.median(secs))
+        r["collective_ms_median"] = 1e3 * float(np.median(coll))
+        held = (f"; generator parameters {r['held']['params']:,} of "
+                f"{r['held']['full']:,} (blocks {r['held']['blocks']})"
+                if mode == "tp" else "")
+        log(f"[{mode}] rank {r['rank']} ({r['backend']}, two ranks sharing "
+            f"one card's SMs): step median {r['step_ms_median']:.3f} ms over "
+            f"{steps} [{', '.join(f'{1e3 * s:.1f}' for s in secs)}], "
+            f"{r['collective_ms_median']:.3f} ms of it in "
+            f"{r['records'][-1]['collective_calls']} collectives; launches a "
+            f"step {r['records'][-1]['launches']}{held}")
+    log(f"[{mode}] {steps} steps through the launcher in "
+        f"{run_seconds:.1f} s (two processes' start-up, model build and "
+        f"checkpoint included; {build[0].split('WARNING: ')[-1] if build else 'no launcher build line'}); "
+        f"parameters bit-equal on both ranks after every step; step "
+        f"{PAR_GRAD_STEP} all-reduced gradients against one process on the "
+        f"{'concatenated' if mode == 'dp' else 'shared'} batch: "
+        + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} pooled / "
+                    f"{v['worst_tensor_rel_l2']:.3e} worst tensor"
+                    for k, v in gaps.items())
+        + f" (limit {GRAD_TOL[0]} pooled)")
+    return result
+
+
+# [pp]: PipelinedGenerator of the EMA HiFi-CAR on cuda:0, a stream a stage
+# group; B 16 chunks of 100 frames and the 512-sample carry
+PP_GROUPS, PP_MICROBATCHES, PP_ROUNDS = (2, 3), (2, 4), 5
+
+
+def phase_pp(port: dict, seed: int) -> dict:
+    """Each (groups, microbatches) of PipelinedGenerator in f32 and hybrid
+    against the monolithic forward: bit for bit against it on the same
+    microbatches, and within KERNEL_TOL of the whole-batch forward (cuDNN
+    may take another algorithm at another batch); 36 pairs a microbatch;
+    its time against the monolith's (median of PP_ROUNDS, in turns)."""
+    pp, pair = port["pp"], port["resblock_pair"]
+    rng = np.random.default_rng(seed)
+    c = torch.tensor(rng.standard_normal((UTTS, CHUNK_FRAMES, N_FEATS)),
+                     dtype=torch.float32, device="cuda")
+    ar = torch.tensor(0.3 * rng.standard_normal((UTTS, 512, 1)),
+                      dtype=torch.float32, device="cuda")
+    results = {}
+    for mode, extra in (("f32", {}), ("hybrid_bf16", {
+            "compute_dtype": "bfloat16", "hybrid_precision": True})):
+        model = port["build_model"]("HiFiGANGenerator",
+                                    dict(GENERATOR_PARAMS, **extra),
+                                    seed=seed).cuda().eval()
+        model.remove_weight_norm()
+        with torch.inference_mode():
+            whole = model(c, ar)
+            per_mb = {m: torch.cat([model(a, b) for a, b in zip(
+                c.chunk(m), ar.chunk(m))]) for m in PP_MICROBATCHES}
+        for groups in PP_GROUPS:
+            for m in PP_MICROBATCHES:
+                pipe = pp.PipelinedGenerator(model, ["cuda:0"] * groups,
+                                             num_microbatches=m)
+                pair.launches = 0
+                out = pipe(c, ar)
+                torch.cuda.synchronize()
+                launches = pair.launches
+                if launches != 36 * m:
+                    raise AssertionError(f"[pp] {mode} {groups} groups, {m} "
+                                         f"microbatches: {launches} pairs, "
+                                         f"expected {36 * m}")
+                if not torch.equal(out, per_mb[m]):
+                    raise AssertionError(f"[pp] {mode} {groups} groups, {m} "
+                                         f"microbatches differ from the "
+                                         f"monolith on the same microbatches")
+                whole_err = float((out - whole).abs().max() / whole.abs().max())
+                tol = KERNEL_TOL[torch.bfloat16 if extra else torch.float32]
+                if whole_err > tol:
+                    raise AssertionError(f"[pp] {mode}: {whole_err:.3e} of max"
+                                         f" |y| from the whole-batch forward")
+                fns = {"pipeline": lambda: pipe(c, ar),
+                       "monolith": lambda: model(c, ar)}
+                times = {k: [] for k in fns}
+                with torch.inference_mode():
+                    for _ in range(PP_ROUNDS):
+                        for key in ("pipeline", "monolith", "monolith",
+                                    "pipeline"):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            fns[key]()
+                            torch.cuda.synchronize()
+                            times[key].append(time.perf_counter() - t0)
+                ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+                results[f"{mode}/{groups}x{m}"] = {
+                    "launches": launches, "bit_equal_per_microbatch": True,
+                    "whole_batch_rel_err": whole_err, **{
+                        f"{k}_ms": v for k, v in ms.items()}}
+                log(f"[pp] {mode}, {groups} stage groups on cuda:0 (a stream "
+                    f"each), {m} microbatches: {launches} pairs, bit-equal to "
+                    f"the monolith on the same microbatches, "
+                    f"{whole_err:.2e} of max |y| from the whole batch's; "
+                    f"{ms['pipeline']:.3f} ms against the monolith's "
+                    f"{ms['monolith']:.3f} ms (median of {2 * PP_ROUNDS})")
+        del model
+    torch.cuda.empty_cache()
+    return results
+
+
+# [sp]: the EMA widths without AR (in_channels 13), one 60 s utterance
+SP_FRAMES, SP_TILES, SP_TOL = 12000, 4, 1e-5
+
+
+def phase_sp(port: dict, seed: int, tmp: str) -> dict:
+    """``LoadedModel.enable_sequence_parallel(SP_TILES)`` on a SP_FRAMES
+    frame utterance against the unsharded forward (SP_TOL of max |y|; no
+    padded tail at this length), 36 pairs a tile, the peak memory of both;
+    then ``bin/decode.py --sequence-parallel`` on a checkpoint of the same
+    model, its wav against the unsharded decode's."""
+    inference, decode, pair = (port["inference"], port["decode"],
+                               port["resblock_pair"])
+    gp = dict(GENERATOR_PARAMS, use_ar=False, in_channels=N_FEATS)
+    config = dict(CONFIG, generator_params=gp)
+    model = port["build_model"]("HiFiGANGenerator", gp, seed=seed)
+    ckpt = os.path.join(tmp, "sp.pkl")
+    torch.save({"model": {"generator": model.state_dict()}}, ckpt)
+    loaded = inference.LoadedModel(model.cuda().eval(), config,
+                                   torch.device("cuda"))
+    loaded.remove_weight_norm()
+    c = np.random.default_rng(seed).standard_normal(
+        (1, SP_FRAMES, N_FEATS)).astype(np.float32)
+    runs = {}
+    for key in ("unsharded", "sequence_parallel"):
+        if key == "sequence_parallel":
+            loaded.enable_sequence_parallel(SP_TILES)
+        loaded(c)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pair.launches = 0
+        t0 = time.perf_counter()
+        y = loaded(c)
+        torch.cuda.synchronize()
+        runs[key] = {"ms": 1e3 * (time.perf_counter() - t0),
+                     "launches": pair.launches,
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "y": y}
+    full, sp = runs["unsharded"]["y"], runs["sequence_parallel"]["y"]
+    err = float((sp - full).abs().max() / full.abs().max())
+    if sp.shape != full.shape or err > SP_TOL:
+        raise AssertionError(f"[sp] tiled forward {tuple(sp.shape)} is "
+                             f"{err:.3e} of max |y| from the unsharded one")
+    if runs["sequence_parallel"]["launches"] != 36 * SP_TILES:
+        raise AssertionError(f"[sp] {runs['sequence_parallel']['launches']} "
+                             f"pairs, expected {36 * SP_TILES}")
+    dump = os.path.join(tmp, "sp-dump")
+    os.makedirs(dump)
+    np.save(os.path.join(dump, "u0-feats.npy"), c[0])
+    import yaml
+
+    with open(os.path.join(tmp, "config.yml"), "w") as f:
+        yaml.dump(config, f)
+    wavs = {}
+    for key, extra in (("unsharded", []), ("sequence_parallel",
+                                           ["--sequence-parallel",
+                                            str(SP_TILES)])):
+        out = os.path.join(tmp, f"sp-{key}")
+        pair.launches = 0
+        decode.main(["--dumpdir", dump, "--checkpoint", ckpt, "--config",
+                     os.path.join(tmp, "config.yml"), "--outdir", out,
+                     "--device", "cuda", "--verbose", "0", *extra])
+        wavs[key] = (port["read_wav"](os.path.join(out, "u0_gen.wav"))[0],
+                     pair.launches)
+    lsb = float(np.abs(wavs["sequence_parallel"][0]
+                       - wavs["unsharded"][0]).max() * 32767)
+    if (wavs["sequence_parallel"][0].shape != (SP_FRAMES * 80,) or lsb > 1
+            or wavs["sequence_parallel"][1] != 36 * SP_TILES):
+        raise AssertionError(f"[sp] decode: {wavs['sequence_parallel'][0].shape}"
+                             f", {lsb:.1f} lsb from the unsharded decode, "
+                             f"{wavs['sequence_parallel'][1]} pairs")
+    result = {"rel_err": err, "decode_lsb": lsb,
+              "decode_launches": wavs["sequence_parallel"][1],
+              **{key: {k: v for k, v in r.items() if k != "y"}
+                 for key, r in runs.items()}}
+    log(f"[sp] {SP_FRAMES} frames ({SP_FRAMES * 80 / 16000:.0f} s), "
+        f"{SP_TILES} tiles with a {loaded.sp.halo}-frame halo on one card: "
+        f"{err:.2e} of max |y| from the unsharded forward, "
+        f"{result['sequence_parallel']['launches']} pairs; "
+        f"{result['sequence_parallel']['ms']:.1f} ms against "
+        f"{result['unsharded']['ms']:.1f} ms; peak memory above the weights "
+        f"{result['sequence_parallel']['peak_bytes'] / 2**20:.0f} MiB "
+        f"against {result['unsharded']['peak_bytes'] / 2**20:.0f} MiB; "
+        f"bin/decode.py --sequence-parallel {SP_TILES}: "
+        f"{wavs['sequence_parallel'][1]} pairs, {lsb:.0f} lsb from the "
+        f"unsharded decode")
+    del loaded, model, runs
+    torch.cuda.empty_cache()
+    return result
+
+
 def training_port() -> dict:
     """The port's modules and kernel wrappers that the training phases
     (``phase_train``, ``phase_hybrid_train`` and those built on them)
@@ -3985,7 +4491,13 @@ def training_port() -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--rank-worker", default=None,
+                        help="run one rank of the [dp] / [tp] phases on "
+                             "this directory's spec (the launcher passes "
+                             "it)")
     args = parser.parse_args()
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
 
     smi, device_name = phase_device()
     sys.path.insert(0, ROOT)
@@ -4189,6 +4701,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ssl = phase_ssl(ssl_port, args.seed, device_name, tmp)
 
+    # parallelism: data and tensor parallel training through the launcher
+    # (two ranks sharing the card), pipeline and sequence-parallel serving
+    from articulatory_tpu_torch.parallel import pp
+
+    par_port = dict(train_port, load_checkpoint=load_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_corpus(tmp, args.seed)
+        parallel = {mode: phase_parallel(par_port, mode, args.seed, tmp)
+                    for mode in ("dp", "tp")}
+    pp_results = phase_pp(dict(pp=pp, resblock_pair=resblock_pair,
+                               build_model=build_model), args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        sp = phase_sp(dict(inference=inference, decode=decode,
+                           resblock_pair=resblock_pair,
+                           build_model=build_model, read_wav=read_wav),
+                      args.seed, tmp)
+
     f32 = by_dtype["float32"]
     pair_entry = {
         "name": "resblock_pair", "route": "cuda",
@@ -4310,6 +4839,16 @@ def main() -> int:
         "launches_convert_decode": entry["convert_launches"],
         # [storage-zoo]: one multi-band forward per weight storage
         "launches_storage_multiband": storage["mb-hifigan"]["pair_launches"],
+        # [dp] / [tp]: a step's launches on each rank (two ranks sharing
+        # the card); [pp]: a call of each pipeline (36 a microbatch); [sp]:
+        # the tiled forward (36 a tile) and its decode
+        **{f"launches_{mode}_per_rank_step": {
+            r: c["resblock_pair"] for r, c in
+            parallel[mode]["launches_per_step"].items()}
+           for mode in ("dp", "tp")},
+        "launches_pp": {k: v["launches"] for k, v in pp_results.items()},
+        "launches_sp": sp["sequence_parallel"]["launches"],
+        "launches_sp_decode": sp["decode_launches"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -4379,6 +4918,10 @@ def main() -> int:
             "scale_disc_head"],
         "launches_hybrid_profiled": hybrid["profiled_step"]["kernel_counts"][
             "scale_disc_head_wgmma"],
+        **{f"launches_{mode}_per_rank_step": {
+            r: c["scale_disc_head"] for r, c in
+            parallel[mode]["launches_per_step"].items()}
+           for mode in ("dp", "tp")},
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4403,7 +4946,8 @@ def main() -> int:
                    "cond_train": cond_train, "cond_decode": cond_decode,
                    "cascade": cascade, "ph2a": ph2a, "mult": mult,
                    "recipe": recipe, "entry": entry, "storage_zoo": storage,
-                   "causal": causal, "ssl": ssl, "kernels": kernels}, f,
+                   "causal": causal, "ssl": ssl, "parallel": parallel,
+                   "pp": pp_results, "sp": sp, "kernels": kernels}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

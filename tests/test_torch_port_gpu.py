@@ -868,3 +868,151 @@ def test_hybrid_train_step_kernels_match_plain(cuda, monkeypatch, remat):
 
     for got, want, exact in zip(kernel, plain, f32):
         assert gap(got, want) <= max(1e-3, 2 * gap(want, exact))
+
+
+PAR_GP = dict(in_channels=13 + 8, channels=64, upsample_scales=[5, 4, 2, 2],
+              upsample_kernel_sizes=[10, 8, 4, 4],
+              resblock_kernel_sizes=[3, 7], resblock_dilations=[[1, 3]] * 2,
+              use_ar=True, ar_input=64, ar_hidden=8, ar_output=8)
+PAR_DP = dict(scales=1, scale_discriminator_params=dict(
+    channels=128, max_downsample_channels=128, downsample_scales=[4, 1]),
+    periods=[2], period_discriminator_params=dict(
+        channels=4, max_downsample_channels=8, downsample_scales=[3, 1]))
+PAR_CONFIG = dict(
+    dataset_mode="a2w", batch_max_steps=800, hop_size=80,
+    use_stft_loss=False, use_mel_loss=True,
+    mel_loss_params=dict(fs=16000, fft_size=256, hop_size=64, num_mels=20,
+                         fmin=0, fmax=8000, log_base=None),
+    use_feat_match_loss=True,
+    generator_adv_loss_params=dict(average_by_discriminators=False),
+    discriminator_adv_loss_params=dict(average_by_discriminators=False),
+    lambda_aux=45.0, lambda_feat_match=2.0,
+    generator_train_start_steps=0, discriminator_train_start_steps=0,
+    generator_params=dict(out_channels=1, use_ar=True, ar_input=64))
+PAR_WORKER = '''
+import sys
+
+import torch
+
+from articulatory_tpu_torch.models import build_model
+from articulatory_tpu_torch.parallel import mesh, tp
+from articulatory_tpu_torch.train import gan
+from articulatory_tpu_torch.train.optimizers import build_optimizer
+from articulatory_tpu_torch.utils.device import set_float32_parity
+
+root, rank, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+set_float32_parity()
+mesh.init_distributed(f"file://{root}/rendezvous", 2, rank,
+                      device=torch.device("cuda:0"))
+lay = mesh.make_groups(2 if mode == "tp" else 1)
+spec = torch.load(f"{root}/in.pt")
+gen = build_model("HiFiGANGenerator", spec["gp"]).cuda()
+disc = build_model("HiFiGANMultiScaleMultiPeriodDiscriminator",
+                   spec["dp"]).cuda()
+gen.load_state_dict(spec["gen"])
+disc.load_state_dict(spec["disc"])
+if mode == "tp":
+    tp.shard_generator_(gen, lay.tp_group, lay.tp_rank, lay.tp)
+rows = slice(None) if mode == "tp" else slice(2 * rank, 2 * rank + 2)
+batch = {k: (tuple(t[rows].cuda() for t in v) if isinstance(v, tuple)
+             else v[rows].cuda()) for k, v in spec["batch"].items()}
+state = gan.GANTrainState(
+    generator=gen, discriminator=disc,
+    opt_g=build_optimizer("SGD", {}, -1, gen.parameters()),
+    opt_d=build_optimizer("SGD", {}, -1, disc.parameters()), steps=1)
+gan.make_train_step(gan.GANCriterion(spec["config"]), spec["config"])(
+    state, batch, 1e-3, 1e-3)
+full = tp.full_state(gen)[0] if mode == "tp" else gen.state_dict()
+torch.save({"gen": {k: v.cpu() for k, v in full.items()},
+            "disc": {k: v.cpu() for k, v in disc.state_dict().items()}},
+           f"{root}/out{rank}.pt")
+mesh.shutdown()
+'''
+
+
+@pytest.mark.parametrize("mode", ["dp", "tp"])
+def test_two_ranks_on_the_card_match_one_rank(cuda, tmp_path, mode):
+    """Two ranks sharing the card (gloo on CUDA tensors), data parallel on
+    half the batch each or tensor parallel on the whole, take the SGD step
+    one rank takes on the whole batch (both kernels on every rank)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
+
+    gen = build_model("HiFiGANGenerator", PAR_GP)
+    disc = build_model("HiFiGANMultiScaleMultiPeriodDiscriminator", PAR_DP,
+                       seed=1)
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": (torch.randn(4, 10, 13, generator=g),),
+             "y": 0.3 * torch.randn(4, 800, 1, generator=g),
+             "ar": 0.3 * torch.randn(4, 64, 1, generator=g)}
+    torch.save({"gp": PAR_GP, "dp": PAR_DP, "config": PAR_CONFIG,
+                "gen": gen.state_dict(), "disc": disc.state_dict(),
+                "batch": batch}, tmp_path / "in.pt")
+    (tmp_path / "worker.py").write_text(PAR_WORKER)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "worker.py"),
+                               str(tmp_path), str(r), mode], env=env)
+             for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    outs = [torch.load(tmp_path / f"out{r}.pt") for r in range(2)]
+
+    gen, disc = gen.cuda(), disc.cuda()
+    state = gan.GANTrainState(
+        generator=gen, discriminator=disc,
+        opt_g=build_optimizer("SGD", {}, -1, gen.parameters()),
+        opt_d=build_optimizer("SGD", {}, -1, disc.parameters()), steps=1)
+    gan.make_train_step(gan.GANCriterion(PAR_CONFIG), PAR_CONFIG)(
+        state, {k: (tuple(t.cuda() for t in v) if isinstance(v, tuple)
+                    else v.cuda()) for k, v in batch.items()}, 1e-3, 1e-3)
+    for name, model in (("gen", gen), ("disc", disc)):
+        for key, value in model.state_dict().items():
+            assert torch.equal(outs[0][name][key], outs[1][name][key]), key
+            torch.testing.assert_close(outs[0][name][key], value.cpu(),
+                                       rtol=1e-4, atol=1e-6)
+
+
+def test_pipeline_on_streams_matches_monolith(cuda):
+    """PipelinedGenerator on cuda:0, a stream a stage group: bit for bit the
+    monolith on the same microbatches, 16 pairs a microbatch."""
+    from articulatory_tpu_torch.parallel.pp import PipelinedGenerator
+
+    gen = build_model("HiFiGANGenerator", PAR_GP).cuda().eval()
+    gen.remove_weight_norm()
+    g = torch.Generator().manual_seed(0)
+    c = torch.randn(8, 20, 13, generator=g).cuda()
+    ar = (0.3 * torch.randn(8, 64, 1, generator=g)).cuda()
+    for groups, m in ((2, 2), (3, 4)):
+        with torch.inference_mode():
+            want = torch.cat([gen(a, b) for a, b in zip(c.chunk(m),
+                                                        ar.chunk(m))])
+        before = resblock_pair.launches
+        got = PipelinedGenerator(gen, ["cuda:0"] * groups,
+                                 num_microbatches=m)(c, ar)
+        torch.cuda.synchronize()
+        assert resblock_pair.launches - before == 16 * m
+        assert torch.equal(got, want)
+
+
+def test_sequence_parallel_on_card_matches_unsharded(cuda):
+    from articulatory_tpu_torch.inference import LoadedModel
+
+    gp = dict(PAR_GP, use_ar=False, in_channels=13)
+    model = LoadedModel(build_model("HiFiGANGenerator", gp).cuda().eval(),
+                        {"generator_params": gp}, torch.device("cuda"))
+    model.remove_weight_norm()
+    c = torch.randn(1, 203, 13, generator=torch.Generator().manual_seed(0))
+    import torch.nn.functional as F
+
+    padded = F.pad(c.transpose(1, 2), (0, 1)).transpose(1, 2)
+    want = model(padded)[:, : 203 * 80]
+    model.enable_sequence_parallel(4)
+    got = model(c)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(
+        want.abs().max()))

@@ -217,10 +217,31 @@ def test_decode_cli_writes_wavs(ckpt_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--sequence-parallel", "2"]])
-def test_decode_cli_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(SystemExit):
-        decode_cli.main(["--dumpdir", str(tmp_path), "--checkpoint", "x",
-                         "--outdir", str(tmp_path), *flag])
+def test_decode_cli_unported_flags_raise(flag, ckpt_dir, tmp_path, caplog):
+    """No decode flag is left unported: ``--sequence-parallel`` (ported
+    with parallel/sp.py; its non-AR decode in tests/test_torch_port_sp.py)
+    is logged as ignored for an AR model, as the JAX package's CLI does, and
+    the AR decode writes what it writes without the flag."""
+    import logging
+
+    import yaml
+
+    cfg_path = tmp_path / "config.yml"
+    cfg_path.write_text(yaml.dump(_config(64)))
+    dump = tmp_path / "dump"
+    dump.mkdir()
+    np.save(dump / "utt1-feats.npy", _feats(7, [23])[0])
+    wavs = []
+    for extra in ([], flag):
+        out = tmp_path / f"out{len(extra)}"
+        with caplog.at_level(logging.WARNING):
+            decode_cli.main(["--dumpdir", str(dump), "--checkpoint",
+                             _checkpoint(ckpt_dir, 64), "--config",
+                             str(cfg_path), "--outdir", str(out), "--device",
+                             "cpu", "--verbose", "0", *extra])
+        wavs.append(wavfile.read(out / "utt1_gen.wav")[1])
+    assert "--sequence-parallel ignored" in caplog.text
+    np.testing.assert_array_equal(wavs[1], wavs[0])
 
 
 @pytest.mark.parametrize("flag", ["--int8-weights", "--bf16-weights",

@@ -58,6 +58,10 @@ def test_port_imports_no_jax_package(path):
 
 def test_port_file_list_is_complete():
     assert len(PORT_FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+    # the parallel modules are held to the rules with the rest
+    for name in ("parallel/mesh.py", "parallel/tp.py", "parallel/pp.py",
+                 "parallel/sp.py", "distributed/launch.py"):
+        assert PACKAGE / name in PORT_FILES, name
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -172,7 +172,13 @@ def test_train_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.train(CONFIG, train_dumpdir=str(tmp_path),
                         dev_dumpdir=str(tmp_path), outdir=str(tmp_path))
-    with pytest.raises(SystemExit):
+    # a rank of a process group asked for a card raises before it joins
+    config_path = tmp_path / "config.yaml"
+    config_path.write_text(yaml.dump(CONFIG))
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--train-dumpdir", "a", "--dev-dumpdir", "b",
-                        "--outdir", str(tmp_path), "--config", "c",
-                        "--num-processes", "2"])
+                        "--outdir", str(tmp_path), "--config",
+                        str(config_path), "--num-processes", "2",
+                        "--process-id", "1", "--coordinator-address",
+                        f"file://{tmp_path / 'rendezvous'}"])
