@@ -6,7 +6,9 @@ It carries the HiFi-CAR decode path of the EMA and MRI recipes
 int8 and bf16 weight storage; ``bin/decode.py``) and the GAN training step (``bin/train.py`` -> ``train/trainer.py`` ->
 ``train/gan.py``) on an NVIDIA H100, with the generator's residual pairs
 and the scale discriminator's first two layers in hand-written CUDA kernels
-(``csrc/resblock_pair.cu``, ``csrc/scale_disc_head.cu``). Entry points run
+(``csrc/resblock_pair.cu``, ``csrc/scale_disc_head.cu``); a generator
+exports through ``torch.export`` with the pair as a registered op
+(``export.py``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; without a card they
 raise. The package imports nothing of ``articulatory_tpu`` and no JAX.
 """

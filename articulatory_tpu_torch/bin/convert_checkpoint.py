@@ -1,6 +1,17 @@
 #!/usr/bin/env python3
-"""Convert checkpoints of the JAX package for the reference (port of
-``articulatory_tpu/bin/convert_checkpoint.py``).
+"""Convert checkpoints between the reference (PyTorch) and the JAX package
+(port of ``articulatory_tpu/bin/convert_checkpoint.py``).
+
+Default: a reference torch pickle (``checkpoint-XXXsteps.pkl``,
+``best_mel_ckpt.pkl``, or one the port wrote) becomes a JAX msgpack
+checkpoint that the JAX package's ``load_model`` and ``--pretrain`` read,
+and so does the port's: ``{"model": {"generator"[, "discriminator"]},
+"optimizer": {}, "mutables": {"generator": batch_stats}, "scheduler": {},
+"steps", "epochs"}``, the generator through ``utils/weights.py::
+GENERATOR_TO_JAX`` and the discriminator, where its type has a converter,
+through ``DISCRIMINATOR_TO_JAX``; a discriminator whose layout does not
+match is logged and left out. The file is written as flax's
+``msgpack_serialize`` writes it (``utils/checkpoint.py::save_msgpack``).
 
 ``--to-torch``: a JAX msgpack checkpoint becomes a reference-format torch
 pickle through the port's own converters (``utils/weights.py``), in the
@@ -12,10 +23,9 @@ layout of the JAX package's ``utils/torch_export.py::export_checkpoint``:
 JAX package exports. The reference's ``load_model`` and ``--pretrain``
 read it, and so does the port's.
 
-The default direction (a reference pickle to a JAX msgpack) is not ported
-and raises: the port reads reference pickles natively, and writing the
-JAX layout needs an inverse of every family's converter (ROADMAP A11).
-
+    python -m articulatory_tpu_torch.bin.convert_checkpoint \\
+        --checkpoint ref/best_mel_ckpt.pkl --config ref/config.yml \\
+        --out exp/converted/best_mel_ckpt.pkl
     python -m articulatory_tpu_torch.bin.convert_checkpoint --to-torch \\
         --checkpoint exp/ours/best_mel_ckpt.pkl --out export/ckpt.pkl
 """
@@ -23,6 +33,7 @@ JAX layout needs an inverse of every family's converter (ROADMAP A11).
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 
 import torch
@@ -32,6 +43,11 @@ from articulatory_tpu_torch.utils.checkpoint import (
     discriminator_state_dict,
     generator_state_dict,
     load_checkpoint,
+    save_msgpack,
+)
+from articulatory_tpu_torch.utils.weights import (
+    DISCRIMINATOR_TO_JAX,
+    GENERATOR_TO_JAX,
 )
 
 # the discriminators the JAX package's export_checkpoint writes
@@ -63,6 +79,43 @@ def export_checkpoint(payload: dict, config: dict) -> dict:
     return out
 
 
+def import_checkpoint(payload: dict, config: dict) -> dict:
+    """A reference torch-pickle payload -> the JAX package's checkpoint
+    payload."""
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type not in GENERATOR_TO_JAX:
+        raise NotImplementedError(f"no importer for generator {gen_type}")
+    params_g, mutables_g = GENERATOR_TO_JAX[gen_type](
+        payload["model"]["generator"],
+        fix_generator_params(config["generator_params"]))
+    out = {"model": {"generator": params_g}, "optimizer": {},
+           "mutables": {"generator": (mutables_g or {}).get("batch_stats",
+                                                            {})},
+           "scheduler": {}, "steps": int(payload.get("steps", 0)),
+           "epochs": int(payload.get("epochs", 0))}
+    disc_type = config.get("discriminator_type")
+    if "discriminator" in payload["model"] and \
+            disc_type in DISCRIMINATOR_TO_JAX:
+        try:
+            out["model"]["discriminator"] = DISCRIMINATOR_TO_JAX[disc_type](
+                payload["model"]["discriminator"],
+                config.get("discriminator_params", {}))
+        except KeyError as e:
+            logging.warning(
+                f"discriminator NOT converted (layout mismatch on key {e}); "
+                f"the output checkpoint has no discriminator: training "
+                f"resumed from it initialises the discriminator anew")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--checkpoint", type=str, required=True)
@@ -72,16 +125,17 @@ def main(argv: list[str] | None = None) -> None:
                         help="export a JAX checkpoint as a reference-format "
                              "torch pickle")
     args = parser.parse_args(argv)
-    if not args.to_torch:
-        raise NotImplementedError(
-            "a reference torch pickle to a JAX msgpack checkpoint is not "
-            "ported (ROADMAP A11); the port loads reference pickles as they "
-            "are, and the JAX package's convert_checkpoint writes msgpack")
     if args.config is None:
         args.config = os.path.join(os.path.dirname(args.checkpoint),
                                    "config.yml")
-    out = export_checkpoint(load_checkpoint(args.checkpoint),
-                            load_config(args.config))
+    config = load_config(args.config)
+    if not args.to_torch:
+        out = import_checkpoint(load_checkpoint(args.checkpoint), config)
+        save_msgpack(args.out, out)
+        n = sum(int(v.size) for v in _leaves(out["model"]["generator"]))
+        print(f"converted generator ({n:,} params) -> {args.out}")
+        return
+    out = export_checkpoint(load_checkpoint(args.checkpoint), config)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     torch.save(out, args.out)
     n = sum(int(v.numel()) for v in out["model"]["generator"].values())

@@ -11,7 +11,8 @@ asked for ``cuda`` runs on ``cuda:{LOCAL_RANK % device_count}``. Unless the
 script's arguments hold ``--device cpu``, the CUDA kernels are built once
 here, before the ranks start (``ops/_build.py``; each rank then loads the
 libraries), and the seconds that took are logged. A rank is killed when the
-launcher dies, and the first rank to fail takes the others down with it.
+launcher dies, and the first rank to fail takes the others down with it:
+the launcher exits with that rank's code, and logs every rank's.
 
     python -m articulatory_tpu_torch.distributed.launch --nproc_per_node 2 \\
         [--nnodes 1 --node_rank 0 --master_addr 127.0.0.1 \\
@@ -22,8 +23,10 @@ from __future__ import annotations
 
 import logging
 import os
+import queue
 import subprocess
 import sys
+import threading
 import time
 from argparse import REMAINDER, ArgumentParser
 
@@ -119,34 +122,49 @@ def main(argv: list[str] | None = None) -> None:
             cmd, env=env,
             preexec_fn=_die_with_parent if sys.platform == "linux" else None))
 
-    # poll every rank; on the first failure terminate the others instead of
-    # leaving them waiting in a collective
-    failure = None
-    while failure is None:
-        running = False
-        for p in processes:
-            rc = p.poll()
-            if rc is None:
-                running = True
-            elif rc != 0:
-                failure = (rc, p.args)
-                break
-        if not running:
-            break
-        time.sleep(0.2)
-    if failure is not None:
-        for p in processes:
-            if p.poll() is None:
-                p.terminate()
-        deadline = time.time() + 10
-        for p in processes:
-            try:
-                p.wait(timeout=max(0.1, deadline - time.time()))
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-        code, cmd = failure
-        raise subprocess.CalledProcessError(returncode=code, cmd=cmd)
+    wait_ranks(processes)
+
+
+def wait_ranks(processes: list[subprocess.Popen], grace: float = 10.0
+               ) -> None:
+    """Wait for every rank; on the first failure terminate the others
+    instead of leaving them waiting in a collective (SIGKILL after
+    ``grace`` seconds) and raise ``CalledProcessError`` with the code of
+    the rank that failed first. A waiter thread a rank puts ``(rank,
+    code)`` on a queue as its process ends, so the order of the queue is
+    the order of the exits, however late the launcher reads it."""
+    exits: queue.Queue = queue.Queue()
+    for rank, p in enumerate(processes):
+        threading.Thread(target=lambda r=rank, p=p: exits.put((r, p.wait())),
+                         daemon=True).start()
+    codes: dict[int, int] = {}
+    first = None
+    deadline = None
+    while len(codes) < len(processes):
+        try:
+            rank, code = exits.get(
+                timeout=None if deadline is None
+                else max(0.1, deadline - time.monotonic()))
+        except queue.Empty:  # a rank ignored SIGTERM
+            for p in processes:
+                if p.poll() is None:
+                    p.kill()
+            continue
+        codes[rank] = code
+        if code != 0 and first is None:
+            first = rank
+            deadline = time.monotonic() + grace
+            for p in processes:
+                if p.poll() is None:
+                    p.terminate()
+    report = ", ".join(f"rank {r}: {codes[r]}" for r in sorted(codes))
+    if first is None:
+        logging.info("launcher: exit codes %s", report)
+        return
+    logging.warning("launcher: rank %d failed first; exit codes %s", first,
+                    report)
+    raise subprocess.CalledProcessError(returncode=codes[first],
+                                        cmd=processes[first].args)
 
 
 if __name__ == "__main__":

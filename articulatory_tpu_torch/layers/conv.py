@@ -41,6 +41,7 @@ its inner ``deconv``; keys ``conv.*`` and ``deconv.*``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -106,6 +107,7 @@ class _Stored(nn.Module):
     derived once and kept until the module is moved or loaded."""
 
     _frozen: dict | None = None  # (name, dtype) -> weight, once frozen
+    _lifted: dict | None = None  # (name, dtype) -> (owner, buffer), traced
 
     def stored(self, name: str) -> torch.Tensor:
         """Parameter ``name``, dequantized (``q.float() * s``) if it is
@@ -136,13 +138,45 @@ class _Stored(nn.Module):
     def _derived(self, key: tuple, make) -> torch.Tensor | None:
         """``make()``, cached under ``key`` once frozen: every call returns
         the same tensor, so what a kernel keeps with it (resblock_pair's f32
-        weight split) is made once."""
+        weight split) is made once. A traced call (``torch.export``, whose
+        parameters are fake tensors) caches nothing: it reads the buffer
+        ``lifted`` made of the weight, or derives one not derived yet in
+        the graph."""
         if self._frozen is None:
             return make()
+        if torch.compiler.is_compiling():
+            buffer = self._lifted.get(key) if self._lifted else None
+            return make() if buffer is None else getattr(*buffer)
         if key not in self._frozen:
             w = make()
             self._frozen[key] = None if w is None else w.detach()
         return self._frozen[key]
+
+    @contextlib.contextmanager
+    def lifted(self, owner: nn.Module, prefix: str):
+        """While ``owner``, the module being traced (``export.py``), is
+        traced: each weight derived so far as a non-persistent buffer of
+        ``owner`` (``<prefix>_<i>``), which the program holds as a constant
+        instead of deriving it in every forward, and fetches in one lookup;
+        and the parameters it was derived from out of sight, so that the
+        program does not carry them too. An inference tensor is registered
+        as a copy (tracing takes none)."""
+        self._lifted = {}
+        for i, (key, w) in enumerate((self._frozen or {}).items()):
+            if w is not None:
+                owner.register_buffer(f"{prefix}_{i}", w.clone() if
+                                      w.is_inference() else w,
+                                      persistent=False)
+                self._lifted[key] = (owner, f"{prefix}_{i}")
+        params = dict(self._parameters)
+        self._parameters.clear()
+        try:
+            yield
+        finally:
+            self._parameters.update(params)
+            for module, name in self._lifted.values():
+                delattr(module, name)
+            self._lifted = None
 
     def weight_as(self, name: str, dtype: torch.dtype | None
                   ) -> torch.Tensor | None:

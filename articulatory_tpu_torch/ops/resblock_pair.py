@@ -12,27 +12,31 @@ prep kernel first (``split_tf32``: (tap, in, out) into (2, tap, out, in), hi
 then lo); ``split_tf32_plain`` is the same split in PyTorch. The split is
 cached on inference tensors (the decode's kernels, folded once under
 ``torch.inference_mode`` after ``remove_weight_norm`` and never changed after)
-and made in every call otherwise (training refolds its weights each forward).
+and on an exported program's constants (``export.py``), and made in every
+call otherwise (training refolds its weights each forward).
 The kernel takes C up to 256, a multiple of 16 in bf16 and of 8 in f32:
 ``_launch`` zero-pads other C (``pad_channels``, exact) and slices the
 result; a wider C raises.
 
 ``resblock_pair`` dispatches on the tensor's device: a CPU tensor goes to
 ``resblock_pair_plain``, the same function in plain PyTorch; a CUDA tensor
-launches the kernel or raises. ``resblock_pair.launches`` counts the pair's
-launches (``launches_by_dtype`` apart per dtype name),
+launches the kernel (through ``ResblockPairFunction`` where a gradient is
+wanted) or raises. A traced call (``torch.export``, ``export.py``) records
+the registered op ``articulatory_tpu_torch::resblock_pair`` (``_OP``)
+instead, on either device: its CUDA kernel is ``_launch``, its CPU kernel
+the plain pair, its fake kernel gives x's shape and dtype, its backward the
+Function's. Eager calls skip the op's
+dispatcher, whose Python autograd layer would add host time to every launch.
+``resblock_pair.launches`` counts the pair's launches as they run
+(``launches_by_dtype`` apart per dtype name), never while a call is traced;
 ``split_tf32.launches`` the prep kernel's.
 
 Gradients: the JAX package has no backward for this kernel (its models
-differentiate through XLA convs). On a CUDA tensor that needs a gradient the
-pair runs inside ``ResblockPairFunction``: forward launches the kernel
-through ``_launch`` and saves x, w1, b1, w2, b2; backward recomputes
+differentiate through XLA convs). The backward recomputes
 ``resblock_pair_plain`` under autograd and differentiates it
 (``ops/_recompute.py``), one extra plain forward and no intermediate
-activation kept. Without grad mode, or when no input requires a gradient (the
-decode), ``_forward`` calls ``_launch`` directly, saving the Function's host
-time. ``_launch`` is a module function, so a test can stand the plain version
-in for the kernel.
+activation kept. ``_launch`` is a module function, so a test can stand the
+plain version in for the kernel.
 """
 
 from __future__ import annotations
@@ -163,25 +167,29 @@ def _split(w1, w2):
 split_tf32.launches = 0
 
 
+# the flag ``export.py`` sets on the tensors a program holds as constants
+CONSTANT = "_program_constant"
+
+
 def _weight_splits(w1, w2):
     """The tf32 splits of w1 and w2: cached on each weight that is an
     inference tensor (which cannot change outside inference mode, and which
-    the decode never changes in it), made by the prep kernel otherwise."""
+    the decode never changes in it) or an exported program's constant
+    (``CONSTANT``), made by the prep kernel otherwise."""
     cached = [getattr(w, "_tf32_split", None) for w in (w1, w2)]
     if cached[0] is not None and cached[1] is not None:
         return cached
     splits = _split(w1, w2)
     for w, s in zip((w1, w2), splits):
-        if w.is_inference():
+        if w.is_inference() or getattr(w, CONSTANT, False):
             w._tf32_split = s
     return splits
 
 
-def _check(x, w1, b1, w2, b2, dilation) -> None:
+def _check_shapes(x, w1, b1, w2, b2, dilation) -> None:
+    """What every kernel of the op needs: the shapes and the dilation."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"resblock_pair takes float32 or bfloat16, got {x.dtype}")
     c = x.shape[2]
     for name, w in (("w1", w1), ("w2", w2)):
         if w.dim() != 3 or w.shape[1:] != (c, c) or w.shape[0] % 2 == 0:
@@ -192,6 +200,14 @@ def _check(x, w1, b1, w2, b2, dilation) -> None:
             raise ValueError(f"{name} must be ({c},), got {tuple(b.shape)}")
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
+
+
+def _check(x, w1, b1, w2, b2, dilation) -> None:
+    """What the CUDA kernel needs besides."""
+    _check_shapes(x, w1, b1, w2, b2, dilation)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"resblock_pair takes float32 or bfloat16, got {x.dtype}")
+    c = x.shape[2]
     if c > MAX_CHANNELS:
         raise ValueError(f"the kernel takes at most {MAX_CHANNELS} channels, "
                          f"got {c}")
@@ -244,7 +260,7 @@ def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
 class ResblockPairFunction(torch.autograd.Function):
     """Forward: ``_launch`` (the kernel). Backward: the plain pair
     recomputed under autograd, differentiated with respect to every input
-    that needs a gradient."""
+    that needs a gradient. The op's autograd is the same backward."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, dilation, negative_slope):
@@ -261,18 +277,61 @@ class ResblockPairFunction(torch.autograd.Function):
                 None, None)
 
 
+# A registered op, so that tracing keeps the pair as one node of the graph.
+# Its kernels are plain Python functions on the dispatcher (``Library.impl``:
+# no ``custom_op`` wrapper, whose alias checks cost host time every call)
+# that look ``_launch`` and ``resblock_pair_plain`` up when they run, so a
+# test can stand the plain version in for the launch.
+_LIB = torch.library.Library("articulatory_tpu_torch", "DEF")
+_LIB.define("resblock_pair(Tensor x, Tensor w1, Tensor? b1, Tensor w2, "
+            "Tensor? b2, int dilation, float negative_slope) -> Tensor")
+
+
+def _op_cuda(x, w1, b1, w2, b2, dilation, negative_slope):
+    _check(x, w1, b1, w2, b2, dilation)
+    return _launch(x, w1, b1, w2, b2, dilation, negative_slope)
+
+
+def _op_cpu(x, w1, b1, w2, b2, dilation, negative_slope):
+    return resblock_pair_plain(x, w1, b1, w2, b2, dilation=dilation,
+                               negative_slope=negative_slope)
+
+
+def _op_fake(x, w1, b1, w2, b2, dilation, negative_slope):
+    _check_shapes(x, w1, b1, w2, b2, dilation)
+    return torch.empty_like(x)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w1, b1, w2, b2, dilation, negative_slope = inputs
+    ctx.save_for_backward(x, w1, b1, w2, b2)
+    ctx.dilation, ctx.negative_slope = dilation, negative_slope
+
+
+_LIB.impl("resblock_pair", _op_cuda, "CUDA")
+_LIB.impl("resblock_pair", _op_cpu, "CPU")
+torch.library.register_fake("articulatory_tpu_torch::resblock_pair",
+                            _op_fake, lib=_LIB)
+torch.library.register_autograd("articulatory_tpu_torch::resblock_pair",
+                                ResblockPairFunction.backward,
+                                setup_context=_setup_context, lib=_LIB)
+_OP = torch.ops.articulatory_tpu_torch.resblock_pair.default
+
+
 def resblock_pair(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
                   w2: torch.Tensor, b2: torch.Tensor | None, *, dilation: int,
                   negative_slope: float = 0.1) -> torch.Tensor:
     """Fused residual pair. x ``(B, T, C)`` contiguous, float32 or bfloat16;
     w1 ``(K1, C, C)``, w2 ``(K2, C, C)`` folded, (in, out) order, K odd;
     b ``(C,)`` or None; all of x's dtype and device. Differentiable in
-    every tensor input."""
+    every tensor input. A traced call records the op."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"resblock_pair runs on cpu or cuda, not {x.device}")
+    if torch.compiler.is_compiling():
+        return _OP(x, w1, b1, w2, b2, dilation, negative_slope)
     if x.device.type == "cpu":
         return resblock_pair_plain(x, w1, b1, w2, b2, dilation=dilation,
                                    negative_slope=negative_slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"resblock_pair runs on cpu or cuda, not {x.device}")
     _check(x, w1, b1, w2, b2, dilation)
     return _forward(x, w1, b1, w2, b2, dilation, negative_slope)
 

@@ -4,7 +4,9 @@
   map whose arrays are ext type 1 carrying ``(shape, dtype name, C-order
   bytes)`` (ext type 3 is a numpy scalar in the same encoding); arrays above
   flax's chunk size are stored as ``{"__msgpack_chunked_array__": True,
-  "shape": ..., "chunks": ...}``. ``msgpack`` is imported only here.
+  "shape": ..., "chunks": ...}``. ``save_msgpack`` writes the same bytes as
+  flax's ``msgpack_serialize`` (keys sorted at every level, large arrays
+  chunked). ``msgpack`` is imported only here.
 - torch pickles (zip files, or legacy pickles starting with the pickle
   protocol opcode), read with ``torch.load(weights_only=True)``. The format
   is told from the first bytes, not the name: the JAX package writes msgpack
@@ -85,6 +87,77 @@ def load_msgpack(path: str) -> dict:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+# flax's serialization.MAX_CHUNK_SIZE: an array of more bytes is written in
+# chunks of at most this many
+MAX_CHUNK_SIZE = 2 ** 30
+
+
+def _ndarray_bytes(arr) -> bytes:
+    """flax's ``_ndarray_to_bytes``: ``(shape, dtype name, C-order bytes)``
+    packed; a bfloat16 tensor under numpy's missing name ``bfloat16``."""
+    import msgpack
+
+    if torch.is_tensor(arr):  # bfloat16, which numpy has no type for
+        return msgpack.packb((tuple(arr.shape), "bfloat16", arr.contiguous(
+            ).view(torch.int16).numpy().tobytes()), use_bin_type=True)
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(obj):
+    import msgpack
+
+    if isinstance(obj, np.ndarray) or torch.is_tensor(obj):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_bytes(obj))
+    if isinstance(obj, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    if isinstance(obj, complex):
+        return msgpack.ExtType(2, msgpack.packb((obj.real, obj.imag)))
+    return obj
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): n for i, n in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j: j + size] for i, j in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _flax_tree(tree):
+    """``tree`` as flax's ``msgpack_serialize`` lays it out before packing:
+    every dict's keys sorted (its ``jax.tree_util`` copy), tensors as numpy
+    arrays, an array of more than ``MAX_CHUNK_SIZE`` bytes chunked."""
+    if isinstance(tree, dict):
+        return {k: _flax_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_flax_tree(v) for v in tree)
+    if torch.is_tensor(tree):
+        tree = tree.detach().cpu()
+        if tree.dtype == torch.bfloat16:
+            return tree
+        tree = tree.numpy()
+    if isinstance(tree, np.ndarray) and \
+            tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def save_msgpack(path: str, tree: dict) -> None:
+    """Write ``tree`` (nested dicts of arrays, tensors and scalars) as the
+    bytes of flax's ``msgpack_serialize(tree)``, the format ``load_msgpack``
+    and the JAX package's ``load_checkpoint`` read."""
+    import msgpack
+
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(_flax_tree(tree), default=_ext_pack,
+                              strict_types=True))
 
 
 def _is_torch_pickle(path: str) -> bool:

@@ -30,6 +30,16 @@ mutables, ``num_batches_tracked`` from the step count. A cascade's
 ``generator2`` tree goes through the same converters under its own
 ``generator2_type`` (``utils/checkpoint.py::generator_state_dict``).
 
+The inverse, a reference (or port) state dict -> the JAX param tree, is
+``GENERATOR_TO_JAX`` (type -> ``(params, mutables)``, BatchNorm statistics
+as ``{"batch_stats": ...}``) and ``DISCRIMINATOR_TO_JAX`` (type -> params),
+the JAX package's ``utils/torch_import.py`` importers for the same families
+(HiFi-GAN with AR, speaker, phoneme and multi-band forms; MelGAN; PWG;
+StyleMelGAN; GBlock; BiGRU; Transformer; and the MSMPD, MelGAN MSD,
+StyleMelGAN and PWG discriminators), computed with the same numpy
+operations: a PWG upsampling Conv2d is folded to its effective weight. A
+missing key raises ``KeyError``.
+
 ``fold_weight_norm`` is ``remove_weight_norm`` on a state dict: each
 ``weight_v`` becomes the effective weight and ``weight_g`` its norm, so the
 forward computes the same kernel from an exactly normalised v.
@@ -493,6 +503,375 @@ def discriminator_to_state_dict(discriminator_type: str,
         raise NotImplementedError(f"carrying a JAX {discriminator_type} is "
                                   "not ported")
     return converters[discriminator_type](params, discriminator_params)
+
+
+# The inverse: a reference (or port) state dict -> the JAX package's param
+# tree and BatchNorm statistics, as its ``utils/torch_import.py`` builds
+# them (the default direction of ``bin/convert_checkpoint.py``).
+
+
+def _np(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class _Keys:
+    """A flat torch state dict read into JAX layouts."""
+
+    def __init__(self, sd: Mapping[str, Any]):
+        self.sd = {k: _np(v) for k, v in sd.items()}
+
+    def has(self, name: str) -> bool:
+        return name in self.sd
+
+    def _bias(self, out: dict, prefix: str) -> dict:
+        if f"{prefix}.bias" in self.sd:
+            out["b"] = self.sd[f"{prefix}.bias"]
+        return out
+
+    def conv1d(self, prefix: str) -> dict:
+        """(C_out, C_in, K) -> (K, C_in, C_out), weight norm kept as (g, v)."""
+        if f"{prefix}.weight_v" in self.sd:
+            out = {"v": np.transpose(self.sd[f"{prefix}.weight_v"], (2, 1, 0)),
+                   "g": np.transpose(self.sd[f"{prefix}.weight_g"], (2, 1, 0))}
+        else:
+            out = {"w": np.transpose(self.sd[f"{prefix}.weight"], (2, 1, 0))}
+        return self._bias(out, prefix)
+
+    def conv_transpose1d(self, prefix: str) -> dict:
+        """(C_in, C_out, K) -> time-flipped (K, C_in, C_out)."""
+        if f"{prefix}.weight_v" in self.sd:
+            v = self.sd[f"{prefix}.weight_v"]
+            out = {"v": np.transpose(v[:, :, ::-1], (2, 0, 1)).copy(),
+                   "g": np.transpose(self.sd[f"{prefix}.weight_g"], (2, 0, 1))}
+        else:
+            w = self.sd[f"{prefix}.weight"]
+            out = {"w": np.transpose(w[:, :, ::-1], (2, 0, 1)).copy()}
+        return self._bias(out, prefix)
+
+    def conv2d(self, prefix: str) -> dict:
+        """(C_out, C_in, Kh, Kw) -> (Kh, Kw, C_in, C_out)."""
+        out = {}
+        for src, dst in (("weight_v", "v"), ("weight_g", "g"),
+                         ("weight", "w")):
+            if f"{prefix}.{src}" in self.sd:
+                out[dst] = np.transpose(self.sd[f"{prefix}.{src}"],
+                                        (2, 3, 1, 0))
+        return self._bias(out, prefix)
+
+    def linear(self, prefix: str) -> dict:
+        return self._bias({"w": np.transpose(self.sd[f"{prefix}.weight"],
+                                             (1, 0))}, prefix)
+
+    def embedding(self, prefix: str) -> dict:
+        return {"w": self.sd[f"{prefix}.weight"]}
+
+    def batch_norm(self, prefix: str) -> tuple[dict, dict]:
+        """(params, batch_stats) of a BatchNorm."""
+        return ({"scale": self.sd[f"{prefix}.weight"],
+                 "bias": self.sd[f"{prefix}.bias"]},
+                {"mean": self.sd[f"{prefix}.running_mean"],
+                 "var": self.sd[f"{prefix}.running_var"]})
+
+    def ar_model(self) -> dict:
+        return {f"fc{li}": self.linear(f"ar_model.model.{ti}")
+                for li, ti in enumerate([0, 2, 4, 6, 8])}
+
+
+def hifigan_generator_to_jax(state_dict: Mapping[str, Any],
+                             generator_params: Mapping[str, Any]) -> dict:
+    """``HiFiGANGenerator`` (the AR, speaker and phoneme leaves and the
+    multi-band form included) -> the JAX param tree."""
+    sd = _Keys(state_dict)
+    gp = generator_params
+    rks = gp.get("resblock_kernel_sizes", (3, 7, 11))
+    rdils = gp.get("resblock_dilations", ((1, 3, 5),) * 3)
+    use_additional = gp.get("use_additional_convs", True)
+    params: dict[str, Any] = {"input_conv": sd.conv1d("input_conv")}
+    for i in range(len(gp.get("upsample_scales", (8, 8, 2, 2)))):
+        params[f"upsample_{i}"] = sd.conv_transpose1d(f"upsamples.{i}.1")
+        for j in range(len(rks)):
+            idx = i * len(rks) + j
+            block: dict[str, Any] = {}
+            for d in range(len(rdils[j])):
+                block[f"convs1_{d}"] = sd.conv1d(f"blocks.{idx}.convs1.{d}.1")
+                if use_additional:
+                    block[f"convs2_{d}"] = sd.conv1d(
+                        f"blocks.{idx}.convs2.{d}.1")
+            params[f"block_{i}_{j}"] = block
+    params["output_conv"] = sd.conv1d("output_conv.1")
+    if gp.get("use_ar", False):
+        params["ar_model"] = sd.ar_model()
+    if gp.get("use_spk_id", False):
+        params["spk_emb_mat"] = sd.embedding("spk_emb_mat")
+        params["spk_fc"] = sd.linear("spk_fc")
+    if gp.get("use_ph", False):
+        params["ph_emb_mat"] = sd.embedding("ph_emb_mat")
+    if gp.get("use_ph_loss", False):
+        params["ph_fc"] = sd.linear("ph_fc")
+    return params
+
+
+def melgan_generator_to_jax(state_dict: Mapping[str, Any],
+                            generator_params: Mapping[str, Any]) -> dict:
+    """Non-causal ``MelGANGenerator`` -> the JAX param tree (the JAX
+    importer takes no causal one either)."""
+    if generator_params.get("use_causal_conv", False):
+        raise NotImplementedError("a causal MelGAN has no JAX importer")
+    sd = _Keys(state_dict)
+    params: dict[str, Any] = {"first_conv": sd.conv1d("melgan.1")}
+    idx = 2
+    for i in range(len(generator_params.get("upsample_scales", (8, 8, 2, 2)))):
+        idx += 1  # the activation
+        params[f"upsample_{i}"] = sd.conv_transpose1d(f"melgan.{idx}")
+        idx += 1
+        for j in range(generator_params.get("stacks", 3)):
+            params[f"stack_{i}_{j}"] = {
+                "conv_dilated": sd.conv1d(f"melgan.{idx}.stack.2"),
+                "conv_out": sd.conv1d(f"melgan.{idx}.stack.4"),
+                "conv_skip": sd.conv1d(f"melgan.{idx}.skip_layer")}
+            idx += 1
+    params["last_conv"] = sd.conv1d(f"melgan.{idx + 2}")  # act, pad, conv
+    return params
+
+
+def _folded_conv2d(sd: _Keys, prefix: str) -> np.ndarray:
+    """A weight-normed Conv2d's effective weight in (Kh, Kw, C_in, C_out),
+    computed as the JAX importer computes it; the port's own state dict
+    holds it already (``weight``)."""
+    if f"{prefix}.weight_v" not in sd.sd:
+        return np.transpose(sd.sd[f"{prefix}.weight"], (2, 3, 1, 0))
+    v = sd.sd[f"{prefix}.weight_v"]
+    g = sd.sd[f"{prefix}.weight_g"]
+    norm = np.sqrt((v ** 2).sum(axis=(1, 2, 3), keepdims=True))
+    return np.transpose(g * v / norm, (2, 3, 1, 0))
+
+
+def pwg_generator_to_jax(state_dict: Mapping[str, Any],
+                         generator_params: Mapping[str, Any]) -> dict:
+    """``ParallelWaveGANGenerator`` -> the JAX param tree (its upsampling
+    Conv2d weights folded to effective weights, JAX's layout)."""
+    sd = _Keys(state_dict)
+    up = generator_params.get("upsample_params",
+                              {"upsample_scales": [4, 4, 4, 4]})
+    stride = 3 if up.get("nonlinear_activation") is not None else 2
+    params: dict[str, Any] = {"first_conv": sd.conv1d("first_conv")}
+    if generator_params.get("upsample_conditional_features", True):
+        params["upsample_net"] = {
+            "conv_in": sd.conv1d("upsample_net.conv_in"),
+            "upsample": {
+                f"conv_{i}_w": _folded_conv2d(
+                    sd, f"upsample_net.upsample.up_layers.{1 + i * stride}")
+                for i in range(len(up.get("upsample_scales",
+                                          [4, 4, 4, 4])))}}
+    for i in range(generator_params.get("layers", 30)):
+        params[f"conv_layer_{i}"] = {
+            name: sd.conv1d(f"conv_layers.{i}.{name}") for name in
+            ("conv", "conv1x1_aux", "conv1x1_skip", "conv1x1_out")}
+    params["last_conv_0"] = sd.conv1d("last_conv_layers.1")
+    params["last_conv_1"] = sd.conv1d("last_conv_layers.3")
+    return params
+
+
+def style_melgan_generator_to_jax(state_dict: Mapping[str, Any],
+                                  generator_params: Mapping[str, Any]
+                                  ) -> dict:
+    sd = _Keys(state_dict)
+    gp = generator_params
+    params: dict[str, Any] = {}
+    for i in range(len(gp.get("noise_upsample_scales", (11, 2, 2, 2)))):
+        params[f"noise_upsample_{i}"] = sd.conv_transpose1d(
+            f"noise_upsample.{2 * i}")
+    for i in range(len(gp.get("upsample_scales",
+                              (2, 2, 2, 2, 2, 2, 2, 2, 1)))):
+        b = f"blocks.{i}"
+        params[f"block_{i}"] = {
+            "tade1": {"aux_conv": sd.conv1d(f"{b}.tade1.aux_conv.0"),
+                      "gated_conv": sd.conv1d(f"{b}.tade1.gated_conv.0")},
+            "gated_conv1": sd.conv1d(f"{b}.gated_conv1"),
+            "tade2": {"aux_conv": sd.conv1d(f"{b}.tade2.aux_conv.0"),
+                      "gated_conv": sd.conv1d(f"{b}.tade2.gated_conv.0")},
+            "gated_conv2": sd.conv1d(f"{b}.gated_conv2")}
+    params["output_conv"] = sd.conv1d("output_conv.0")
+    return params
+
+
+def gblock_generator_to_jax(state_dict: Mapping[str, Any],
+                            generator_params: Mapping[str, Any]) -> dict:
+    sd = _Keys(state_dict)
+    params: dict[str, Any] = {"input_conv": sd.conv1d("input_conv")}
+    for i, scale in enumerate(generator_params.get("g_scales", (8, 8, 2, 2))):
+        r = f"resamples.{i}"
+        off = 1 if scale > 1 else 0  # the Upsample layer shifts the keys
+        params[f"resample_{i}"] = {
+            "conv1_a": sd.conv1d(f"{r}.conv1.{1 + off}"),
+            "conv1_b": sd.conv1d(f"{r}.conv1.{3 + off}"),
+            "res1": sd.conv1d(f"{r}.res1.{off}"),
+            "conv2_a": sd.conv1d(f"{r}.conv2.1"),
+            "conv2_b": sd.conv1d(f"{r}.conv2.3")}
+    params["output_conv"] = sd.conv1d("output_conv.1")
+    if generator_params.get("use_ar", False):
+        params["ar_model"] = sd.ar_model()
+    if generator_params.get("use_spk_id", False):
+        params["spk_emb_mat"] = sd.embedding("spk_emb_mat")
+        params["spk_fc"] = sd.linear("spk_fc")
+    return params
+
+
+def _gru(sd: _Keys, prefix: str, reverse: bool) -> dict:
+    sfx = "_reverse" if reverse else ""
+    return {"w_ih": sd.sd[f"{prefix}.weight_ih_l0{sfx}"],
+            "w_hh": sd.sd[f"{prefix}.weight_hh_l0{sfx}"],
+            "b_ih": sd.sd[f"{prefix}.bias_ih_l0{sfx}"],
+            "b_hh": sd.sd[f"{prefix}.bias_hh_l0{sfx}"]}
+
+
+def bigru_to_jax(state_dict: Mapping[str, Any],
+                 generator_params: Mapping[str, Any]) -> tuple[dict, dict]:
+    """``BiGRU`` -> (params, ``{"batch_stats": {"bn": ...}}``)."""
+    sd = _Keys(state_dict)
+    params: dict[str, Any] = {
+        name: {"fwd": _gru(sd, name, False), "bwd": _gru(sd, name, True)}
+        for name in ("gru1", "gru2")}
+    params["fc1"] = sd.linear("fc1.0")
+    params["bn"], stats = sd.batch_norm("bn")
+    params["fc2"] = sd.linear("fc2.0" if sd.has("fc2.0.weight") else "fc2")
+    if generator_params.get("use_ar", False):
+        params["ar_model"] = sd.ar_model()
+    if generator_params.get("use_spk_emb", False):
+        params["spk_fc"] = sd.linear("spk_fc")
+    return params, {"batch_stats": {"bn": stats}}
+
+
+def transformer_to_jax(state_dict: Mapping[str, Any],
+                       generator_params: Mapping[str, Any]
+                       ) -> tuple[dict, dict]:
+    """Gaddy & Klein ``Transformer`` -> (params, ``{"batch_stats": ...}``)."""
+    sd = _Keys(state_dict)
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    base = 0
+    if generator_params.get("extra_art", False):
+        params["front_conv"] = sd.conv1d("conv_blocks.0")
+        base = 1
+    for i in range(3):
+        prefix = f"conv_blocks.{base + i}"
+        p: dict[str, Any] = {"conv1": sd.conv1d(f"{prefix}.conv1"),
+                             "conv2": sd.conv1d(f"{prefix}.conv2")}
+        s: dict[str, Any] = {}
+        for bn in ("bn1", "bn2"):
+            p[bn], s[bn] = sd.batch_norm(f"{prefix}.{bn}")
+        if sd.has(f"{prefix}.residual_path.weight"):
+            p["residual_path"] = sd.conv1d(f"{prefix}.residual_path")
+            p["res_norm"], s["res_norm"] = sd.batch_norm(f"{prefix}.res_norm")
+        params[f"res{i}"], stats[f"res{i}"] = p, s
+    params["w_raw_in"] = sd.linear("w_raw_in")
+    for i in range(generator_params.get("elayers", 6)):
+        t = f"transformer.layers.{i}"
+        params[f"layer{i}"] = {
+            "self_attn": {
+                **{k: sd.sd[f"{t}.self_attn.{k}"]
+                   for k in ("w_q", "w_k", "w_v", "w_o")},
+                "rel_embeddings": sd.sd[
+                    f"{t}.self_attn.relative_positional.embeddings"][..., 0]},
+            "linear1": sd.linear(f"{t}.linear1"),
+            "linear2": sd.linear(f"{t}.linear2"),
+            **{norm: {"scale": sd.sd[f"{t}.{norm}.weight"],
+                      "bias": sd.sd[f"{t}.{norm}.bias"]}
+               for norm in ("norm1", "norm2")}}
+    if sd.has("in_emb_mat.weight"):
+        params["in_emb_mat"] = sd.embedding("in_emb_mat")
+    params["w_out"] = sd.linear("w_out")
+    return params, {"batch_stats": stats}
+
+
+# generator type -> (state dict, generator_params) -> (params, mutables),
+# the JAX package's GENERATOR_IMPORTERS
+GENERATOR_TO_JAX = {
+    "HiFiGANGenerator": lambda sd, gp: (hifigan_generator_to_jax(sd, gp), {}),
+    "MelGANGenerator": lambda sd, gp: (melgan_generator_to_jax(sd, gp), {}),
+    "ParallelWaveGANGenerator": lambda sd, gp: (
+        pwg_generator_to_jax(sd, gp), {}),
+    "StyleMelGANGenerator": lambda sd, gp: (
+        style_melgan_generator_to_jax(sd, gp), {}),
+    "GBlockGenerator": lambda sd, gp: (gblock_generator_to_jax(sd, gp), {}),
+    "BiGRU": bigru_to_jax,
+    "Transformer": transformer_to_jax,
+}
+
+
+def _melgan_discriminator_to_jax(sd: _Keys, prefix: str,
+                                 discriminator_params: Mapping[str, Any]
+                                 ) -> dict:
+    n_down = len(discriminator_params.get("downsample_scales", (4, 4, 4, 4)))
+    disc: dict[str, Any] = {"layer_0": sd.conv1d(f"{prefix}.layers.0.1")}
+    for k in range(1, n_down + 2):
+        disc[f"layer_{k}"] = sd.conv1d(f"{prefix}.layers.{k}.0")
+    disc[f"layer_{n_down + 2}"] = sd.conv1d(f"{prefix}.layers.{n_down + 2}")
+    return disc
+
+
+def msmpd_to_jax(state_dict: Mapping[str, Any],
+                 discriminator_params: Mapping[str, Any]) -> dict:
+    """``HiFiGANMultiScaleMultiPeriodDiscriminator`` -> ``{"msd", "mpd"}``."""
+    sd = _Keys(state_dict)
+    dp = discriminator_params
+    n_scale_layers = len(dp.get("scale_discriminator_params", {}).get(
+        "downsample_scales", (2, 2, 4, 4, 1))) + 3
+    n_period_convs = len(dp.get("period_discriminator_params", {}).get(
+        "downsample_scales", (3, 3, 3, 3, 1)))
+    msd: dict[str, Any] = {}
+    for i in range(dp.get("scales", 3)):
+        disc: dict[str, Any] = {}
+        for k in range(n_scale_layers):
+            prefix = f"msd.discriminators.{i}.layers.{k}"
+            # Sequential(conv, act) but for the last layer, a bare conv
+            disc[f"layer_{k}"] = sd.conv1d(
+                f"{prefix}.0" if sd.has(f"{prefix}.0.weight") else prefix)
+        msd[f"disc_{i}"] = disc
+    mpd: dict[str, Any] = {}
+    for i in range(len(dp.get("periods", (2, 3, 5, 7, 11)))):
+        disc = {f"conv_{k}": sd.conv2d(f"mpd.discriminators.{i}.convs.{k}.0")
+                for k in range(n_period_convs)}
+        disc["output_conv"] = sd.conv2d(f"mpd.discriminators.{i}.output_conv")
+        mpd[f"disc_{i}"] = disc
+    return {"msd": msd, "mpd": mpd}
+
+
+def melgan_msd_to_jax(state_dict: Mapping[str, Any],
+                      discriminator_params: Mapping[str, Any]) -> dict:
+    sd = _Keys(state_dict)
+    return {f"disc_{i}": _melgan_discriminator_to_jax(
+        sd, f"discriminators.{i}", discriminator_params)
+        for i in range(discriminator_params.get("scales", 3))}
+
+
+def style_melgan_discriminator_to_jax(
+        state_dict: Mapping[str, Any],
+        discriminator_params: Mapping[str, Any]) -> dict:
+    sd = _Keys(state_dict)
+    inner = discriminator_params.get("discriminator_params", {})
+    return {f"disc_{i}": _melgan_discriminator_to_jax(
+        sd, f"discriminators.{i}", inner)
+        for i in range(len(discriminator_params.get("pqmf_params",
+                                                    ((1,),) * 4)))}
+
+
+def pwg_discriminator_to_jax(state_dict: Mapping[str, Any],
+                             discriminator_params: Mapping[str, Any]) -> dict:
+    sd = _Keys(state_dict)
+    return {f"conv_{i}": sd.conv1d(f"conv_layers.{2 * i}")
+            for i in range(discriminator_params.get("layers", 10))}
+
+
+# the JAX package's DISCRIMINATOR_IMPORTERS
+DISCRIMINATOR_TO_JAX = {
+    "HiFiGANMultiScaleMultiPeriodDiscriminator": msmpd_to_jax,
+    "MelGANMultiScaleDiscriminator": melgan_msd_to_jax,
+    "StyleMelGANDiscriminator": style_melgan_discriminator_to_jax,
+    "ParallelWaveGANDiscriminator": pwg_discriminator_to_jax,
+}
 
 
 def fold_weight_norm(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:

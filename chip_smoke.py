@@ -11,8 +11,10 @@ in phases 12-13 of the generator zoo on
 ``egs/ema/voc1/conf/e2w_hifigan.yaml``, in phases 14-18 of its
 conditioned, chained and multimodal forms, in phases 21-24 of the
 remaining entry points, weight storage, causal convs and SSL inversion,
-and in phases 25-28 of its data-, tensor-, pipeline- and
-sequence-parallel paths, through their entry points:
+in phases 25-28 of its data-, tensor-, pipeline- and
+sequence-parallel paths, and in phases 29-32 of its export, checkpoint
+conversion, pretrained registry and quality A/B tools, through their entry
+points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -227,6 +229,25 @@ Phases, each raising on failure:
    4 time tiles (``LoadedModel.enable_sequence_parallel``) against the
    unsharded forward (SP_TOL of max |y|), the peak memory of both, and
    ``bin/decode.py --sequence-parallel 4`` against the unsharded decode.
+
+29. export: the EMA HiFi-CAR at full width, f32 and hybrid, B 16 chunks of
+   100 frames with the 512-sample carry, through ``export.to_torch_export``
+   and ``serialize``: 36 pair op nodes in the graph; a fresh process of
+   this script (``--export-worker``) that imports the port alone
+   deserializes and runs it bit-equal to the eager chunk forward with 36
+   hand pair launches; here the loaded program is within CHUNK_TOL of the
+   forward on plain pairs, and its ms a forward against eager's, in turns,
+   at most EXPORT_SLOWER times eager's; the frozen kernels are the
+   program's constants (no weight-norm parameter in its state);
+30. convert: a reference-format pickle of the same weights through
+   ``bin/convert_checkpoint.py``'s default direction to a JAX msgpack,
+   which ``load_model`` decodes bit-equal to the pickle;
+31. pretrained: ``utils/pretrained.py::download_pretrained_model`` from a
+   local HTTP server behind a confirm-token interstitial, the checkpoint
+   extracted into a temporary cache and decoded bit-equal to phase 30's;
+32. quality: ``articulatory_tpu_torch/tools/bf16_quality_ab.sh`` end to
+   end at a tiny size (QUALITY_ENV, QUALITY_STEPS steps): every stage and
+   MCD of the A/B on the card without JAX (the MCDs printed).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -3494,24 +3515,6 @@ ENTRY_LENGTHS = [100, 200, 400, 800]
 ENTRY_ITERS = 5
 
 
-def write_msgpack(path: str, tree: dict) -> str:
-    """``tree`` (nested dicts of numpy arrays and ints) as a flax
-    ``msgpack_serialize`` file: each array an ext type 1 holding (shape,
-    dtype name, C-order bytes)."""
-    import msgpack
-
-    def default(obj):
-        if isinstance(obj, np.ndarray):
-            return msgpack.ExtType(1, msgpack.packb(
-                [list(obj.shape), obj.dtype.name,
-                 np.ascontiguousarray(obj).tobytes()]))
-        raise TypeError(f"cannot pack {type(obj)}")
-
-    with open(path, "wb") as f:
-        f.write(msgpack.packb(tree, default=default, use_bin_type=True))
-    return path
-
-
 def checked_pair(kernel, plain, errs: dict):
     """The pair as ``kernel`` computes it, each call also computed by
     ``plain`` on the same inputs; the largest error of max |y| of each
@@ -3547,7 +3550,8 @@ def phase_entry(port: dict, seed: int, device_name: str, tmp: str) -> dict:
     gp = GENERATOR_PARAMS
     exp = os.path.join(tmp, "exp")
     os.makedirs(exp)
-    ckpt = write_msgpack(os.path.join(exp, "ckpt.pkl"), {
+    ckpt = os.path.join(exp, "ckpt.pkl")
+    port["save_msgpack"](ckpt, {
         "model": {"generator": numpy_generator_params(gp, seed)},
         "steps": 0, "epochs": 0})
     with open(os.path.join(exp, "config.yml"), "w") as f:
@@ -4462,6 +4466,333 @@ def phase_sp(port: dict, seed: int, tmp: str) -> dict:
     return result
 
 
+# [export] / [convert] / [pretrained] / [quality]: the exported generator,
+# the reference-to-JAX conversion, the registry's downloader and the
+# quality A/B tool chain. EXPORT_TURNS: the exported program and the eager
+# forward timed in turns (ms a forward); QUALITY_*: the A/B at a tiny size
+EXPORT_TURNS = ("eager", "exported", "exported", "eager") * 2
+# the loaded program calls each op through the dispatcher's boxed path,
+# which costs the host-bound hybrid forward 5-20 % over eager's direct
+# calls; a program that derives its kernels in the graph reads 1.6-3.9x
+EXPORT_SLOWER = 1.5
+EXPORT_TAG = "ljspeech_hifigan.v1"
+QUALITY_STEPS = 10
+QUALITY_ENV = {"N_UTTS": "5", "DEV_UTTS": "1", "MIN_SECONDS": "1.0",
+               "MAX_SECONDS": "1.5", "BATCH_SIZE": "4"}
+QUALITY_TIMEOUT_S = 400
+
+
+def _export_models(port, seed: int, tmp: str) -> dict:
+    """The EMA HiFi-CAR at full width from ``--seed`` as the decode loads it
+    (``load_model``, frozen kernels), f32 and hybrid."""
+    gp = GENERATOR_PARAMS
+    ckpt = os.path.join(tmp, "generator.pth")
+    torch.save({"model": {"generator": port["weights"].jax_params_to_state_dict(
+        numpy_generator_params(gp, seed), gp)}}, ckpt)
+    modes = {"f32": CONFIG, "hybrid_bf16": dict(CONFIG, generator_params=dict(
+        gp, compute_dtype="bfloat16", hybrid_precision=True))}
+    models = {}
+    for mode, config in modes.items():
+        models[mode] = port["inference"].load_model(ckpt, config,
+                                                    device="cuda")
+        models[mode].remove_weight_norm()
+    return models
+
+
+def export_worker(workdir: str) -> int:
+    """[export]'s fresh process: imports the port's ``export`` module only
+    (which registers the pair op), loads each serialized program of
+    ``workdir``, runs it once on the saved inputs and saves its output and
+    the pair launches it counted."""
+    sys.path.insert(0, ROOT)
+    from articulatory_tpu_torch import export
+    from articulatory_tpu_torch.ops.resblock_pair import resblock_pair
+    from articulatory_tpu_torch.utils.device import set_float32_parity
+
+    set_float32_parity()
+    c, ar = torch.load(os.path.join(workdir, "inputs.pt"))
+    counts = {}
+    for mode in ("f32", "hybrid_bf16"):
+        with open(os.path.join(workdir, f"program_{mode}.pt2"), "rb") as f:
+            program = export.deserialize(f.read()).module()
+        resblock_pair.launches = 0
+        with torch.inference_mode():
+            y = program(c, ar)
+        torch.cuda.synchronize()
+        counts[mode] = resblock_pair.launches
+        torch.save(y.cpu(), os.path.join(workdir, f"out_{mode}.pt"))
+    with open(os.path.join(workdir, "worker.json"), "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
+def phase_export(port: dict, seed: int, device_name: str, tmp: str) -> dict:
+    """[export] The EMA HiFi-CAR at full width, f32 and hybrid, B UTTS
+    chunks of CHUNK_FRAMES frames with the 512-sample carry, through
+    ``export.to_torch_export`` -> ``serialize``: the graph holds 36 pair op
+    nodes; a fresh process (``--export-worker``) that imports the port
+    alone deserializes and runs it, bit-equal to the eager chunk forward
+    with 36 hand pair launches; in this process the loaded program (36
+    launches a forward) is within CHUNK_TOL of the same forward on plain
+    pairs, and its ms a forward against eager's, in turns, at most
+    EXPORT_SLOWER times eager's."""
+    export, pair, plain, residual = (port[k] for k in (
+        "export", "resblock_pair", "plain", "residual"))
+    models = _export_models(port, seed, tmp)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    c = torch.randn(UTTS, CHUNK_FRAMES, N_FEATS, device="cuda", generator=gen)
+    ar = 0.1 * torch.randn(UTTS, GENERATOR_PARAMS["ar_input"], 1,
+                           device="cuda", generator=gen)
+    work = os.path.join(tmp, "export")
+    os.makedirs(work)
+    torch.save((c, ar), os.path.join(work, "inputs.pt"))
+    results, eager, programs = {}, {}, {}
+    for mode, model in models.items():
+        with torch.inference_mode():
+            eager[mode] = model.model(c, ar)
+        start = time.perf_counter()
+        ep = export.to_torch_export(model.model, (c, ar))
+        blob = export.serialize(ep)
+        seconds = time.perf_counter() - start
+        nodes = export.pair_nodes(ep)
+        if nodes != 36:
+            raise AssertionError(f"[export] {mode}: {nodes} pair op nodes in "
+                                 f"the exported graph, expected 36")
+        derived = [k for k in ep.state_dict
+                   if k.endswith(("weight_g", "weight_v"))]
+        if derived:  # the frozen kernels must be the program's constants
+            raise AssertionError(f"[export] {mode}: the program derives its "
+                                 f"kernels from {derived[:3]} ...")
+        with open(os.path.join(work, f"program_{mode}.pt2"), "wb") as f:
+            f.write(blob)
+        programs[mode] = export.deserialize(blob).module()
+        results[mode] = {"export_seconds": seconds, "bytes": len(blob),
+                         "pair_nodes": nodes}
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--export-worker", work],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    worker_seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"[export] the fresh process failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    with open(os.path.join(work, "worker.json")) as f:
+        worker_launches = json.load(f)
+    pair.launches = 0
+    for mode, program in programs.items():
+        got = torch.load(os.path.join(work, f"out_{mode}.pt"))
+        if worker_launches[mode] != 36 or not torch.equal(
+                got, eager[mode].cpu()):
+            raise AssertionError(
+                f"[export] {mode}: the fresh process launched "
+                f"{worker_launches[mode]} pairs; "
+                f"{(got - eager[mode].cpu()).abs().max().item()} from eager")
+        before = pair.launches
+        with torch.inference_mode():
+            y = program(c, ar)
+            with swapped(residual, "resblock_pair", plain):
+                want = models[mode].model(c, ar)
+        launches = pair.launches - before
+        err = (y.float() - want.float()).abs().max().item()
+        if launches != 36 or not torch.equal(y, eager[mode]) or \
+                err > CHUNK_TOL[mode]:
+            raise AssertionError(f"[export] {mode}: {launches} pair launches "
+                                 f"in this process, {err:.2e} from the plain "
+                                 f"pairs' forward (limit {CHUNK_TOL[mode]})")
+        with torch.inference_mode():
+            times, _ = run_turns({"eager": lambda: models[mode].model(c, ar),
+                                  "exported": lambda: program(c, ar)},
+                                 EXPORT_TURNS)
+        results[mode].update(
+            launches=launches, worker_launches=worker_launches[mode],
+            plain_err=err, eager_ms=1e3 * float(np.median(times["eager"])),
+            exported_ms=1e3 * float(np.median(times["exported"])))
+        if results[mode]["exported_ms"] > EXPORT_SLOWER * results[mode][
+                "eager_ms"]:
+            raise AssertionError(
+                f"[export] {mode}: the program takes "
+                f"{results[mode]['exported_ms']:.3f} ms a forward, eager "
+                f"{results[mode]['eager_ms']:.3f} (limit {EXPORT_SLOWER}x)")
+        log(f"[export] {mode} on {device_name}: {results[mode]['bytes']:,} "
+            f"bytes, {results[mode]['export_seconds']:.1f} s to export; 36 "
+            f"pair op nodes; a fresh process ({worker_seconds:.1f} s) ran it "
+            f"bit-equal to the eager chunk forward with "
+            f"{worker_launches[mode]} pair launches; here {launches} "
+            f"launches, {err:.2e} from plain pairs (limit {CHUNK_TOL[mode]});"
+            f" {results[mode]['exported_ms']:.3f} ms a forward exported, "
+            f"{results[mode]['eager_ms']:.3f} ms eager (median of "
+            f"{EXPORT_TURNS.count('eager')}, in turns)")
+    # the loaded programs' forwards, not the timed turns
+    results["launches"] = sum(results[m]["launches"] for m in programs)
+    results["worker_seconds"] = worker_seconds
+    del models, programs
+    torch.cuda.empty_cache()
+    return results
+
+
+def _reference_pickle(port, seed: int, tmp: str) -> str:
+    """The EMA HiFi-CAR from ``--seed`` as a reference-format torch pickle
+    (weight_g / weight_v) beside its config.yml."""
+    import yaml
+
+    gp = GENERATOR_PARAMS
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "checkpoint-100steps.pkl")
+    torch.save({"model": {"generator": port["weights"].jax_params_to_state_dict(
+        numpy_generator_params(gp, seed), gp)}, "optimizer": {},
+        "scheduler": {}, "steps": 100, "epochs": 1}, path)
+    with open(os.path.join(tmp, "config.yml"), "w") as f:
+        yaml.dump(CONFIG, f)
+    return path
+
+
+def phase_convert(port: dict, seed: int, tmp: str) -> dict:
+    """[convert] A reference-format pickle of the EMA HiFi-CAR through
+    ``bin/convert_checkpoint.py`` (the default direction) to a JAX msgpack:
+    ``load_model`` of the msgpack decodes ENTRY_FRAMES frames bit-equal to
+    its decode of the pickle on the card (36 pairs a chunk each)."""
+    inference, pair = port["inference"], port["resblock_pair"]
+    pkl = _reference_pickle(port, seed, os.path.join(tmp, "ref"))
+    out = os.path.join(tmp, "jax", "checkpoint-100steps.ckpt")
+    start = time.perf_counter()
+    port["convert_checkpoint"].main(["--checkpoint", pkl, "--out", out])
+    seconds = time.perf_counter() - start
+    payload = port["load_checkpoint"](out)
+    if payload["steps"] != 100 or "v" not in payload["model"]["generator"][
+            "input_conv"]:
+        raise AssertionError("[convert] the msgpack is not the JAX layout")
+    x = np.random.default_rng(seed + 41).standard_normal(
+        (ENTRY_FRAMES, N_FEATS)).astype(np.float32)
+    chunks = -(-ENTRY_FRAMES // CHUNK_FRAMES)
+    outs = {}
+    pair.launches = 0
+    for name, path in (("pickle", pkl), ("msgpack", out)):
+        model = inference.load_model(path, CONFIG, device="cuda")
+        model.remove_weight_norm()
+        outs[name] = inference.ar_loop(model, x, CONFIG)
+    launches = pair.launches
+    if not np.array_equal(outs["pickle"], outs["msgpack"]) or \
+            launches != 2 * 36 * chunks or not np.isfinite(outs["pickle"]).all():
+        raise AssertionError(
+            f"[convert] the msgpack decodes "
+            f"{np.abs(outs['pickle'] - outs['msgpack']).max()} from the "
+            f"pickle; {launches} pair launches")
+    log(f"[convert] bin/convert_checkpoint.py (reference pickle -> JAX "
+        f"msgpack) in {seconds:.2f} s, {os.path.getsize(out):,} bytes; the "
+        f"msgpack decodes bit-equal to the pickle ({launches} pair "
+        f"launches)")
+    return {"seconds": seconds, "launches": launches, "wav": outs["pickle"],
+            "x": x}
+
+
+def phase_pretrained(port: dict, seed: int, tmp: str, convert: dict) -> dict:
+    """[pretrained] A local ``ThreadingHTTPServer`` serves a tarball of
+    [convert]'s reference pickle under EXPORT_TAG behind a confirm-token
+    interstitial; ``download_pretrained_model`` fetches and extracts it into
+    a temporary cache, and the checkpoint decodes on the card as [convert]'s
+    pickle did (bit-equal, 36 pairs a chunk)."""
+    import io
+    import tarfile
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    inference, pair, pretrained = (port[k] for k in (
+        "inference", "resblock_pair", "pretrained"))
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz", compresslevel=1) as tar:
+        tar.add(os.path.join(tmp, "ref", "checkpoint-100steps.pkl"),
+                arcname="exp/train_all/checkpoint-100steps.pkl")
+        tar.add(os.path.join(tmp, "ref", "config.yml"),
+                arcname="exp/train_all/config.yml")
+    archive, hits = buf.getvalue(), []
+
+    class Drive(BaseHTTPRequestHandler):
+        def do_GET(self):
+            hits.append(self.path)
+            confirmed = "confirm=" in self.path
+            body = archive if confirmed else (
+                b'<html><a href="#">Download anyway&amp;confirm=t0k</a>'
+                b'</html>')
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-gzip" if confirmed
+                             else "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Drive)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    saved = os.environ.get("ARTICULATORY_PRETRAIN_URL")
+    os.environ["ARTICULATORY_PRETRAIN_URL"] = (
+        f"http://127.0.0.1:{server.server_address[1]}/uc")
+    try:
+        start = time.perf_counter()
+        path = pretrained.download_pretrained_model(
+            EXPORT_TAG, download_dir=os.path.join(tmp, "cache"))
+        seconds = time.perf_counter() - start
+    finally:
+        server.shutdown()
+        thread.join()
+        if saved is None:
+            os.environ.pop("ARTICULATORY_PRETRAIN_URL")
+        else:
+            os.environ["ARTICULATORY_PRETRAIN_URL"] = saved
+    config = port["load_config"](os.path.join(os.path.dirname(path),
+                                              "config.yml"))
+    pair.launches = 0
+    model = inference.load_model(path, config, device="cuda")
+    model.remove_weight_norm()
+    wav = inference.ar_loop(model, convert["x"], config)
+    launches = pair.launches
+    chunks = -(-ENTRY_FRAMES // CHUNK_FRAMES)
+    if len(hits) != 2 or not path.endswith("checkpoint-100steps.pkl") or \
+            launches != 36 * chunks or not np.array_equal(wav, convert["wav"]):
+        raise AssertionError(f"[pretrained] {len(hits)} requests, {path}, "
+                             f"{launches} pair launches, the decode "
+                             f"{np.abs(wav - convert['wav']).max()} from "
+                             f"[convert]'s")
+    log(f"[pretrained] download_pretrained_model('{EXPORT_TAG}') from a "
+        f"local server behind a confirm interstitial: {len(archive):,} "
+        f"bytes in {seconds:.2f} s, extracted to the cache; its checkpoint "
+        f"decodes bit-equal to the pickle's ({launches} pair launches)")
+    return {"seconds": seconds, "launches": launches, "bytes": len(archive)}
+
+
+def phase_quality(seed: int, tmp: str) -> dict:
+    """[quality] ``tools/bf16_quality_ab.sh`` of the port end to end at a
+    tiny size (QUALITY_ENV, QUALITY_STEPS steps): corpus, features,
+    training, the f32 / bf16 / hybrid / 1-ulp decodes and the MCDs, on the
+    card without JAX. The MCDs at this size mean nothing; they are
+    printed."""
+    script = os.path.join(ROOT, "articulatory_tpu_torch", "tools",
+                          "bf16_quality_ab.sh")
+    env = dict(os.environ, DEVICE="cuda", **QUALITY_ENV)
+    start = time.perf_counter()
+    proc = subprocess.run(["bash", script, os.path.join(tmp, "ab"),
+                           str(QUALITY_STEPS)], capture_output=True,
+                          text=True, timeout=QUALITY_TIMEOUT_S, env=env,
+                          cwd=ROOT)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"[quality] the A/B failed ({proc.returncode}):"
+                             f" {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    mcds, heading = {}, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("== MCD("):
+            heading = line.split(")")[0][len("== MCD("):]
+        elif line.startswith("mean MCD") and heading:
+            mcds[heading] = float(line.split(":")[1].split()[0])
+    if len(mcds) != 7 or not all(np.isfinite(v) for v in mcds.values()):
+        raise AssertionError(f"[quality] MCDs {mcds}: {proc.stdout[-2000:]}")
+    log(f"[quality] tools/bf16_quality_ab.sh, {QUALITY_STEPS} steps on "
+        f"{QUALITY_ENV['N_UTTS']} utterances: {seconds:.1f} s; MCD dB "
+        + ", ".join(f"({k}) {v:.3f}" for k, v in mcds.items()))
+    return {"seconds": seconds, "mcd": mcds}
+
+
 def training_port() -> dict:
     """The port's modules and kernel wrappers that the training phases
     (``phase_train``, ``phase_hybrid_train`` and those built on them)
@@ -4495,9 +4826,14 @@ def main() -> int:
                         help="run one rank of the [dp] / [tp] phases on "
                              "this directory's spec (the launcher passes "
                              "it)")
+    parser.add_argument("--export-worker", default=None,
+                        help="run [export]'s fresh process on this "
+                             "directory's programs")
     args = parser.parse_args()
     if args.rank_worker:
         return rank_worker(args.rank_worker)
+    if args.export_worker:
+        return export_worker(args.export_worker)
 
     smi, device_name = phase_device()
     sys.path.insert(0, ROOT)
@@ -4522,7 +4858,10 @@ def main() -> int:
         split_weights_plain,
     )
     from articulatory_tpu_torch.utils import weights
-    from articulatory_tpu_torch.utils.checkpoint import load_checkpoint
+    from articulatory_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_msgpack,
+    )
     from articulatory_tpu_torch.utils.device import set_float32_parity
     from articulatory_tpu_torch.utils.io import read_wav, write_wav
 
@@ -4683,7 +5022,8 @@ def main() -> int:
                       plain=resblock_pair_plain, residual=residual,
                       read_wav=read_wav, decode=decode,
                       predict_wav=predict_wav, model_stats=model_stats,
-                      convert_checkpoint=convert_checkpoint)
+                      convert_checkpoint=convert_checkpoint,
+                      save_msgpack=save_msgpack)
     with tempfile.TemporaryDirectory() as tmp:
         entry = phase_entry(entry_port, args.seed, device_name, tmp)
     storage_port = dict(inference=inference, resblock_pair=resblock_pair,
@@ -4717,6 +5057,25 @@ def main() -> int:
                            resblock_pair=resblock_pair,
                            build_model=build_model, read_wav=read_wav),
                       args.seed, tmp)
+
+    # export, the reference-to-JAX conversion, the registry's downloader
+    # and the quality A/B tool chain
+    from articulatory_tpu_torch import export
+    from articulatory_tpu_torch.config import load_config
+    from articulatory_tpu_torch.utils import pretrained
+
+    tools_port = dict(inference=inference, weights=weights, export=export,
+                      resblock_pair=resblock_pair, plain=resblock_pair_plain,
+                      residual=residual, load_config=load_config,
+                      convert_checkpoint=convert_checkpoint,
+                      load_checkpoint=load_checkpoint, pretrained=pretrained)
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = phase_export(tools_port, args.seed, device_name, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        converted = phase_convert(tools_port, args.seed, tmp)
+        fetched = phase_pretrained(tools_port, args.seed, tmp, converted)
+    with tempfile.TemporaryDirectory() as tmp:
+        quality = phase_quality(args.seed, tmp)
 
     f32 = by_dtype["float32"]
     pair_entry = {
@@ -4849,6 +5208,15 @@ def main() -> int:
         "launches_pp": {k: v["launches"] for k, v in pp_results.items()},
         "launches_sp": sp["sequence_parallel"]["launches"],
         "launches_sp_decode": sp["decode_launches"],
+        # [export]: the loaded program's forwards here (36 a forward, f32
+        # and hybrid) and in the fresh process; [convert]: the pickle's and
+        # the msgpack's decodes; [pretrained]: the downloaded checkpoint's
+        "launches_export": exported["launches"],
+        "launches_export_fresh_process": {
+            mode: exported[mode]["worker_launches"]
+            for mode in ("f32", "hybrid_bf16")},
+        "launches_convert": converted["launches"],
+        "launches_pretrained": fetched["launches"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -4947,7 +5315,11 @@ def main() -> int:
                    "cascade": cascade, "ph2a": ph2a, "mult": mult,
                    "recipe": recipe, "entry": entry, "storage_zoo": storage,
                    "causal": causal, "ssl": ssl, "parallel": parallel,
-                   "pp": pp_results, "sp": sp, "kernels": kernels}, f,
+                   "pp": pp_results, "sp": sp, "export": exported,
+                   "convert": {k: v for k, v in converted.items()
+                               if k not in ("wav", "x")},
+                   "pretrained": fetched, "quality": quality,
+                   "kernels": kernels}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -16,6 +16,7 @@ import textwrap
 import time
 
 import numpy as np
+import pytest
 import torch
 import yaml
 
@@ -113,6 +114,34 @@ def test_launcher_tears_down_on_first_failure(tmp_path):
     assert "returned non-zero exit status 3" in proc.stderr, proc.stderr
     assert time.monotonic() - start < 60  # rank 0 did not wait it out
 
+
+
+FAIL_IN_TURN = textwrap.dedent('''
+    import os, sys, time
+    if os.environ["RANK"] == "1":
+        sys.exit(3)
+    time.sleep(0.3)
+    sys.exit(1)
+''')
+
+
+def test_launcher_reports_the_first_failure(tmp_path, monkeypatch, caplog):
+    """Rank 1 exits with 3, rank 0 with 1 some 0.3 s later; the launcher,
+    held back for a second wherever it sleeps, still raises rank 1's code
+    and logs both ranks'. (A poll sweep in rank order, as the launcher had,
+    sees both exits in one sweep and reports rank 0's 1.)"""
+    from articulatory_tpu_torch.distributed import launch as launcher
+
+    script = tmp_path / "rank.py"
+    script.write_text(FAIL_IN_TURN)
+    sleep = time.sleep
+    monkeypatch.setattr(launcher.time, "sleep", lambda s: sleep(max(s, 1.0)))
+    with pytest.raises(subprocess.CalledProcessError) as err:
+        launcher.main(["--nproc_per_node", "2", "--master_port",
+                       str(free_port()), str(script), "--device", "cpu"])
+    assert err.value.returncode == 3
+    assert "rank 1 failed first" in caplog.text
+    assert "rank 0: " in caplog.text and "rank 1: 3" in caplog.text
 
 def _dump(root, n_utts=8, frames=30):
     rng = np.random.default_rng(0)

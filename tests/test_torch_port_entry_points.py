@@ -16,7 +16,8 @@ the CPU:
 - ``bin/convert_checkpoint.py --to-torch``: the pickle equals JAX's
   ``export_checkpoint`` key for key and array for array (atol 0), for the
   HiFi-CAR with its MSMPD, the BiGRU and MelGAN, and ``load_model``
-  decodes it as it decodes the msgpack; the default direction raises;
+  decodes it as it decodes the msgpack; the default direction raises for
+  a generator with no importer;
 - ``recipe/run.sh``: stages 1-3 with ``--device cpu`` through the local
   backend on a tiny synthetic corpus in a recipe directory's layout write
   the dumps, the statistics, the checkpoint and the wavs."""
@@ -380,9 +381,16 @@ def test_convert_to_torch_matches_jax_export(name, tmp_path, capsys):
 
 
 def test_convert_default_direction_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """The default direction (a reference pickle to a JAX msgpack, ported
+    since; ``test_torch_port_convert.py``) raises, as JAX's does, for a
+    generator type with no importer, and writes nothing."""
+    torch.save({"model": {"generator": {}}, "steps": 0}, tmp_path / "x.pkl")
+    (tmp_path / "config.yml").write_text(yaml.dump(
+        {"generator_type": "NoSuchGenerator", "generator_params": {}}))
+    with pytest.raises(NotImplementedError, match="no importer"):
         convert_checkpoint.main(["--checkpoint", str(tmp_path / "x.pkl"),
                                  "--out", str(tmp_path / "y.pkl")])
+    assert not (tmp_path / "y.pkl").exists()
 
 
 # --- the recipe script ------------------------------------------------------

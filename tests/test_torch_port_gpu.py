@@ -1016,3 +1016,91 @@ def test_sequence_parallel_on_card_matches_unsharded(cuda):
     got = model(c)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(
         want.abs().max()))
+
+
+# --- the pair as a registered op, and the exported generator ----------------
+
+def test_pair_op_counts_each_launch_once(cuda):
+    """Through ``resblock_pair`` and through the op itself each call is one
+    launch, counted as it runs, per dtype too; a generator forward launches
+    one pair per (stage, K, d), as before the op."""
+    from articulatory_tpu_torch.ops.resblock_pair import _OP
+
+    args = _pair_args(cuda, 2, 301, 64, 7, torch.float32)
+    before, by_dtype = (resblock_pair.launches,
+                        resblock_pair.launches_by_dtype["torch.float32"])
+    with torch.inference_mode():
+        y = resblock_pair(*args, dilation=3)
+        z = _OP(*args, 3, 0.1)
+    assert resblock_pair.launches == before + 2
+    assert resblock_pair.launches_by_dtype["torch.float32"] == by_dtype + 2
+    torch.testing.assert_close(z, y, rtol=0, atol=0)
+    model, _ = _loaded(cuda, 64)
+    before = resblock_pair.launches
+    with torch.inference_mode():
+        model.model(torch.randn(2, 10, 13, device=cuda),
+                    torch.zeros(2, 64, 1, device=cuda))
+    assert resblock_pair.launches == before + PAIRS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_op_captures_in_a_cuda_graph(cuda, dtype):
+    """The op captured in a CUDA graph (after an eager warm-up that caches
+    the f32 weight split) replays on new inputs as the eager op computes
+    them; replays run no Python, so only the warm-up and the capture
+    count."""
+    from articulatory_tpu_torch.ops.resblock_pair import _OP, split_tf32
+
+    with torch.inference_mode():
+        x, w1, b1, w2, b2 = _pair_args(cuda, 2, 401, 128, 11, dtype)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        before = resblock_pair.launches
+        with torch.cuda.stream(stream):
+            _OP(x, w1, b1, w2, b2, 5, 0.1)
+        torch.cuda.current_stream().wait_stream(stream)
+        splits = split_tf32.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = _OP(x, w1, b1, w2, b2, 5, 0.1)
+        assert split_tf32.launches == splits  # cached at the warm-up
+        for seed in (1, 2):
+            x.copy_(_pair_args(cuda, 2, 401, 128, 11, dtype, seed=seed)[0])
+            graph.replay()
+            torch.testing.assert_close(y, _OP(x, w1, b1, w2, b2, 5, 0.1),
+                                       rtol=0, atol=0)
+        assert resblock_pair.launches == before + 2 + 2
+
+
+@pytest.mark.parametrize("compute", [{}, {"compute_dtype": "bfloat16",
+                                          "hybrid_precision": True}],
+                         ids=["f32", "hybrid"])
+def test_exported_forward_is_the_eager_forward(cuda, compute):
+    """``export.to_torch_export`` of a frozen AR generator on the card, sent
+    through ``serialize`` / ``deserialize``: the graph holds one pair op a
+    (stage, K, d), the loaded program's forward equals the eager forward bit
+    for bit and launches the hand kernel once a pair; its f32 pairs split
+    their weights in the first forward only."""
+    from articulatory_tpu_torch import export
+
+    model, _ = _loaded(cuda, 64, **compute)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    c = torch.randn(4, 10, 13, device=cuda, generator=gen)
+    ar = torch.randn(4, 64, 1, device=cuda, generator=gen)
+    with torch.inference_mode():
+        want = model.model(c, ar)
+    ep = export.to_torch_export(model.model, (c, ar))
+    assert export.pair_nodes(ep) == PAIRS
+    program = export.deserialize(export.serialize(ep)).module()
+    before, splits = resblock_pair.launches, split_tf32.launches
+    f32_pairs = resblock_pair.launches_by_dtype["torch.float32"]
+    with torch.inference_mode():
+        got = program(c, ar)
+        first = split_tf32.launches - splits
+        again = program(c, ar)
+    assert resblock_pair.launches == before + 2 * PAIRS
+    # the f32 pairs split their weights, the program's constants, once
+    assert 2 * first == resblock_pair.launches_by_dtype[
+        "torch.float32"] - f32_pairs and split_tf32.launches == splits + first
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, want, rtol=0, atol=0)
