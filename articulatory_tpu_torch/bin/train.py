@@ -48,9 +48,10 @@ sets (``python -m articulatory_tpu_torch.distributed.launch
 asked for ``cuda`` runs on ``cuda:{LOCAL_RANK % device_count}``, and
 ranks other than 0 log warnings only. ``batch_size`` is per data-parallel
 rank (the global batch is ``batch_size`` x their number); each rank loads
-its shard of the training and dev sets (``data/loader.py``). The device
-cache and the native loader stay single-process, as JAX keeps its cache,
-and warn otherwise. ``tensor_parallel: N`` (or ``--tensor-parallel N``)
+its shard of the training and dev sets (``data/loader.py``, or the native
+loader's wrap-padded shard, as JAX draws it). The device cache stays
+single-process, as JAX keeps its cache, and warns otherwise.
+``tensor_parallel: N`` (or ``--tensor-parallel N``)
 splits the generator over N consecutive ranks (``parallel/tp.py``); the
 discriminator stays replicated. Checkpoints are written full, by rank 0.
 The collater's window draws are seeded per batch from ``--seed``, the epoch
@@ -212,18 +213,18 @@ def _batch_sampler(config: dict, train_set, train_dumpdir: str, seed: int
 
 
 def _fast_loader(config: dict, train_set, batch_sampler, seed: int, dev):
-    """The device cache or the native loader where the config asks for one
-    and allows it (one data-parallel rank), else None (the host loader)."""
+    """The device cache (one data-parallel rank) or the native loader (the
+    rank's shard) where the config asks for one and allows it, else None
+    (the host loader). The ranks of a tensor-parallel group share a
+    data-parallel rank, so they take the same shard."""
     gp = config["generator_params"]
-    if mesh.layout().dp > 1:
-        for key in ("use_device_cache", "use_native_loader"):
-            if config.get(key, False):
-                logging.warning(f"{key} is single-process; the ranks use "
-                                f"the host loader's shards")
-        return None
+    lay = mesh.layout()
     random_window = (config.get("package_mode", "random_window")
                      == "random_window")
-    if config.get("use_device_cache", False):
+    if config.get("use_device_cache", False) and lay.dp > 1:
+        logging.warning(f"use_device_cache is single-process; not used on "
+                        f"{lay.dp} data-parallel ranks")
+    elif config.get("use_device_cache", False):
         from articulatory_tpu_torch.data.device_cache import (
             DeviceCachedBatcher,
             canonical_cache_mode,
@@ -257,6 +258,7 @@ def _fast_loader(config: dict, train_set, batch_sampler, seed: int, dev):
             train_set, batch_size=config["batch_size"],
             batch_max_steps=config["batch_max_steps"],
             hop_size=config["hop_size"], ar_len=ar_len, seed=seed,
+            shard_id=lay.dp_rank, num_shards=lay.dp,
             n_threads=max(2, config.get("num_workers", 0) or 4))
     return None
 

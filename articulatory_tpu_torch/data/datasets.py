@@ -7,7 +7,8 @@ phoneme ids and mels where asked); for decoding
 values, and ``AudioSCPDataset`` over a wav.scp (the w2a decode's input);
 ``MelArtDataset``, the (mel, art) pairs of a2m / m2a / art training;
 ``FileDataset``, the files of one query in a directory (the
-preprocessing CLIs' inputs). ``mel_length_threshold`` keeps only the
+preprocessing CLIs' inputs; ``AudioDataset`` and ``MelDataset`` take it
+under the JAX package's arguments). ``mel_length_threshold`` keeps only the
 utterances whose features have more frames than it (``bin/train.py``'s
 ``remove_short_samples``). They return numpy arrays."""
 
@@ -235,25 +236,57 @@ class MelArtDataset:
 class FileDataset:
     """The files of a directory matching ``query`` (sorted), read by
     ``load_fn``: ``(utt_id, data)`` items with ``return_utt_id``, else the
-    data. It serves the preprocessing CLIs where the JAX package uses
-    ``AudioDataset`` and ``MelDataset``."""
+    data; with ``length_threshold``, only the files of more rows than it.
+    It serves the preprocessing CLIs; ``AudioDataset`` and ``MelDataset``
+    are it under the JAX package's arguments."""
 
     def __init__(self, root_dir: str, query: str, load_fn,
-                 return_utt_id: bool = False):
-        self.files = sorted(find_files(root_dir, query))
-        if not self.files:
+                 return_utt_id: bool = False,
+                 length_threshold: int | None = None,
+                 allow_cache: bool = False):
+        files = sorted(find_files(root_dir, query))
+        if length_threshold is not None:
+            files = [f for f in files
+                     if load_fn(f).shape[0] > length_threshold]
+        if not files:
             raise FileNotFoundError(f"Not found any {query} files in "
                                     f"{root_dir}.")
+        self.files = files
         self.load_fn = load_fn
         self.utt_ids = [_utt_id(f) for f in self.files]
         self.return_utt_id = return_utt_id
+        self.allow_cache = allow_cache
+        self.caches: dict[int, object] = {}
 
     def __getitem__(self, idx: int):
+        if idx in self.caches:
+            return self.caches[idx]
         data = self.load_fn(self.files[idx])
-        return (self.utt_ids[idx], data) if self.return_utt_id else data
+        items = (self.utt_ids[idx], data) if self.return_utt_id else data
+        if self.allow_cache:
+            self.caches[idx] = items
+        return items
 
     def __len__(self) -> int:
         return len(self.files)
+
+
+class AudioDataset(FileDataset):
+    def __init__(self, root_dir: str, audio_query: str = "*-wave.npy",
+                 audio_load_fn=np.load,
+                 audio_length_threshold: int | None = None,
+                 return_utt_id: bool = False, allow_cache: bool = False):
+        super().__init__(root_dir, audio_query, audio_load_fn, return_utt_id,
+                         audio_length_threshold, allow_cache)
+
+
+class MelDataset(FileDataset):
+    def __init__(self, root_dir: str, mel_query: str = "*-feats.npy",
+                 mel_load_fn=np.load,
+                 mel_length_threshold: int | None = None,
+                 return_utt_id: bool = False, allow_cache: bool = False):
+        super().__init__(root_dir, mel_query, mel_load_fn, return_utt_id,
+                         mel_length_threshold, allow_cache)
 
 
 class ArtDataset:

@@ -104,18 +104,24 @@ class NativeBatcher:
 class NativeDataLoader:
     """Epochs of native batches over a ``SpeechDataset``'s files (a2w,
     random_window): the usable utterances (more frames than the window)
-    shuffled by ``np.random.default_rng(seed + epoch)``, full batches only,
-    each collated with seed ``(seed * 1000003 + epoch * 7919 + batch) mod
+    shuffled by ``np.random.default_rng(seed + epoch)``; with ``num_shards``
+    above 1 the order wrap-padded to ``ceil(n / num_shards) * num_shards``
+    (every data-parallel rank takes as many batches) and the rank's
+    ``order[shard_id::num_shards]`` taken; full batches only, batch ``b`` of
+    the shard collated with seed ``(seed * 1000003 + epoch * 7919 + b) mod
     2**32``. Audio in hdf5 is written once as .npy under
     ``<dump>/.native_cache`` for the C++ reader."""
 
     def __init__(self, dataset, *, batch_size: int, batch_max_steps: int,
                  hop_size: int, ar_len: int = 0, seed: int = 0,
-                 n_threads: int = 8):
+                 shard_id: int = 0, num_shards: int = 1, n_threads: int = 8):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} of {num_shards} shards")
         self.batcher = NativeBatcher(batch_max_steps, hop_size, ar_len,
                                      n_threads)
         self.batch_size = batch_size
         self.seed = seed
+        self.shard_id, self.num_shards = shard_id, num_shards
         self.epoch = self.start = 0
         for audio_path, art_path in zip(dataset.audio_files,
                                         dataset.art_files):
@@ -127,15 +133,23 @@ class NativeDataLoader:
                         if self.batcher.utt_frames(i) > frames]
 
     def set_epoch(self, epoch: int, start: int = 0) -> None:
-        """The epoch's batches, from batch ``start`` on."""
+        """The epoch's batches of this shard, from batch ``start`` on."""
         self.epoch, self.start = epoch, start
 
     def __len__(self) -> int:
-        return len(self.indices) // self.batch_size
+        return -(-len(self.indices) // self.num_shards) // self.batch_size
 
-    def __iter__(self):
+    def shard_order(self) -> np.ndarray:
+        """This shard's utterance indices for the current epoch."""
         order = np.asarray(self.indices)
         np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        if self.num_shards > 1:
+            total = -(-len(order) // self.num_shards) * self.num_shards
+            order = np.concatenate([order, order[: total - len(order)]])
+        return order[self.shard_id::self.num_shards]
+
+    def __iter__(self):
+        order = self.shard_order()
         for b in range(self.start, len(self)):
             seed = (self.seed * 1_000_003 + self.epoch * 7919 + b) & 0xFFFFFFFF
             yield self.batcher.collate(

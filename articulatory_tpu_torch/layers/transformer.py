@@ -13,6 +13,10 @@ heads and L 1000 that is 512 MB per f32 tensor.
 (the JAX package computes it in plain ``jnp``, outside Pallas), dropout on
 the probabilities in training.
 
+Dropout runs in training mode only; ``forward(x, generator=g)`` draws its
+masks from ``g`` (on the input's device), else from torch's global
+generator.
+
 ``TransformerEncoderLayer``: post-norm, ``norm1(x + dropout(attn(x)))``,
 then ``norm2(x + dropout(linear2(dropout(relu(linear1(x))))))``.
 
@@ -28,6 +32,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from articulatory_tpu_torch.layers.conv import Dense, _Stored
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout, its mask drawn from ``generator`` where given."""
+    if p <= 0.0 or not training:
+        return x
+    if generator is None:
+        return F.dropout(x, p, training=True)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return x * keep / (1.0 - p)
 
 
 def relative_position_logits(q: torch.Tensor, table: torch.Tensor,
@@ -81,7 +97,8 @@ class MultiHeadAttention(_Stored):
             _RelativePositional(n_head, self.distance, d_qkv, generator)
             if relative_positional else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         q = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_q", x.dtype))
         k = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_k", x.dtype))
         v = torch.einsum("btf,hfa->bhta", x, self.weight_as("w_v", x.dtype))
@@ -90,9 +107,8 @@ class MultiHeadAttention(_Stored):
             table = self.relative_positional.weight_as("embeddings", x.dtype)
             logits = logits + relative_position_logits(q, table[..., 0],
                                                        self.distance)
-        probs = torch.softmax(logits, dim=-1)
-        if self.dropout > 0.0 and self.training:
-            probs = F.dropout(probs, self.dropout, training=True)
+        probs = dropout(torch.softmax(logits, dim=-1), self.dropout,
+                        self.training, generator)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
         return torch.einsum("bhta,haf->btf", o, self.weight_as("w_o", x.dtype))
 
@@ -122,12 +138,11 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
-    def _drop(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dropout > 0.0 and self.training:
-            return F.dropout(x, self.dropout, training=True)
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self._drop(self.self_attn(x)))
-        y = self.linear2(self._drop(F.relu(self.linear1(x))))
-        return self.norm2(x + self._drop(y))
+        x = self.norm1(x + drop(self.self_attn(x, generator)))
+        y = self.linear2(drop(F.relu(self.linear1(x))))
+        return self.norm2(x + drop(y))

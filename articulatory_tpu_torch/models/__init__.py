@@ -1,5 +1,6 @@
 """Model registry: YAML class names -> the port's modules, the 17 classes of
-the JAX package's registry (``articulatory_tpu/models/__init__.py``).
+the JAX package's registry (``articulatory_tpu/models/__init__.py``), by
+``get_model_class(name)`` or built by ``build_model``.
 
 ``NOISE_DRIVEN_GENERATORS`` take ``(noise, aux)`` (the legacy collater's
 batch), ``RNG_GENERATORS`` an explicit noise ``z``, and
@@ -12,8 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from articulatory_tpu_torch.models import hifigan
 from articulatory_tpu_torch.models.gblock_gen import GBlockGenerator
+from articulatory_tpu_torch.models.hifigan import (
+    HiFiGANGenerator,
+    HiFiGANMultiPeriodDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    HiFiGANMultiScaleMultiPeriodDiscriminator,
+    HiFiGANPeriodDiscriminator,
+    HiFiGANScaleDiscriminator,
+)
 from articulatory_tpu_torch.models.melgan import (
     MelGANDiscriminator,
     MelGANGenerator,
@@ -31,16 +39,14 @@ from articulatory_tpu_torch.models.style_melgan import (
 )
 from articulatory_tpu_torch.models.transformer import Transformer
 
-_REGISTRY = {name: getattr(hifigan, name) for name in (
-    "HiFiGANGenerator", "HiFiGANPeriodDiscriminator",
-    "HiFiGANMultiPeriodDiscriminator", "HiFiGANScaleDiscriminator",
-    "HiFiGANMultiScaleDiscriminator",
-    "HiFiGANMultiScaleMultiPeriodDiscriminator")}
-_REGISTRY.update({cls.__name__: cls for cls in (
-    MelGANGenerator, MelGANDiscriminator, MelGANMultiScaleDiscriminator,
+_REGISTRY = {cls.__name__: cls for cls in (
+    HiFiGANGenerator, HiFiGANPeriodDiscriminator,
+    HiFiGANMultiPeriodDiscriminator, HiFiGANScaleDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    HiFiGANMultiScaleMultiPeriodDiscriminator, MelGANGenerator, MelGANDiscriminator, MelGANMultiScaleDiscriminator,
     ParallelWaveGANGenerator, ParallelWaveGANDiscriminator,
     ResidualParallelWaveGANDiscriminator, StyleMelGANGenerator,
-    StyleMelGANDiscriminator, GBlockGenerator, BiGRU, Transformer)})
+    StyleMelGANDiscriminator, GBlockGenerator, BiGRU, Transformer)}
 # every class of the registry: none reads a per-modality input list
 MODEL_CLASSES = tuple(_REGISTRY.values())
 
@@ -55,13 +61,19 @@ _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "float32": torch.float32}
 
 
+def get_model_class(name: str):
+    """The registered class of a YAML class name."""
+    if name not in _REGISTRY:
+        raise KeyError(f"Unknown model type: {name!r}. Known: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
 def build_model(name: str, params: dict | None, seed: int = 0):
     """Instantiate a registered model from YAML kwargs (lists -> tuples;
     ``compute_dtype`` strings like "bfloat16" -> torch dtypes). ``seed``
     seeds the initial weights."""
-    if name not in _REGISTRY:
-        raise KeyError(f"Unknown model type: {name!r}. Known: "
-                       f"{sorted(_REGISTRY)}")
+    cls = get_model_class(name)
 
     def freeze(k, v):
         if isinstance(v, list):
@@ -75,4 +87,4 @@ def build_model(name: str, params: dict | None, seed: int = 0):
         return v
 
     kwargs = {k: freeze(k, v) for k, v in dict(params or {}).items()}
-    return _REGISTRY[name](**kwargs, seed=seed)
+    return cls(**kwargs, seed=seed)

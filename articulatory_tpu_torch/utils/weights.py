@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package's parameter trees.
 
 ``jax_params_to_state_dict`` turns the JAX ``HiFiGANGenerator`` param tree
-(nested dicts of numpy arrays) into the port's ``state_dict``, and
+(nested dicts of numpy arrays) into the port's ``state_dict`` (and a
+``PastSeqEncoder``'s tree with its ``batch_stats``), and
 ``jax_msmpd_to_state_dict`` the JAX
 ``HiFiGANMultiScaleMultiPeriodDiscriminator`` tree, and
 ``jax_bigru_to_state_dict`` the JAX ``BiGRU`` tree with its BatchNorm
@@ -128,13 +129,51 @@ def _speaker(sd: dict, params: Mapping[str, Any],
         _linear(sd, "spk_fc", params["spk_fc"])
 
 
+def _res_block(sd: dict, prefix: str, p: Mapping[str, Any],
+               stats: Mapping[str, Any], steps: int) -> None:
+    """A conv-BatchNorm ``ResBlock`` and its statistics."""
+    _conv1d(sd, f"{prefix}.conv1", p["conv1"])
+    _conv1d(sd, f"{prefix}.conv2", p["conv2"])
+    for bn in ("bn1", "bn2"):
+        _batch_norm(sd, f"{prefix}.{bn}", p[bn], stats[bn], steps)
+    if "residual_path" in p:
+        _conv1d(sd, f"{prefix}.residual_path", p["residual_path"])
+        _batch_norm(sd, f"{prefix}.res_norm", p["res_norm"],
+                    stats["res_norm"], steps)
+
+
+def _encoder_layer(sd: dict, prefix: str, layer: Mapping[str, Any]) -> None:
+    """A ``TransformerEncoderLayer``: the relative table gains the
+    reference's trailing axis of 1."""
+    attn = layer["self_attn"]
+    for k in ("w_q", "w_k", "w_v", "w_o"):
+        sd[f"{prefix}.self_attn.{k}"] = _tensor(attn[k])
+    sd[f"{prefix}.self_attn.relative_positional.embeddings"] = _tensor(
+        np.asarray(attn["rel_embeddings"])[..., None])
+    _linear(sd, f"{prefix}.linear1", layer["linear1"])
+    _linear(sd, f"{prefix}.linear2", layer["linear2"])
+    for norm in ("norm1", "norm2"):
+        sd[f"{prefix}.{norm}.weight"] = _tensor(layer[norm]["scale"])
+        sd[f"{prefix}.{norm}.bias"] = _tensor(layer[norm]["bias"])
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any],
-                             generator_params: Mapping[str, Any]
-                             ) -> dict[str, torch.Tensor]:
+                             generator_params: Mapping[str, Any] | None = None,
+                             mutables: Mapping[str, Any] | None = None,
+                             steps: int = 0) -> dict[str, torch.Tensor]:
     """JAX ``HiFiGANGenerator`` params -> the port's state dict (the keys
     of the JAX package's ``export_hifigan_generator``, the conditioning
-    leaves included)."""
+    leaves included); or a ``PastSeqEncoder``'s (its ``res0`` and
+    ``layer{i}`` trees, the ``res0`` statistics from ``mutables``' or its
+    ``batch_stats``)."""
     sd: dict[str, torch.Tensor] = {}
+    if "res0" in params and "input_conv" not in params:
+        stats = (mutables or {}).get("batch_stats", mutables or {})
+        _res_block(sd, "res0", params["res0"], stats["res0"], steps)
+        for i in range(sum(k.startswith("layer") for k in params)):
+            _encoder_layer(sd, f"transformer.layers.{i}", params[f"layer{i}"])
+        return sd
+    generator_params = generator_params or {}
     num_ups = len(generator_params.get("upsample_scales", (8, 8, 2, 2)))
     rks = generator_params.get("resblock_kernel_sizes", (3, 7, 11))
     rdils = generator_params.get("resblock_dilations", ((1, 3, 5),) * 3)
@@ -362,29 +401,11 @@ def jax_transformer_to_state_dict(params: Mapping[str, Any],
         _conv1d(sd, "conv_blocks.0", params["front_conv"])
         base = 1
     for i in range(3):
-        p, s, prefix = params[f"res{i}"], stats[f"res{i}"], \
-            f"conv_blocks.{base + i}"
-        _conv1d(sd, f"{prefix}.conv1", p["conv1"])
-        _conv1d(sd, f"{prefix}.conv2", p["conv2"])
-        for bn in ("bn1", "bn2"):
-            _batch_norm(sd, f"{prefix}.{bn}", p[bn], s[bn], steps)
-        if "residual_path" in p:
-            _conv1d(sd, f"{prefix}.residual_path", p["residual_path"])
-            _batch_norm(sd, f"{prefix}.res_norm", p["res_norm"],
-                        s["res_norm"], steps)
+        _res_block(sd, f"conv_blocks.{base + i}", params[f"res{i}"],
+                   stats[f"res{i}"], steps)
     _linear(sd, "w_raw_in", params["w_raw_in"])
     for i in range(generator_params.get("elayers", 6)):
-        t, layer = f"transformer.layers.{i}", params[f"layer{i}"]
-        attn = layer["self_attn"]
-        for k in ("w_q", "w_k", "w_v", "w_o"):
-            sd[f"{t}.self_attn.{k}"] = _tensor(attn[k])
-        sd[f"{t}.self_attn.relative_positional.embeddings"] = _tensor(
-            np.asarray(attn["rel_embeddings"])[..., None])
-        _linear(sd, f"{t}.linear1", layer["linear1"])
-        _linear(sd, f"{t}.linear2", layer["linear2"])
-        for norm in ("norm1", "norm2"):
-            sd[f"{t}.{norm}.weight"] = _tensor(layer[norm]["scale"])
-            sd[f"{t}.{norm}.bias"] = _tensor(layer[norm]["bias"])
+        _encoder_layer(sd, f"transformer.layers.{i}", params[f"layer{i}"])
     if "in_emb_mat" in params:
         _embedding(sd, "in_emb_mat", params["in_emb_mat"])
     _linear(sd, "w_out", params["w_out"])

@@ -214,7 +214,11 @@ Phases, each raising on failure:
    bit-equal after every step, 72 pair and 12 head launches a step on
    each rank, the step-1 all-reduced gradients against one process's on
    the concatenated batch (GRAD_TOL[0] pooled per model); the step median
-   per rank, the backend and the time inside the collectives;
+   per rank, the loader's host time between steps, the backend and the
+   time inside the collectives; then [dp-native], the same with
+   ``use_native_loader: true``: each rank's batches equal to its shard of
+   ``NativeDataLoader(shard_id=r, num_shards=2)`` built here, no loader
+   warning, and its step median beside the host loader's;
 26. tp: the same with ``tensor_parallel: 2`` (one TP group sharing B 16),
    2 steps: the gathered generator bit-equal on both ranks, each rank's
    pairs those of its MRF blocks, the gathered gradients against one
@@ -228,7 +232,12 @@ Phases, each raising on failure:
 28. sp: the EMA widths without AR, one 60 s utterance (12,000 frames) in
    4 time tiles (``LoadedModel.enable_sequence_parallel``) against the
    unsharded forward (SP_TOL of max |y|), the peak memory of both, and
-   ``bin/decode.py --sequence-parallel 4`` against the unsharded decode.
+   ``bin/decode.py --sequence-parallel 4`` against the unsharded decode;
+   then [past-seq]: ``PastSeqEncoder`` at its defaults on a B 16 x P 512
+   past, the card's eval forward against the CPU's in float64
+   (PAST_SEQ_F64_TOL of max |y|), its float32 against the CPU's float64
+   beside the CPU's float32, its ms, and its training dropout from a card
+   generator.
 
 29. export: the EMA HiFi-CAR at full width, f32 and hybrid, B 16 chunks of
    100 frames with the 512-sample carry, through ``export.to_torch_export``
@@ -3985,13 +3994,15 @@ def phase_ssl(port: dict, seed: int, device_name: str, tmp: str) -> dict:
     return {"feature_err": feat_errs, "rtf": rtf, "chunk_rel_err": err,
             "hubert_ms": 1e3 * hubert_s, "hubert_rel_err": hubert_err}
 
-# [dp] / [tp]: data and tensor parallelism through the launcher and the
-# train CLI, two ranks sharing the card (gloo: NCCL refuses two ranks on
-# one device), at TRAIN_CONFIG's widths on phase 6's corpus; PAR_BATCH is
-# a data-parallel rank's (dp: the global batch is the single-process
-# shape, 64; tp: one TP group of both ranks shares B 16)
-PAR_STEPS = {"dp": 3, "tp": 2}
-PAR_BATCH = {"dp": 32, "tp": 16}
+# [dp] / [dp-native] / [tp]: data and tensor parallelism through the
+# launcher and the train CLI, two ranks sharing the card (gloo: NCCL
+# refuses two ranks on one device), at TRAIN_CONFIG's widths on phase 6's
+# corpus; PAR_BATCH is a data-parallel rank's (dp: the global batch is the
+# single-process shape, 64; tp: one TP group of both ranks shares B 16);
+# dp-native is dp with use_native_loader (each rank its shard of the
+# native loader)
+PAR_STEPS = {"dp": 3, "dp-native": 3, "tp": 2}
+PAR_BATCH = {"dp": 32, "dp-native": 32, "tp": 16}
 PAR_GRAD_STEP = 1  # the step whose all-reduced gradients are checked
 PAR_TIMEOUT_S = 600
 
@@ -4003,6 +4014,7 @@ def parallel_config(mode: str) -> dict:
                 generator_train_start_steps=0,
                 eval_interval_steps=PAR_STEPS[mode],
                 num_save_intermediate_results=0,
+                use_native_loader=mode == "dp-native",
                 tensor_parallel=2 if mode == "tp" else 1)
 
 
@@ -4013,12 +4025,47 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
+def _batch_digest(batch: dict) -> str:
+    """The digest of a batch's step inputs: y, x, and the AR past."""
+    return _digest([torch.as_tensor(batch["y"]), *map(
+        torch.as_tensor, batch["x"])] + ([torch.as_tensor(batch["ar"])]
+                                         if batch.get("ar") is not None
+                                         else []))
+
+
+def native_digests(port: dict, config: dict, dirs: dict, seed: int,
+                   shard_id: int, num_shards: int, steps: int) -> list[str]:
+    """The batch digests of the first ``steps`` batches of a rank's native
+    loader shard, epoch after epoch, as ``bin/train.py`` draws them."""
+    from articulatory_tpu_torch.data.native_loader import NativeDataLoader
+
+    train_set = port["train"].build_datasets(
+        config, dirs["train_dumpdir"], dirs["dev_dumpdir"],
+        dirs["data_root"])[0]
+    gp = config["generator_params"]
+    loader = NativeDataLoader(
+        train_set, batch_size=config["batch_size"],
+        batch_max_steps=config["batch_max_steps"],
+        hop_size=config["hop_size"],
+        ar_len=int(gp["ar_input"] / gp["out_channels"]), seed=seed,
+        shard_id=shard_id, num_shards=num_shards, n_threads=2)
+    digests, epoch = [], 0
+    while len(digests) < steps:
+        loader.set_epoch(epoch)
+        digests += [_batch_digest(b) for b in loader][: steps - len(digests)]
+        epoch += 1
+    return digests
+
+
 def rank_worker(workdir: str) -> int:
-    """One rank of [dp] / [tp], started by the launcher: ``bin/train.py``'s
-    ``main`` on ``workdir``'s spec, each step's launches, time, collective
-    seconds and parameter digest recorded (a TP generator gathered full),
-    and at PAR_GRAD_STEP the weights before and after, the rank's batch and
-    the all-reduced gradients saved for the one-rank reference."""
+    """One rank of [dp] / [dp-native] / [tp], started by the launcher:
+    ``bin/train.py``'s ``main`` on ``workdir``'s spec, each step's
+    launches, time, the host time between its record and the previous
+    one's (the loader's), collective seconds, batch digest and parameter
+    digest
+    recorded (a TP generator gathered full), and at PAR_GRAD_STEP the
+    weights before and after, the rank's batch and the all-reduced
+    gradients saved for the one-rank reference."""
     with open(os.path.join(workdir, "spec.json")) as f:
         spec = json.load(f)
     sys.path.insert(0, ROOT)
@@ -4027,6 +4074,7 @@ def rank_worker(workdir: str) -> int:
     port = training_port()
     train_cli = port["train"]
     records, grads, keep = [], [], {"on": False}
+    last_end = [None]
     reduce_grads = mesh.all_reduce_grads
 
     def reduce_and_keep(params, group):
@@ -4055,6 +4103,10 @@ def rank_worker(workdir: str) -> int:
         step = make_train_step(criterion, config)
 
         def recorded(state, batch, lr_g, lr_d):
+            # the host's time since the last step's record ended: the
+            # trainer's loop, the loader and the batch's copy
+            arrived = time.perf_counter()
+            gap = None if last_end[0] is None else arrived - last_end[0]
             k, rank = state.steps, mesh.rank()
             if k == PAR_GRAD_STEP:
                 pre = {"generator": full_generator(state),
@@ -4077,7 +4129,8 @@ def rank_worker(workdir: str) -> int:
             counts = read_counts(port)
             gen = full_generator(state)
             records.append({
-                "step": k, "seconds": elapsed, "launches": counts,
+                "step": k, "seconds": elapsed, "gap_seconds": gap,
+                "launches": counts, "batch_digest": _batch_digest(batch),
                 "collective_calls": mesh.COLLECTIVES["calls"] - calls,
                 "collective_seconds": mesh.COLLECTIVES["seconds"] - seconds,
                 "digest": _digest(list(gen.values()) + list(
@@ -4093,6 +4146,7 @@ def rank_worker(workdir: str) -> int:
                                 "grads_discriminator": dict(zip(
                                     names_d, grads[1]))},
                                os.path.join(workdir, "step.pt"))
+            last_end[0] = time.perf_counter()
             return metrics
 
         return recorded
@@ -4137,15 +4191,17 @@ def _free_port() -> int:
 
 
 def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
-    """[dp] or [tp]: ``python -m articulatory_tpu_torch.distributed.launch
-    --nproc_per_node 2`` on this script's rank worker, which runs
-    ``bin/train.py``'s ``main`` (``parallel_config(mode)``) on the corpus
-    under ``tmp``; holds every step's parameters bit-equal on both ranks,
-    each rank's launches a step (dp: 72 pairs and 12 heads; tp: the pairs
-    of the rank's MRF blocks, 12 heads), the final checkpoint full, and the
-    step-PAR_GRAD_STEP all-reduced gradients (a TP generator's gathered)
-    against one process's on the concatenated batch (pooled relative L2 <=
-    GRAD_TOL[0] per model)."""
+    """[dp], [dp-native] or [tp]: ``python -m
+    articulatory_tpu_torch.distributed.launch --nproc_per_node 2`` on this
+    script's rank worker, which runs ``bin/train.py``'s ``main``
+    (``parallel_config(mode)``) on the corpus under ``tmp``; holds every
+    step's parameters bit-equal on both ranks, each rank's launches a step
+    (dp: 72 pairs and 12 heads; tp: the pairs of the rank's MRF blocks, 12
+    heads), the final checkpoint full, and the step-PAR_GRAD_STEP
+    all-reduced gradients (a TP generator's gathered) against one
+    process's on the concatenated batch (pooled relative L2 <= GRAD_TOL[0]
+    per model); [dp-native] also each rank's batches against its shard of
+    the native loader built here, and no loader warning."""
     gan, train_cli = port["gan"], port["train"]
     config = parallel_config(mode)
     workdir = os.path.join(tmp, f"par-{mode}")
@@ -4192,6 +4248,25 @@ def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
         if a["digest"] != b["digest"]:
             raise AssertionError(f"[{mode}] the ranks' parameters differ "
                                  f"after step {a['step']}")
+    if mode == "dp-native":
+        warned = [ln for ln in proc.stderr.splitlines()
+                  if "use_native_loader" in ln or "single-process" in ln]
+        if warned:
+            raise AssertionError(f"[{mode}] a loader warning: {warned}")
+        dirs = {"train_dumpdir": os.path.join(tmp, "dump/tr/norm"),
+                "dev_dumpdir": os.path.join(tmp, "dump/dev/norm"),
+                "data_root": os.path.join(tmp, "data")}
+        for r in ranks:
+            want = native_digests(port, config, dirs, seed, r["rank"], 2,
+                                  steps)
+            got = [rec["batch_digest"] for rec in r["records"]]
+            if got != want:
+                raise AssertionError(
+                    f"[{mode}] rank {r['rank']}'s batches are not its "
+                    f"native shard's: {got} against {want}")
+        if ranks[0]["records"][0]["batch_digest"] == \
+                ranks[1]["records"][0]["batch_digest"]:
+            raise AssertionError(f"[{mode}] both ranks took one batch")
     one_step = expected_launches(config, 1)
     pairs_a_block = (sum(len(d) for d in config["generator_params"][
         "resblock_dilations"]) // len(config["generator_params"][
@@ -4275,6 +4350,8 @@ def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
         secs = [rec["seconds"] for rec in r["records"]]
         coll = [rec["collective_seconds"] for rec in r["records"]]
         r["step_ms_median"] = 1e3 * float(np.median(secs))
+        r["gap_ms_median"] = 1e3 * float(np.median(
+            [rec["gap_seconds"] for rec in r["records"][1:]]))
         r["collective_ms_median"] = 1e3 * float(np.median(coll))
         held = (f"; generator parameters {r['held']['params']:,} of "
                 f"{r['held']['full']:,} (blocks {r['held']['blocks']})"
@@ -4282,15 +4359,19 @@ def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
         log(f"[{mode}] rank {r['rank']} ({r['backend']}, two ranks sharing "
             f"one card's SMs): step median {r['step_ms_median']:.3f} ms over "
             f"{steps} [{', '.join(f'{1e3 * s:.1f}' for s in secs)}], "
+            f"{r['gap_ms_median']:.3f} ms between steps (the loader), "
             f"{r['collective_ms_median']:.3f} ms of it in "
             f"{r['records'][-1]['collective_calls']} collectives; launches a "
             f"step {r['records'][-1]['launches']}{held}")
     log(f"[{mode}] {steps} steps through the launcher in "
         f"{run_seconds:.1f} s (two processes' start-up, model build and "
         f"checkpoint included; {build[0].split('WARNING: ')[-1] if build else 'no launcher build line'}); "
-        f"parameters bit-equal on both ranks after every step; step "
-        f"{PAR_GRAD_STEP} all-reduced gradients against one process on the "
-        f"{'concatenated' if mode == 'dp' else 'shared'} batch: "
+        f"parameters bit-equal on both ranks after every step; "
+        + (f"each rank's {steps} batches equal to its native loader "
+           f"shard's (shard_id r of 2) built here; "
+           if mode == "dp-native" else "")
+        + f"step {PAR_GRAD_STEP} all-reduced gradients against one process "
+        f"on the {'shared' if mode == 'tp' else 'concatenated'} batch: "
         + ", ".join(f"{k} {v['pooled_rel_l2']:.3e} pooled / "
                     f"{v['worst_tensor_rel_l2']:.3e} worst tensor"
                     for k, v in gaps.items())
@@ -4480,6 +4561,79 @@ QUALITY_STEPS = 10
 QUALITY_ENV = {"N_UTTS": "5", "DEV_UTTS": "1", "MIN_SECONDS": "1.0",
                "MAX_SECONDS": "1.5", "BATCH_SIZE": "4"}
 QUALITY_TIMEOUT_S = 400
+
+
+# [past-seq]: PastSeqEncoder at its defaults (output 128, 2 layers of 8
+# heads, feed-forward 512, relative distance 100) on a B 16 x P 512 past.
+# The card against the CPU in float64 (PAST_SEQ_F64_TOL of max |y|); the
+# card's float32 against the CPU's float64, within PAST_SEQ_TOL or twice
+# the CPU's own float32 distance, whichever is larger: the first
+# LayerNorm divides rows of the ResBlock's output whose spread is 1/1000
+# of max |y|, so float32 reads about 5e-5 there on either device
+PAST_SEQ_B, PAST_SEQ_P = 16, 512
+PAST_SEQ_TOL, PAST_SEQ_F64_TOL = 1e-5, 1e-10
+
+
+def phase_past_seq(seed: int, device_name: str) -> dict:
+    """[past-seq]: ``layers/past_encoder.py::PastSeqEncoder`` in eval mode
+    (running statistics drawn away from (0, 1)): the card's forward against
+    the same module's on the CPU in float64, the card's and the CPU's
+    float32 against the CPU's float64, and the card's float32 ms by CUDA
+    events; in training, two forwards whose dropout draws from a card
+    generator of one seed agree (PAST_SEQ_TOL) and differ from another
+    seed's."""
+    from articulatory_tpu_torch.layers.past_encoder import PastSeqEncoder
+    from articulatory_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    enc = PastSeqEncoder(generator=gen).eval()
+    with torch.no_grad():
+        for name, buf in enc.named_buffers():
+            if "running" in name:
+                buf.uniform_(0.5, 1.5, generator=gen)
+    x = 0.3 * torch.randn(PAST_SEQ_B, PAST_SEQ_P, 1, generator=gen)
+    card, xc = copy.deepcopy(enc).to(dev), x.to(dev)
+    with torch.no_grad():
+        ref = copy.deepcopy(enc).double()(x.double())
+        cpu32 = enc(x)
+        got = card(xc)
+        got64 = copy.deepcopy(card).double()(xc.double())
+        ms = time_ms(lambda: card(xc), 20)
+    shape = (PAST_SEQ_B, PAST_SEQ_P, 128)
+    if got.shape != shape or not torch.isfinite(got).all():
+        raise AssertionError(f"[past-seq] output {tuple(got.shape)}, "
+                             f"expected {shape}, finite")
+    scale = float(ref.abs().max())
+    err64 = float((got64.cpu() - ref).abs().max()) / scale
+    err = float((got.cpu().double() - ref).abs().max()) / scale
+    cpu_err = float((cpu32.double() - ref).abs().max()) / scale
+    limit = max(PAST_SEQ_TOL, 2 * cpu_err)
+    if err64 > PAST_SEQ_F64_TOL or err > limit:
+        raise AssertionError(
+            f"[past-seq] the card's float64 forward is {err64:.3e} of max "
+            f"|y| from the CPU's (limit {PAST_SEQ_F64_TOL}), its float32 "
+            f"{err:.3e} from the CPU's float64 (limit {limit:.3e})")
+    card.train()
+    with torch.no_grad():
+        runs = [card(xc, torch.Generator(device=dev).manual_seed(k))
+                for k in (seed, seed, seed + 1)]
+    top = float(runs[0].abs().max())
+    same = float((runs[0] - runs[1]).abs().max()) / top
+    other = float((runs[0] - runs[2]).abs().max()) / top
+    if same > PAST_SEQ_TOL or other <= PAST_SEQ_TOL:
+        raise AssertionError(f"[past-seq] dropout: one seed's forwards "
+                             f"{same:.3e} apart, another seed's {other:.3e}")
+    log(f"[past-seq] PastSeqEncoder B {PAST_SEQ_B} x P {PAST_SEQ_P} on "
+        f"{device_name}: {ms:.3f} ms a forward (eval, f32, TF32 off); "
+        f"float64 {err64:.3e} of max |y| from the CPU's (limit "
+        f"{PAST_SEQ_F64_TOL}); float32 {err:.3e} from the CPU's float64 "
+        f"(limit {limit:.3e}), the CPU's float32 {cpu_err:.3e}; training "
+        f"dropout from a card generator: one seed's forwards {same:.3e} "
+        f"apart, another seed's {other:.3e}")
+    return {"ms": ms, "f64_rel_err": err64, "f32_rel_err": err,
+            "cpu_f32_rel_err": cpu_err, "dropout_same_seed": same,
+            "dropout_other_seed": other}
 
 
 def _export_models(port, seed: int, tmp: str) -> dict:
@@ -5049,7 +5203,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _write_corpus(tmp, args.seed)
         parallel = {mode: phase_parallel(par_port, mode, args.seed, tmp)
-                    for mode in ("dp", "tp")}
+                    for mode in ("dp", "dp-native", "tp")}
+    log("[dp-native] a rank's step median, native / host loader (the "
+        "loader's time between steps): " + "; ".join(
+            f"rank {n['rank']} {n['step_ms_median']:.3f} / "
+            f"{h['step_ms_median']:.3f} ms ({n['gap_ms_median']:.3f} / "
+            f"{h['gap_ms_median']:.3f} ms)"
+            for n, h in zip(parallel["dp-native"]["ranks"],
+                            parallel["dp"]["ranks"])))
     pp_results = phase_pp(dict(pp=pp, resblock_pair=resblock_pair,
                                build_model=build_model), args.seed)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5057,6 +5218,7 @@ def main() -> int:
                            resblock_pair=resblock_pair,
                            build_model=build_model, read_wav=read_wav),
                       args.seed, tmp)
+    past_seq = phase_past_seq(args.seed, device_name)
 
     # export, the reference-to-JAX conversion, the registry's downloader
     # and the quality A/B tool chain
@@ -5201,10 +5363,10 @@ def main() -> int:
         # [dp] / [tp]: a step's launches on each rank (two ranks sharing
         # the card); [pp]: a call of each pipeline (36 a microbatch); [sp]:
         # the tiled forward (36 a tile) and its decode
-        **{f"launches_{mode}_per_rank_step": {
+        **{f"launches_{mode.replace('-', '_')}_per_rank_step": {
             r: c["resblock_pair"] for r, c in
             parallel[mode]["launches_per_step"].items()}
-           for mode in ("dp", "tp")},
+           for mode in ("dp", "dp-native", "tp")},
         "launches_pp": {k: v["launches"] for k, v in pp_results.items()},
         "launches_sp": sp["sequence_parallel"]["launches"],
         "launches_sp_decode": sp["decode_launches"],
@@ -5286,10 +5448,10 @@ def main() -> int:
             "scale_disc_head"],
         "launches_hybrid_profiled": hybrid["profiled_step"]["kernel_counts"][
             "scale_disc_head_wgmma"],
-        **{f"launches_{mode}_per_rank_step": {
+        **{f"launches_{mode.replace('-', '_')}_per_rank_step": {
             r: c["scale_disc_head"] for r, c in
             parallel[mode]["launches_per_step"].items()}
-           for mode in ("dp", "tp")},
+           for mode in ("dp", "dp-native", "tp")},
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -5315,7 +5477,8 @@ def main() -> int:
                    "cascade": cascade, "ph2a": ph2a, "mult": mult,
                    "recipe": recipe, "entry": entry, "storage_zoo": storage,
                    "causal": causal, "ssl": ssl, "parallel": parallel,
-                   "pp": pp_results, "sp": sp, "export": exported,
+                   "pp": pp_results, "sp": sp, "past_seq": past_seq,
+                   "export": exported,
                    "convert": {k: v for k, v in converted.items()
                                if k not in ("wav", "x")},
                    "pretrained": fetched, "quality": quality,
