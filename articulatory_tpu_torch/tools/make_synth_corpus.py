@@ -155,6 +155,44 @@ def mri_expansion(seed: int = 1234) -> np.ndarray:
     return (gains[:, None] * w).astype(np.float32)
 
 
+def build_corpus(n_train: int, n_dev: int, seed: int):
+    """In-memory learnable corpus of (wav, feats) pairs, the training and
+    held-out lists: 2-3.5 s utterances drawn from ``seed`` (the stream of
+    ``tools/cotrain_parity.py::build_corpus``)."""
+    rng = np.random.default_rng(seed)
+    train, dev = [], []
+    for i in range(n_train + n_dev):
+        wav = synth_utterance(rng, float(rng.uniform(2.0, 3.5)))
+        feats = derive_feats(wav)
+        (dev if i >= n_train else train).append((wav, feats))
+    return train, dev
+
+
+def sample_batches(corpus, n_steps: int, batch_size: int, win_frames: int,
+                   ar_input: int, seed: int, dtype=np.float32):
+    """``n_steps`` numpy batches (x (B, win_frames, F), y (B, win_frames x
+    HOP, 1), ar (B, ar_input, 1): the wave before the window, zero-padded
+    in front), windows drawn from ``seed + 1`` (the stream of
+    ``tools/cotrain_parity.py::sample_batches``)."""
+    rng = np.random.default_rng(seed + 1)
+    batches = []
+    for _ in range(n_steps):
+        xs, ys, ars = [], [], []
+        for _ in range(batch_size):
+            wav, feats = corpus[rng.integers(len(corpus))]
+            max_f = min(len(feats), len(wav) // HOP) - win_frames
+            f0 = int(rng.integers(0, max_f))
+            s = f0 * HOP
+            xs.append(feats[f0:f0 + win_frames])
+            ys.append(wav[s:s + win_frames * HOP, None])
+            ar = wav[max(0, s - ar_input):s]
+            ars.append(np.pad(ar, (ar_input - len(ar), 0))[:, None])
+        batches.append((np.stack(xs).astype(dtype),
+                        np.stack(ys).astype(dtype),
+                        np.stack(ars).astype(dtype)))
+    return batches
+
+
 def main(argv: list[str] | None = None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", required=True)

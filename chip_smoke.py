@@ -12,9 +12,9 @@ in phases 12-13 of the generator zoo on
 conditioned, chained and multimodal forms, in phases 21-24 of the
 remaining entry points, weight storage, causal convs and SSL inversion,
 in phases 25-28 of its data-, tensor-, pipeline- and
-sequence-parallel paths, and in phases 29-32 of its export, checkpoint
-conversion, pretrained registry and quality A/B tools, through their entry
-points:
+sequence-parallel paths, in phases 29-32 of its export, checkpoint
+conversion, pretrained registry and quality A/B tools, and in phase 33 of
+its co-training parity harness, through their entry points:
 
 - E2W HiFi-CAR chunked-autoregressive synthesis with 100-frame chunks
   (``load_model`` -> ``ar_loop_batched``, eager and through the captured
@@ -256,7 +256,15 @@ Phases, each raising on failure:
    extracted into a temporary cache and decoded bit-equal to phase 30's;
 32. quality: ``articulatory_tpu_torch/tools/bf16_quality_ab.sh`` end to
    end at a tiny size (QUALITY_ENV, QUALITY_STEPS steps): every stage and
-   MCD of the A/B on the card without JAX (the MCDs printed).
+   MCD of the A/B on the card without JAX (the MCDs printed);
+33. cotrain: ``articulatory_tpu_torch/tools/cotrain_parity.py --against``
+   the committed f32-wide co-training artifact (``phase_cotrain``): the
+   e2w_hifigan_car generator at full width and its discriminator trained
+   300 steps from the artifact's seed (inputs' digests equal to the
+   artifact's), with the hand kernels and then with their plain versions,
+   in turns in a process of their own (``--cotrain-worker``) beside phase
+   32, each within the artifact's bounds against the JAX trajectory and
+   decodes, and launching exactly the kernels of ``expected_launches``.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -286,6 +294,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+from articulatory_tpu_torch.utils.numpy_init import (  # noqa: E402
+    numpy_generator_params,
+)
 
 # egs/ema/voc1/conf/e2w_hifigan_car.yaml (generator_params, signal keys);
 # batch_max_steps 8000 gives bench.py's 100-frame chunks
@@ -422,41 +434,6 @@ STREAM_LANES = 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def numpy_generator_params(gp: dict, seed: int) -> dict:
-    """A HiFiGANGenerator param tree in the JAX package's layout: conv
-    (K, C_in, C_out) with weight norm (g = ||v||), transposed conv pre-flipped
-    with per-input-channel g, dense (in, out); torch-default U(+-1/sqrt(fan_in))."""
-    rng = np.random.default_rng(seed)
-
-    def uniform(shape, fan_in):
-        bound = 1.0 / np.sqrt(fan_in)
-        return rng.uniform(-bound, bound, shape).astype(np.float32)
-
-    def conv(k, c_in, c_out, transpose=False):
-        fan_in = (c_out if transpose else c_in) * k
-        v = uniform((k, c_in, c_out), fan_in)
-        axes = (0, 2) if transpose else (0, 1)
-        return {"v": v, "g": np.sqrt((v * v).sum(axis=axes, keepdims=True)),
-                "b": uniform((c_out,), fan_in)}
-
-    ch, k = gp["channels"], gp["kernel_size"]
-    tree = {"input_conv": conv(k, gp["in_channels"], ch)}
-    for i, uk in enumerate(gp["upsample_kernel_sizes"]):
-        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
-        tree[f"upsample_{i}"] = conv(uk, c_in, c_out, transpose=True)
-        for j, (rk, rd) in enumerate(zip(gp["resblock_kernel_sizes"],
-                                         gp["resblock_dilations"])):
-            tree[f"block_{i}_{j}"] = {f"convs{n}_{d}": conv(rk, c_out, c_out)
-                                      for n in (1, 2) for d in range(len(rd))}
-    tree["output_conv"] = conv(k, ch // 2 ** len(gp["upsample_scales"]),
-                               gp["out_channels"])
-    dims = [gp["ar_input"]] + [gp["ar_hidden"]] * 4 + [gp["ar_output"]]
-    tree["ar_model"] = {f"fc{i}": {"w": uniform((dims[i], dims[i + 1]), dims[i]),
-                                   "b": uniform((dims[i + 1],), dims[i])}
-                        for i in range(5)}
-    return tree
 
 
 def time_ms(fn, n: int) -> float:
@@ -4561,6 +4538,12 @@ QUALITY_STEPS = 10
 QUALITY_ENV = {"N_UTTS": "5", "DEV_UTTS": "1", "MIN_SECONDS": "1.0",
                "MAX_SECONDS": "1.5", "BATCH_SIZE": "4"}
 QUALITY_TIMEOUT_S = 400
+# [cotrain]: the committed artifact whose port leg runs here, its arms (in
+# turns in one process with COTRAIN_THREADS CPU threads) and their time limit
+COTRAIN_PROFILE = "f32-wide"
+COTRAIN_ARMS = ("kernel", "plain")
+COTRAIN_THREADS = 2
+COTRAIN_TIMEOUT_S = 600
 
 
 # [past-seq]: PastSeqEncoder at its defaults (output 128, 2 layers of 8
@@ -4947,6 +4930,146 @@ def phase_quality(seed: int, tmp: str) -> dict:
     return {"seconds": seconds, "mcd": mcds}
 
 
+def _cotrain_eval_launches(gp: dict, forwards: int) -> dict:
+    """The launches of ``forwards`` float32 generator forwards without
+    grad (the harness's evaluations): each stage's pairs, each splitting
+    its weights; no head."""
+    pairs = (sum(len(d) for d in gp["resblock_dilations"])
+             * len(gp["upsample_scales"]) * forwards)
+    return {"resblock_pair": {str(torch.float32): pairs} if pairs else {},
+            "scale_disc_head": {}, "split_tf32": pairs, "split_weights": 0}
+
+
+def cotrain_worker(workdir: str) -> int:
+    """[cotrain]'s arms in turns in a process of their own
+    (``--cotrain-worker``): the port leg of the COTRAIN_PROFILE artifact,
+    ``against`` on the card, with the hand kernels, then with their plain
+    versions swapped in; writes each arm's report to ``workdir``."""
+    sys.path.insert(0, ROOT)
+    from articulatory_tpu_torch.tools import cotrain_parity
+    from articulatory_tpu_torch.utils.device import set_float32_parity
+
+    set_float32_parity()
+    torch.set_num_threads(COTRAIN_THREADS)
+    port = training_port()
+    for arm in COTRAIN_ARMS:
+        start = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if arm == "plain":
+                stack.enter_context(swapped(port["residual"], "resblock_pair",
+                                            port["resblock_pair_plain"]))
+                stack.enter_context(swapped(port["hifigan"], "scale_disc_head",
+                                            port["scale_disc_head_plain"]))
+            report = cotrain_parity.against(
+                cotrain_parity.artifact_path(COTRAIN_PROFILE), "cuda")
+        report["arm_seconds"] = time.perf_counter() - start
+        with open(os.path.join(workdir, f"{arm}.json"), "w") as f:
+            json.dump(report, f)
+    return 0
+
+
+def start_cotrain(workdir: str) -> tuple:
+    """Start [cotrain]'s process (``cotrain_worker``: the arms in turns,
+    host-bound at B 2, so they run beside [quality]); ``phase_cotrain``
+    waits for it, ``stop_cotrain`` ends it if the phases between fail."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cotrain-worker",
+         workdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=ROOT)
+
+
+def stop_cotrain(started: tuple) -> None:
+    _, proc = started
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
+def phase_cotrain(workdir: str, started: tuple) -> dict:
+    """[cotrain] ``tools/cotrain_parity.py --against`` the committed
+    f32-wide artifact (COTRAIN_PROFILE), its arms run in turns by the
+    process ``start_cotrain`` started: the e2w_hifigan_car generator at
+    full width and its discriminator trained 300 steps (B 2 x 2000) from
+    the artifact's seed,
+    the inputs' digests equal to the artifact's (``against`` raises
+    otherwise), with the hand kernels as the training path launches them
+    and with their plain versions swapped in. Each arm must pass the
+    artifact's checks against the JAX trajectory and decodes (pre-disc
+    mel, eval-mel, decode MCD, each within its budget or twice JAX's own
+    cone over its four controls; both sides learn; the discriminator from
+    its start step on)
+    and launch exactly the kernels ``expected_launches`` gives for its
+    steps (none in the plain arm), and the evaluations' pairs."""
+    from articulatory_tpu_torch.tools import cotrain_parity
+
+    results, waited = {}, time.perf_counter()
+    t0, proc = started
+    try:
+        out, _ = proc.communicate(timeout=COTRAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"[cotrain] the arms ran past "
+                             f"{COTRAIN_TIMEOUT_S} s: {out[-3000:]}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[cotrain] the arms failed "
+                             f"({proc.returncode}): {out[-3000:]}")
+    for arm in COTRAIN_ARMS:
+        with open(os.path.join(workdir, f"{arm}.json")) as f:
+            report = json.load(f)
+        a = cotrain_parity.settings(report)
+        gp, run, c = report["gen_cfg"], report["port"], report["checks"]
+        config = cotrain_parity.train_config(a, gp, report["disc_cfg"])
+        forwards = len(run["evals"]) * a.n_eval_batches
+        none = _cotrain_eval_launches(gp, 0)
+        want = ({"train": expected_launches(config, a.steps),
+                 "eval": _cotrain_eval_launches(gp, forwards)}
+                if arm == "kernel" else {"train": none, "eval": none})
+        got = {k: run["launches"][k] for k in ("train", "eval")}
+        decode_pairs = sum(run["launches"]["decode"]["resblock_pair"].values())
+        log(f"[cotrain] {arm} arm: {a.steps} steps in {run['seconds']:.3f} s "
+            f"({1e3 * run['seconds'] / a.steps:.3f} ms a step, "
+            f"{len(run['evals'])} evaluations in it), decodes "
+            f"{run['decode_seconds']:.3f} s, inputs remade in "
+            f"{report['setup_seconds']:.3f} s with digests equal to the "
+            f"artifact's; the arm {report['arm_seconds']:.3f} s (the "
+            f"process of both {wall:.3f} s)")
+        log(f"[cotrain] {arm} arm: " + "; ".join(
+            f"{what} {c.get(key)} (bound {c.get(key + '_bound')}, JAX's "
+            f"cone {c.get(key + '_cone')})" for what, key in (
+                ("pre-disc mel max rel", "pre_disc_mel_max_rel"),
+                ("eval-mel max rel", "eval_mel_max_rel"),
+                ("decode MCD(port, JAX) worst dB", "worst_mcd_port_vs_jax")))
+            + "; per utterance " + ", ".join(
+                f"{r['mcd_port_vs_jax']:.3f}" for r in report["decode"])
+            + "; MCD(port, gt) - MCD(JAX, gt) "
+            + ", ".join(f"{d:+.3f}" for d in c["gt_mcd_delta_per_utt"])
+            + f"; eval mel first/last port {c.get('port_eval_first_last')}, "
+            f"JAX {c.get('jax_eval_first_last')}")
+        log(f"[cotrain] {arm} arm: launches train {got['train']}, evaluations "
+            f"{got['eval']}, decodes {run['launches']['decode']}")
+        if got != want:
+            raise AssertionError(f"[cotrain] {arm} arm launched {got}, "
+                                 f"expected {want}")
+        if arm == "kernel" and decode_pairs < a.n_decode:
+            raise AssertionError(f"[cotrain] the decodes launched "
+                                 f"{decode_pairs} pairs")
+        if not report["ok"]:
+            raise AssertionError(f"[cotrain] {arm} arm: {report['failures']}")
+        results[arm] = {"seconds": report["arm_seconds"], "process_s": wall,
+                        "train_seconds": run["seconds"],
+                        "decode_seconds": run["decode_seconds"],
+                        "setup_seconds": report["setup_seconds"],
+                        "checks": c, "launches": run["launches"],
+                        "decode": report["decode"],
+                        "evals": run["evals"]}
+    results["waited_s"] = time.perf_counter() - waited
+    log(f"[cotrain] the arms ended {results['waited_s']:.3f} s after the "
+        f"phase began waiting for them")
+    return results
+
+
 def training_port() -> dict:
     """The port's modules and kernel wrappers that the training phases
     (``phase_train``, ``phase_hybrid_train`` and those built on them)
@@ -4980,6 +5103,9 @@ def main() -> int:
                         help="run one rank of the [dp] / [tp] phases on "
                              "this directory's spec (the launcher passes "
                              "it)")
+    parser.add_argument("--cotrain-worker", default=None,
+                        help="run [cotrain]'s arms in turns, writing their "
+                             "reports to this directory")
     parser.add_argument("--export-worker", default=None,
                         help="run [export]'s fresh process on this "
                              "directory's programs")
@@ -4988,6 +5114,8 @@ def main() -> int:
         return rank_worker(args.rank_worker)
     if args.export_worker:
         return export_worker(args.export_worker)
+    if args.cotrain_worker:
+        return cotrain_worker(args.cotrain_worker)
 
     smi, device_name = phase_device()
     sys.path.insert(0, ROOT)
@@ -5236,8 +5364,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         converted = phase_convert(tools_port, args.seed, tmp)
         fetched = phase_pretrained(tools_port, args.seed, tmp, converted)
+    # [quality] and the co-training parity arms side by side: both are
+    # host-bound, and the machine has cores to spare
     with tempfile.TemporaryDirectory() as tmp:
-        quality = phase_quality(args.seed, tmp)
+        cotrain_started = start_cotrain(tmp)
+        try:
+            with tempfile.TemporaryDirectory() as qtmp:
+                quality = phase_quality(args.seed, qtmp)
+        except BaseException:
+            stop_cotrain(cotrain_started)
+            raise
+        cotrain = phase_cotrain(tmp, cotrain_started)
 
     f32 = by_dtype["float32"]
     pair_entry = {
@@ -5379,6 +5516,12 @@ def main() -> int:
             for mode in ("f32", "hybrid_bf16")},
         "launches_convert": converted["launches"],
         "launches_pretrained": fetched["launches"],
+        # [cotrain]: the 300 training steps of the f32-wide co-training
+        # run (72 a step) and its evaluations (36 a forward)
+        "launches_cotrain_train": cotrain["kernel"]["launches"]["train"][
+            "resblock_pair"],
+        "launches_cotrain_eval": cotrain["kernel"]["launches"]["eval"][
+            "resblock_pair"],
     }
     main_head = [r for r in head_rows if r["stride"] == 4]
     head_f32 = [r for r in main_head if r["dtype"] == "float32"]
@@ -5452,6 +5595,8 @@ def main() -> int:
             r: c["scale_disc_head"] for r, c in
             parallel[mode]["launches_per_step"].items()}
            for mode in ("dp", "dp-native", "tp")},
+        "launches_cotrain_train": cotrain["kernel"]["launches"]["train"][
+            "scale_disc_head"],
     }
     kernels = [pair_entry, head_entry]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -5482,6 +5627,7 @@ def main() -> int:
                    "convert": {k: v for k, v in converted.items()
                                if k not in ("wav", "x")},
                    "pretrained": fetched, "quality": quality,
+                   "cotrain": cotrain,
                    "kernels": kernels}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))

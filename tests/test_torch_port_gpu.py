@@ -1104,3 +1104,39 @@ def test_exported_forward_is_the_eager_forward(cuda, compute):
         "torch.float32"] - f32_pairs and split_tf32.launches == splits + first
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(again, want, rtol=0, atol=0)
+
+
+# --- the co-training parity harness against its committed artifact ----------
+
+COTRAIN_STEPS = 20
+
+
+def test_cotrain_against_artifact_on_card(cuda):
+    """``tools/cotrain_parity.py --against`` the committed f32-wide artifact
+    for its first COTRAIN_STEPS steps on the card: the inputs remade from
+    the artifact's seed match its digests (``against`` raises otherwise),
+    the steps' per-step mel stays within the artifact's pre-disc bound
+    against JAX's, and the steps launch 72 pairs and 12 heads each, every
+    one splitting its weights once (``chip_smoke.expected_launches``)."""
+    import sys
+
+    from articulatory_tpu_torch.tools import cotrain_parity
+
+    root = str(cotrain_parity.ROOT)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    path = cotrain_parity.artifact_path("f32-wide")
+    report = cotrain_parity.against(path, "cuda", steps=COTRAIN_STEPS)
+    saved, _ = cotrain_parity.load_artifact(path)
+    assert report["digests"] == saved["digests"]
+    assert report["ok"], report["failures"]
+    assert len(report["port"]["logs"]) == COTRAIN_STEPS
+    assert report["checks"]["pre_disc_mel_max_rel"] <= \
+        report["checks"]["pre_disc_mel_max_rel_bound"]
+    a = cotrain_parity.settings(saved)
+    config = cotrain_parity.train_config(a, saved["gen_cfg"],
+                                         saved["disc_cfg"])
+    assert report["port"]["launches"]["train"] == \
+        chip_smoke.expected_launches(config, COTRAIN_STEPS)
