@@ -4,8 +4,8 @@ The JAX package has no backward kernel for either TPU kernel, so a kernel's
 backward here recomputes its plain PyTorch version under autograd from the
 saved inputs and differentiates that. It costs one extra plain forward and
 keeps no intermediate activation between forward and backward. Each
-recomputation is a profiler range ``recompute_grads:<plain's name>``, so a
-profiled step can attribute the kernels it launches.
+recomputation is a span ``recompute_grads:<plain's name>`` (``trace.py``),
+so a profiled step can attribute the kernels it launches.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from articulatory_tpu_torch.trace import span
 
 RANGE = "recompute_grads"
 
@@ -25,7 +27,7 @@ def recompute_grads(plain: Callable, saved: Sequence[torch.Tensor | None],
     inputs = [None if t is None else t.detach().requires_grad_(need)
               for t, need in zip(saved, needs)]
     wrt = [t for t, need in zip(inputs, needs) if need and t is not None]
-    with torch.profiler.record_function(f"{RANGE}:{plain.__name__}"):
+    with span(f"{RANGE}:{plain.__name__}"):
         with torch.enable_grad():
             outputs = plain(*inputs, **kwargs)
         found = iter(torch.autograd.grad(outputs, wrt, grads) if wrt else ())

@@ -24,11 +24,8 @@ Every collective here is an ``all_reduce`` or a ``broadcast`` (or a
 ``barrier``): gloo takes CUDA tensors for those two only (torch 2.11's
 build does), and NCCL refuses two ranks on one device, so two ranks
 sharing one card run over gloo on the card's tensors. A group of one rank
-(or no process group) makes every call a no-op.
-
-``COLLECTIVES`` counts the calls and, with ``ARTICULATORY_TIME_COLLECTIVES``
-set, the wall seconds inside them (the device synchronised before and after
-each, so the time is the collective's own).
+(or no process group) makes every call a no-op. Each collective is a
+``collective`` span (``trace.py``).
 """
 
 from __future__ import annotations
@@ -36,15 +33,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from typing import Iterable
 
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = {"calls": 0, "seconds": 0.0}
+from articulatory_tpu_torch import trace
+
 SOLO = "solo"  # a group of this rank alone: every collective on it is a no-op
-_TIMED = bool(os.environ.get("ARTICULATORY_TIME_COLLECTIVES"))
 _LAYOUT: "Layout | None" = None
 
 
@@ -198,17 +194,8 @@ def group_size(group=None) -> int:
 
 
 def _collective(fn, tensor: torch.Tensor, *args, **kwargs) -> None:
-    COLLECTIVES["calls"] += 1
-    if not _TIMED:
+    with trace.span("collective"):
         fn(tensor, *args, **kwargs)
-        return
-    if tensor.is_cuda:
-        torch.cuda.synchronize(tensor.device)
-    start = time.perf_counter()
-    fn(tensor, *args, **kwargs)
-    if tensor.is_cuda:
-        torch.cuda.synchronize(tensor.device)
-    COLLECTIVES["seconds"] += time.perf_counter() - start
 
 
 def all_reduce(tensor: torch.Tensor, group=None, op=None) -> torch.Tensor:

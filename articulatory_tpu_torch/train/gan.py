@@ -70,6 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from articulatory_tpu_torch import trace
 from articulatory_tpu_torch.layers.norm import BatchNorm, frozen_stats
 from articulatory_tpu_torch.losses import (
     DiscriminatorAdversarialLoss,
@@ -266,9 +267,11 @@ def _forward(generator: nn.Module, batch: dict,
     activations are dropped after the forward and recomputed in the
     backward, from the same arguments (the noise drawn once, outside)."""
     args, kwargs = _inputs(generator, batch, draws, tag)
-    if remat:
-        return checkpoint(generator, *args, use_reentrant=False, **kwargs)
-    return generator(*args, **kwargs)
+    with trace.span("generator"):
+        if remat:
+            return checkpoint(generator, *args, use_reentrant=False,
+                              **kwargs)
+        return generator(*args, **kwargs)
 
 
 def has_mutables(generator: nn.Module) -> bool:
@@ -316,9 +319,10 @@ def target(state: GANTrainState, batch: dict) -> torch.Tensor:
 def discriminate(discriminator: nn.Module, x: torch.Tensor,
                  offsets: list[int] | None = None):
     """The discriminator's outputs; a random-window one reads ``offsets``."""
-    if type(discriminator).__name__ in RNG_DISCRIMINATORS:
-        return discriminator(x, offsets)
-    return discriminator(x)
+    with trace.span("discriminator"):
+        if type(discriminator).__name__ in RNG_DISCRIMINATORS:
+            return discriminator(x, offsets)
+        return discriminator(x)
 
 
 def _offsets(state: GANTrainState, x: torch.Tensor, tag: str):
@@ -356,23 +360,24 @@ def _aux_loss(criterion: GANCriterion, y_, y, prefix: str,
               y_mb_: torch.Tensor | None = None) -> tuple:
     """Aux losses of the (synthesised) y_ against y; ``y_mb_`` the
     sub-bands of a multi-band generator."""
-    aux, metrics = 0.0, {}
-    if criterion.use_stft_loss:
-        sc, mag = criterion.stft(_squeeze_c(y_), _squeeze_c(y))
-        metrics[f"{prefix}/spectral_convergence_loss"] = sc
-        metrics[f"{prefix}/log_stft_magnitude_loss"] = mag
-        aux = aux + sc + mag
-    if criterion.use_subband_stft_loss:
-        y_mb = criterion.pqmf.to(y.device).analysis(y)
-        sub_sc, sub_mag = criterion.sub_stft(y_mb_, y_mb)
-        metrics[f"{prefix}/sub_spectral_convergence_loss"] = sub_sc
-        metrics[f"{prefix}/sub_log_stft_magnitude_loss"] = sub_mag
-        aux = aux * 0.5 + 0.5 * (sub_sc + sub_mag)
-    if criterion.use_mel_loss:
-        mel_l = criterion.mel_loss(y_, y)
-        metrics[f"{prefix}/mel_loss"] = mel_l
-        aux = aux + mel_l
-    return aux, metrics
+    with trace.span("aux_loss"):
+        aux, metrics = 0.0, {}
+        if criterion.use_stft_loss:
+            sc, mag = criterion.stft(_squeeze_c(y_), _squeeze_c(y))
+            metrics[f"{prefix}/spectral_convergence_loss"] = sc
+            metrics[f"{prefix}/log_stft_magnitude_loss"] = mag
+            aux = aux + sc + mag
+        if criterion.use_subband_stft_loss:
+            y_mb = criterion.pqmf.to(y.device).analysis(y)
+            sub_sc, sub_mag = criterion.sub_stft(y_mb_, y_mb)
+            metrics[f"{prefix}/sub_spectral_convergence_loss"] = sub_sc
+            metrics[f"{prefix}/sub_log_stft_magnitude_loss"] = sub_mag
+            aux = aux * 0.5 + 0.5 * (sub_sc + sub_mag)
+        if criterion.use_mel_loss:
+            mel_l = criterion.mel_loss(y_, y)
+            metrics[f"{prefix}/mel_loss"] = mel_l
+            aux = aux + mel_l
+        return aux, metrics
 
 
 def generator_loss(state: GANTrainState, criterion: GANCriterion,
@@ -428,13 +433,18 @@ def discriminator_loss(state: GANTrainState, criterion: GANCriterion,
 
 def make_train_step(criterion: GANCriterion, config: dict):
     """``train_step(state, batch, lr_g, lr_d) -> metrics``; updates the
-    state's modules and optimizers in place and advances ``state.steps``."""
+    state's modules and optimizers in place and advances ``state.steps``.
+    Each step's phases (``trace.PHASES``, those that run) are accounted and
+    spanned by ``trace.StepAccount``, keyed by ``state.steps`` as the step
+    begins."""
     gen_start = int(config.get("generator_train_start_steps", 0))
     disc_start = int(config.get("discriminator_train_start_steps", 0))
     _check_fuse_disc(config)
 
     def train_step(state: GANTrainState, batch: dict, lr_g: float,
                    lr_d: float) -> dict:
+        account = trace.StepAccount(
+            state.steps, next(state.generator.parameters()).device)
         state.draws.at(state.steps)
         lay = mesh.layout()
         gen_on = state.steps > gen_start
@@ -442,40 +452,49 @@ def make_train_step(criterion: GANCriterion, config: dict):
         # BatchNorm statistics move only with a generator update
         keep = (contextlib.nullcontext() if gen_on
                 else frozen_stats(state.generator))
-        with torch.set_grad_enabled(gen_on), keep:
+        with (account.phase("generator_loss"), torch.set_grad_enabled(gen_on),
+              keep):
             gen_loss, metrics = generator_loss(state, criterion, config,
                                                batch)
         if gen_on:
             params = state.opt_g.params
-            grads = torch.autograd.grad(gen_loss, params, allow_unused=True)
-            for p, g in zip(params, grads):
-                p.grad = torch.zeros_like(p) if g is None else g
-            mesh.all_reduce_grads(params, lay.dp_group)
-            if getattr(state.generator, "tp", None) is not None:
-                tp.sync_replicated_grads(state.generator)
-            state.opt_g.step(lr_g)
-            state.opt_g.zero_grad()
+            with account.phase("generator_backward"):
+                grads = torch.autograd.grad(gen_loss, params,
+                                            allow_unused=True)
+                for p, g in zip(params, grads):
+                    p.grad = torch.zeros_like(p) if g is None else g
+                mesh.all_reduce_grads(params, lay.dp_group)
+                if getattr(state.generator, "tp", None) is not None:
+                    tp.sync_replicated_grads(state.generator)
+            with account.phase("generator_update"):
+                state.opt_g.step(lr_g)
+                state.opt_g.zero_grad()
 
         # the fake from the updated generator, in training mode, without
         # moving the BatchNorm statistics
-        with torch.no_grad(), frozen_stats(state.generator):
+        with (account.phase("regeneration"), torch.no_grad(),
+              frozen_stats(state.generator)):
             y2_ = synthesize(criterion, generate(
                 state.generator, batch, state.draws, "regeneration",
                 state.generator2))
-        with torch.set_grad_enabled(disc_on):
+        with account.phase("discriminator_loss"), torch.set_grad_enabled(
+                disc_on):
             dis_loss, dmetrics = discriminator_loss(state, criterion, config,
                                                     batch, y2_)
         metrics.update(dmetrics)
         if disc_on:
-            state.opt_d.zero_grad()
-            dis_loss.backward()
-            mesh.all_reduce_grads(state.opt_d.params, lay.dp_group)
-            # replicated across a TP group: its first rank's gradients
-            mesh.follow_first([p.grad for p in state.opt_d.params
-                               if p.grad is not None], lay.tp_group)
-            state.opt_d.step(lr_d)
-            state.opt_d.zero_grad()
+            with account.phase("discriminator_backward"):
+                state.opt_d.zero_grad()
+                dis_loss.backward()
+                mesh.all_reduce_grads(state.opt_d.params, lay.dp_group)
+                # replicated across a TP group: its first rank's gradients
+                mesh.follow_first([p.grad for p in state.opt_d.params
+                                   if p.grad is not None], lay.tp_group)
+            with account.phase("discriminator_update"):
+                state.opt_d.step(lr_d)
+                state.opt_d.zero_grad()
         state.steps += 1
+        account.close()
         return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
                 for k, v in metrics.items()}
 

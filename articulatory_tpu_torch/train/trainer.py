@@ -21,7 +21,10 @@
   ``Trainer.profiler`` for its ``key_averages()``. On a card the device is
   synchronised at both ends, and the window opens with PROFILE_LEAD_S of
   idle host time (the profiler drops device records it dates before its
-  start, and now and then dates the first ones early).
+  start, and now and then dates the first ones early). The trace holds the
+  port's spans (``trace.py``): ``train_step/<phase>`` for each phase of the
+  step, and inside them ``generator``, ``discriminator``, ``aux_loss``,
+  ``collective`` and ``recompute_grads:<kernel>``.
 - SIGTERM (a preemption notice) lets the current step finish, then the
   run's last checkpoint, ``checkpoint-<steps>steps.ckpt``, is written and
   ``run`` returns. The handler is installed only in the main thread, and
@@ -31,7 +34,11 @@
   takes the JAX trainer's scalars under its tags: each averaged training
   metric, ``train/steps_per_sec``, ``train/samples_per_sec_per_chip`` and
   ``train/lr_generator`` at every log interval, each averaged ``eval/*``
-  metric at every evaluation.
+  metric at every evaluation. At every log interval rank 0 also logs and
+  writes ``time/<phase>_ms``: the device ms of each phase of the step
+  (``trace.PHASES``), averaged over the interval's steps that ran it, from
+  the step's phase account (``trace.StepAccount``). That is where an
+  operator reads which phase a step's time goes to, with no profiler on.
 - Every evaluation writes the first dev batch's first
   ``num_save_intermediate_results`` (default 4) utterances to
   ``<outdir>/predictions/<steps>steps/``: ``<i>.png`` (target above the
@@ -67,6 +74,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from articulatory_tpu_torch import trace
 from articulatory_tpu_torch.parallel import mesh
 from articulatory_tpu_torch.utils.checkpoint import save_checkpoint
 from articulatory_tpu_torch.utils.io import write_wav
@@ -126,6 +134,7 @@ class Trainer:
         self._train_count = 0
         self._pending_sched: dict = {}
         self._last_log_time = time.time()
+        self._traced = trace.resolved()  # steps accounted before this log
         self.best_mel_loss = 1.0e6
         best_path = os.path.join(outdir, "best_mel_step.txt")
         if os.path.exists(best_path):
@@ -283,9 +292,25 @@ class Trainer:
                          steps_per_sec * samples_per_step
                          / mesh.cards(self.device))
         self._scalar("train/lr_generator", self.schedulers["generator"].lr)
+        self._log_phases()
         self.total_train_loss = defaultdict(float)
         self._train_count = 0
         self._last_log_time = time.time()
+
+    def _log_phases(self) -> None:
+        """``time/<phase>_ms`` over the steps accounted since the last log
+        (the averages read above waited for the device, so every step of
+        the interval is resolved)."""
+        phases = [p for _, p in trace.records(self._traced)]
+        self._traced = trace.resolved()
+        if not self.is_main:
+            return
+        for name in trace.PHASES:
+            ms = trace.mean_ms([p for p in phases if name in p], (name,))
+            if ms is not None:
+                logging.info(f"(Steps: {self.steps}) time/{name}_ms = "
+                             f"{ms:.3f}.")
+                self._scalar(f"time/{name}_ms", ms)
 
     def _check_eval_interval(self) -> None:
         if self.steps % self.config.get("eval_interval_steps", 1000) == 0:

@@ -4053,6 +4053,22 @@ def rank_worker(workdir: str) -> int:
     records, grads, keep = [], [], {"on": False}
     last_end = [None]
     reduce_grads = mesh.all_reduce_grads
+    # each collective's calls and wall seconds, the device synchronised
+    # before and after it, so the time is the collective's own
+    collectives = {"calls": 0, "seconds": 0.0}
+    collective = mesh._collective
+
+    def timed_collective(fn, tensor, *args, **kwargs):
+        collectives["calls"] += 1
+        if tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        start = time.perf_counter()
+        collective(fn, tensor, *args, **kwargs)
+        if tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        collectives["seconds"] += time.perf_counter() - start
+
+    mesh._collective = timed_collective
 
     def reduce_and_keep(params, group):
         reduce_grads(params, group)
@@ -4096,8 +4112,7 @@ def rank_worker(workdir: str) -> int:
                     os.path.join(workdir, f"batch{rank}.pt"))
                 keep["on"] = True
             reset_counts(port)
-            calls, seconds = (mesh.COLLECTIVES["calls"],
-                              mesh.COLLECTIVES["seconds"])
+            calls, seconds = collectives["calls"], collectives["seconds"]
             torch.cuda.synchronize()
             start = time.perf_counter()
             metrics = step(state, batch, lr_g, lr_d)
@@ -4108,8 +4123,8 @@ def rank_worker(workdir: str) -> int:
             records.append({
                 "step": k, "seconds": elapsed, "gap_seconds": gap,
                 "launches": counts, "batch_digest": _batch_digest(batch),
-                "collective_calls": mesh.COLLECTIVES["calls"] - calls,
-                "collective_seconds": mesh.COLLECTIVES["seconds"] - seconds,
+                "collective_calls": collectives["calls"] - calls,
+                "collective_seconds": collectives["seconds"] - seconds,
                 "digest": _digest(list(gen.values()) + list(
                     state.discriminator.state_dict().values())),
                 "generator_loss": float(metrics["train/generator_loss"])})
@@ -4197,8 +4212,8 @@ def phase_parallel(port: dict, mode: str, seed: int, tmp: str) -> dict:
     with open(os.path.join(workdir, "spec.json"), "w") as f:
         json.dump({"argv": argv}, f)
     torch.cuda.empty_cache()
-    env = dict(os.environ, ARTICULATORY_TIME_COLLECTIVES="1",
-               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
     start = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "articulatory_tpu_torch.distributed.launch",

@@ -1,0 +1,21 @@
+"""Device ms a step of the forward phases of the port's own step account
+(``articulatory_tpu_torch/trace.py``): ``generator_loss``, ``regeneration``
+and ``discriminator_loss``, over the untraced phase's steps. Each phase's
+device ms runs from the event before it to the event after it on the
+stream, so it holds the phase's device work and the time the device waited
+for its launches. None where the port keeps no such account."""
+
+PHASES = ("generator_loss", "regeneration", "discriminator_loss")
+
+
+def read(run):
+    try:
+        from articulatory_tpu_torch import trace
+    except ImportError:
+        return None
+    phase = run.phase("host")
+    if phase is None:
+        return None
+    lo = run.cell.traffic["warm_steps"]
+    return trace.mean_ms(trace.steps(lo, lo + phase.counts["steps"]).values(),
+                         PHASES)

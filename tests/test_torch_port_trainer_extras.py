@@ -184,6 +184,19 @@ def test_profile_window_writes_a_trace(tmp_path):
     assert (out / "profile" / "trace-0-10.json").exists()
 
 
+def test_profile_trace_holds_the_step_spans(tmp_path):
+    _dump(tmp_path)
+    out = tmp_path / "exp"
+    # step 2 updates both models (generator_train_start_steps 1)
+    config = dict(CONFIG, train_max_steps=3, profile_steps=[2, 3])
+    train_cli.train(config, outdir=str(out), device="cpu", **_dirs(tmp_path))
+    text = (out / "profile" / "trace-2-3.json").read_text()
+    for name in ("train_step/generator_backward",
+                 "train_step/discriminator_update", "generator",
+                 "discriminator", "aux_loss"):
+        assert f'"name": "{name}"' in text, name
+
+
 def _jax_trees(seed, dtype=np.float32):
     """Seeded JAX generator and discriminator param trees of the test's
     configuration (shapes from ``jax.eval_shape``)."""
