@@ -1,8 +1,11 @@
-"""Backward by recomputation, shared by the kernels' ``autograd.Function``s.
+"""Backward by recomputation, for the kernels that have no backward kernel.
 
-The JAX package has no backward kernel for either TPU kernel, so a kernel's
-backward here recomputes its plain PyTorch version under autograd from the
-saved inputs and differentiates that. It costs one extra plain forward and
+The JAX package has no backward kernel for either TPU kernel. The scale
+discriminator head's ``autograd.Function`` (both devices) and the residual
+pair's in bfloat16 on the card (the hybrid's stages) recompute their plain
+PyTorch version under autograd from the saved inputs and differentiate
+that; the f32 pair has its own backward kernels, and a CPU pair its plain
+gradients (``ops/resblock_pair.py``). It costs one extra plain forward and
 keeps no intermediate activation between forward and backward. Each
 recomputation is a span ``recompute_grads:<plain's name>`` (``trace.py``),
 so a profiled step can attribute the kernels it launches.

@@ -32,11 +32,21 @@ dispatcher, whose Python autograd layer would add host time to every launch.
 ``split_tf32.launches`` the prep kernel's.
 
 Gradients: the JAX package has no backward for this kernel (its models
-differentiate through XLA convs). The backward recomputes
+differentiate through XLA convs). ``ResblockPairFunction.backward`` calls
+``resblock_pair_backward``: on a CPU tensor ``resblock_pair_backward_plain``
+(the gradients' formulas in plain PyTorch); on a float32 CUDA tensor
+``_launch_backward``, the hand kernels of ``csrc/resblock_pair_backward.cu``
+(3xTF32 wgmma: h recomputed in the kernel, the data gradient as the
+forward's implicit GEMMs, the weight gradient split over rows with partial
+sums added in a fixed order, so bit-equal from call to call; an h within
+the sums' error of 0 takes its lrelu' from an exact f64 sum), which compute
+only the gradients asked for (none of the weights' for frozen weights) and
+zero-pad C as ``_launch`` does; a bfloat16 CUDA tensor still recomputes
 ``resblock_pair_plain`` under autograd and differentiates it
-(``ops/_recompute.py``), one extra plain forward and no intermediate
-activation kept. ``_launch`` is a module function, so a test can stand the
-plain version in for the kernel.
+(``ops/_recompute.py``). ``resblock_pair_backward.
+launches`` counts the kernels' backwards (``launches_by_dtype`` apart).
+``_launch`` and ``_launch_backward`` are module functions, so a test can
+stand the plain versions in for the kernels.
 """
 
 from __future__ import annotations
@@ -63,6 +73,49 @@ def resblock_pair_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
                padding=(k1 - 1) // 2 * dilation, dilation=dilation)
     y = conv1d(F.leaky_relu(h, negative_slope), w2, b2, padding=(k2 - 1) // 2)
     return x + y
+
+
+def resblock_pair_backward_plain(x, w1, b1, w2, b2, gy, *, dilation: int,
+                                 negative_slope: float = 0.1,
+                                 needs=(True,) * 5) -> list:
+    """The pair's gradients in plain PyTorch, from its inputs and gy =
+    dL/dy: ``[dx, dw1, db1, dw2, db2]``, None where ``needs`` (one flag per
+    input, as ``ctx.needs_input_grad``) is off or the bias is None. For
+    ``a = lrelu(x)``, ``h = conv1(a) + b1``, ``g = lrelu(h)``:
+    ``dg = conv2^T(gy)``, ``dh = dg lrelu'(h)``, ``dx = gy + lrelu'(x)
+    conv1^T(dh)``, ``dw2[k] = sum g[t + k - p2]^T gy[t]``, ``dw1[k] = sum
+    a[t + (k - p1) d]^T dh[t]``, ``db2 = sum gy``, ``db1 = sum dh``, rows
+    outside [0, T) zero. lrelu'(v) is 1 where v > 0, else the slope (as
+    PyTorch's leaky_relu backward)."""
+    k1, k2 = w1.shape[0], w2.shape[0]
+    p1, p2 = (k1 - 1) // 2 * dilation, (k2 - 1) // 2
+    t = x.shape[1]
+    slope = torch.tensor(negative_slope, dtype=x.dtype)
+    a = F.leaky_relu(x, negative_slope)
+    h = conv1d(a, w1, b1, padding=p1, dilation=dilation)
+    dg = conv1d(gy, w2.flip(0).transpose(1, 2), None, padding=p2)
+    dh = dg * torch.where(h > 0, 1, slope)
+    need_x, need_w1, need_b1, need_w2, need_b2 = (
+        n and v is not None for n, v in zip(needs, (x, w1, b1, w2, b2)))
+    dx = dw1 = db1 = dw2 = db2 = None
+    if need_x:
+        da = conv1d(dh, w1.flip(0).transpose(1, 2), None, padding=p1,
+                    dilation=dilation)
+        dx = gy + torch.where(x > 0, 1, slope) * da
+    if need_w1:
+        ap = F.pad(a, (0, 0, p1, p1))
+        dw1 = torch.stack([torch.einsum("bti,bto->io",
+                                        ap[:, j * dilation:j * dilation + t], dh)
+                           for j in range(k1)])
+    if need_w2:
+        gp = F.pad(F.leaky_relu(h, negative_slope), (0, 0, p2, p2))
+        dw2 = torch.stack([torch.einsum("bti,bto->io", gp[:, j:j + t], gy)
+                           for j in range(k2)])
+    if need_b1:
+        db1 = dh.sum((0, 1))
+    if need_b2:
+        db2 = gy.sum((0, 1))
+    return [dx, dw1, db1, dw2, db2]
 
 
 # widest C the kernel takes, and the multiple it takes C in per dtype
@@ -257,10 +310,106 @@ def _launch(x, w1, b1, w2, b2, dilation, negative_slope):
     return y
 
 
+@functools.cache
+def _backward_kernels() -> dict[str, ctypes._CFuncPtr]:
+    """The backward's entry ("f32") and its workspace query."""
+    lib = _build.library("resblock_pair_backward")
+    fn = lib.resblock_pair_backward_f32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_size_t] + [
+        ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.resblock_pair_backward_workspace
+    size.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_size_t)]
+    size.restype = ctypes.c_int
+    return {"f32": fn, "workspace": size}
+
+
+@functools.lru_cache(maxsize=1024)
+def _backward_workspace(device: int, *shape) -> int:
+    """Bytes of workspace the backward takes at ``shape`` (batch, T, C, k1,
+    k2, dilation, need_w1, need_w2) on ``device``, the current one."""
+    size = ctypes.c_size_t(0)
+    rc = _backward_kernels()["workspace"](*shape, ctypes.byref(size))
+    if rc != 0:
+        raise _launch_error(rc, f"resblock_pair backward plan for {shape}")
+    return size.value
+
+
+def _launch_backward(x, w1, b1, w2, b2, gy, dilation, negative_slope,
+                     needs) -> list:
+    """The backward kernels on float32 CUDA tensors that passed ``_check``:
+    ``[dx, dw1, db1, dw2, db2]`` as ``resblock_pair_backward_plain``."""
+    needs = [n and v is not None for n, v in zip(needs, (x, w1, b1, w2, b2))]
+    c = x.shape[2]
+    if c % F32_CHANNEL_MULTIPLE:
+        padded = pad_channels(x, w1, b1, w2, b2, F32_CHANNEL_MULTIPLE)
+        grads = _launch_backward(*padded, F.pad(gy, (0, padded[0].shape[2] - c)),
+                                 dilation, negative_slope, needs)
+        cut = (lambda g: g[..., :c], lambda g: g[:, :c, :c], lambda g: g[:c])
+        return [None if g is None else cut[kind](g).contiguous()
+                for g, kind in zip(grads, (0, 1, 2, 1, 2))]
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch_backward(x, w1, b1, w2, b2, gy, dilation,
+                                    negative_slope, needs)
+    gy = gy.contiguous()
+    made = [torch.empty_like(v) if n else None
+            for n, v in zip(needs, (x, w1, b1, w2, b2))]
+    if x.numel() == 0:
+        return [None if g is None else g.zero_() for g in made]
+    bsz, t, _ = x.shape
+    k1, k2 = w1.shape[0], w2.shape[0]
+    need_w1, need_w2 = needs[1] or needs[2], needs[3] or needs[4]
+    shape = (bsz, t, c, k1, k2, dilation, int(need_w1), int(need_w2))
+    ws = torch.empty(_backward_workspace(x.device.index, *shape),
+                     dtype=torch.uint8, device=x.device)
+    ptr = [None if g is None else g.data_ptr() for g in made]
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    rc = _backward_kernels()["f32"](
+        x.data_ptr(), gy.data_ptr(), w1.data_ptr(),
+        None if b1 is None else b1.data_ptr(), w2.data_ptr(), *ptr,
+        ws.data_ptr(), ws.numel(), bsz, t, c, k1, k2, dilation,
+        negative_slope, stream)
+    if rc != 0:
+        raise _launch_error(rc, f"resblock_pair backward for x "
+                                f"{tuple(x.shape)}, K ({k1}, {k2}), "
+                                f"dilation {dilation}")
+    return made
+
+
+def resblock_pair_backward(x, w1, b1, w2, b2, gy, *, dilation: int,
+                           negative_slope: float = 0.1,
+                           needs=(True,) * 5) -> list:
+    """The pair's gradients ``[dx, dw1, db1, dw2, db2]`` (None where not
+    needed), as ``resblock_pair_backward_plain``: a CPU tensor runs that; a
+    float32 CUDA tensor the backward kernels (counted in ``launches``); any
+    other raises."""
+    if x.device.type == "cpu":
+        return resblock_pair_backward_plain(
+            x, w1, b1, w2, b2, gy, dilation=dilation,
+            negative_slope=negative_slope, needs=needs)
+    _check(x, w1, b1, w2, b2, dilation)
+    if x.dtype != torch.float32 or gy.shape != x.shape or gy.dtype != x.dtype:
+        raise TypeError(f"the backward kernels take float32 x and gy of x's "
+                        f"shape, got x {x.dtype}, gy {gy.dtype} "
+                        f"{tuple(gy.shape)}")
+    grads = _launch_backward(x, w1, b1, w2, b2, gy, dilation, negative_slope,
+                             needs)
+    resblock_pair_backward.launches += 1
+    resblock_pair_backward.launches_by_dtype[str(x.dtype)] += 1
+    return grads
+
+
+resblock_pair_backward.launches = 0
+resblock_pair_backward.launches_by_dtype = collections.Counter()
+
+
 class ResblockPairFunction(torch.autograd.Function):
-    """Forward: ``_launch`` (the kernel). Backward: the plain pair
-    recomputed under autograd, differentiated with respect to every input
-    that needs a gradient. The op's autograd is the same backward."""
+    """Forward: ``_launch`` (the kernel). Backward: ``resblock_pair_backward``
+    for the inputs that need a gradient (the backward kernels on a float32
+    CUDA tensor, the plain gradients on a CPU tensor); a bfloat16 CUDA
+    tensor recomputes the plain pair under autograd and differentiates it.
+    The op's autograd is the same backward."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, dilation, negative_slope):
@@ -270,11 +419,14 @@ class ResblockPairFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        return (*recompute_grads(resblock_pair_plain, ctx.saved_tensors,
-                                 ctx.needs_input_grad[:5], gy,
-                                 dilation=ctx.dilation,
-                                 negative_slope=ctx.negative_slope),
-                None, None)
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad[:5]
+        kwargs = dict(dilation=ctx.dilation, negative_slope=ctx.negative_slope)
+        if saved[0].is_cuda and saved[0].dtype == torch.bfloat16:
+            grads = recompute_grads(resblock_pair_plain, saved, needs, gy,
+                                    **kwargs)
+        else:
+            grads = resblock_pair_backward(*saved, gy, needs=needs, **kwargs)
+        return (*grads, None, None)
 
 
 # A registered op, so that tracing keeps the pair as one node of the graph.

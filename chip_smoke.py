@@ -73,7 +73,9 @@ Phases, each raising on failure:
    weight split, ``split_weights``, held bit for bit against
    ``split_weights_plain`` and timed alone beside it), with the 3xTF32 and
    the FMA bound; the host's time per head launch; and ``resblock_pair``
-   at the training path's 36 shapes (B 64, 25 frames);
+   at the training path's 36 shapes (B 64, 25 frames); [pair-backward]:
+   the f32 pair's backward kernels at the same shapes against their bound
+   and the backward by recomputation ([mri-pair-backward] at MRI's);
 6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
    utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
    every loss finite, (b) every generator and discriminator parameter
@@ -172,11 +174,12 @@ Phases, each raising on failure:
    ``bin/train.py`` run, ``bin/decode.py`` of the dev and eval sets,
    ``bin/compute_mcd.py``: finite), then stage 2 in this process
    (e2w_hifigan_car.yaml as it stands, format npy, from the corpus cache
-   on the card, with a profiled step: 72 pair and 12 head kernels counted,
-   the device time split into pair kernels, head kernels, convolutions and
-   the rest, the busy share; the step from the cache, the host loader and
-   the native loader in turns; the device time under the kernels'
-   recompute backward in the profiled step; SizeAwareSampler with
+   on the card, with a profiled step: 72 pair, 36 pair backward and 12
+   head kernels counted, the device time split into pair kernels, pair
+   backward kernels, head kernels, convolutions and the rest, the busy
+   share; the step from the cache, the host loader and the native loader
+   in turns; the device time under the heads' recompute backward in the
+   profiled step (no pair is recomputed); SizeAwareSampler with
    remove_short_samples), preemption (SIGTERM to ``bin/train.py``, exit 0,
    the checkpoint at its step, ``--resume``);
 20. hybrid-train (run right after phase 6): the JAX package's default
@@ -430,6 +433,8 @@ W2A_F64_TOL = 1e-4  # f32 against float64, of max |y|
 # join a round, 10 rounds at 16, a drain to 4 with a leave a round, 10
 # rounds at 4), and the AR BiGRU on the same schedule
 STREAM_LANES = 16
+# calls a backward shape is timed over, after one warm-up call
+PAIR_BACKWARD_CALLS = 5
 
 
 def log(msg: str) -> None:
@@ -482,6 +487,70 @@ def pair_times_ms(b, t, c, k, dtype) -> tuple[float, float, float]:
     ops_ms = (TF32_PRODUCTS * flops / PEAK_TF32 * 1e3
               if dtype == torch.float32 else flops / PEAK_FLOPS[dtype] * 1e3)
     return ops_ms, nbytes / PEAK_BYTES * 1e3, fma_ms
+
+
+def pair_backward_bound_ms(b, t, c, k) -> float:
+    """Least time for one f32 pair's gradients: the two data and two weight
+    gradient convolutions (8 b t c^2 k flops, three tf32 products a
+    multiply-add over the TF32 peak) or their bytes (x and gy in, dx out,
+    both kernels in and their gradients and the biases' out), whichever is
+    larger."""
+    ops_ms = TF32_PRODUCTS * 8.0 * b * t * c * c * k / PEAK_TF32 * 1e3
+    nbytes = (3.0 * b * t * c + 4.0 * k * c * c + 2.0 * c) * 4
+    return max(ops_ms, nbytes / PEAK_BYTES * 1e3)
+
+
+def phase_pair_backward(tag: str, seed: int, batch: int, frames: int,
+                        gp: dict = GENERATOR_PARAMS) -> dict:
+    """[<tag>] the f32 pair's backward kernels (``resblock_pair_backward``,
+    every gradient) at each (stage, K, d) of ``gp`` at ``batch`` x
+    ``frames``: device ms by CUDA events over PAIR_BACKWARD_CALLS calls,
+    beside the bound and the backward by recomputation (the plain pair
+    through cuDNN under autograd, then its gradient) timed the same way."""
+    from articulatory_tpu_torch.ops._recompute import recompute_grads
+    from articulatory_tpu_torch.ops.resblock_pair import (
+        resblock_pair_backward,
+        resblock_pair_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scales, rows = gp["upsample_scales"], []
+    for stage in range(len(scales)):
+        c = gp["channels"] // 2 ** (stage + 1)
+        t = frames * int(np.prod(scales[: stage + 1]))
+        for k in gp["resblock_kernel_sizes"]:
+            for d in gp["resblock_dilations"][0]:
+                scale = (1.0 / (c * k)) ** 0.5
+                x, gy = (torch.randn(batch, t, c, device="cuda", generator=gen)
+                         for _ in range(2))
+                w1, w2 = (torch.randn(k, c, c, device="cuda", generator=gen)
+                          * scale for _ in range(2))
+                b1, b2 = (0.1 * torch.randn(c, device="cuda", generator=gen)
+                          for _ in range(2))
+                saved = (x, w1, b1, w2, b2)
+                kernel_ms = time_ms(lambda: resblock_pair_backward(
+                    *saved, gy, dilation=d), PAIR_BACKWARD_CALLS)
+                plain_ms = time_ms(lambda: recompute_grads(
+                    resblock_pair_plain, saved, (True,) * 5, gy, dilation=d,
+                    negative_slope=0.1), PAIR_BACKWARD_CALLS)
+                rows.append({"stage": stage, "B": batch, "T": t, "C": c,
+                             "K": k, "d": d, "kernel_ms": kernel_ms,
+                             "plain_ms": plain_ms,
+                             "bound_ms": pair_backward_bound_ms(batch, t, c,
+                                                                k)})
+    sums = {key: sum(r[key] for r in rows)
+            for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    for stage in sorted({r["stage"] for r in rows}):
+        part = [r for r in rows if r["stage"] == stage]
+        log(f"[{tag}]   stage {stage} (C {part[0]['C']}, T {part[0]['T']}): "
+            f"kernel {sum(r['kernel_ms'] for r in part):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in part):.3f}, plain "
+            f"{sum(r['plain_ms'] for r in part):.3f}")
+    log(f"[{tag}] f32 pair backward, {len(rows)} shapes at B={batch}: kernel "
+        f"{sums['kernel_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms (3xTF32, "
+        f"operations; {100 * sums['bound_ms'] / sums['kernel_ms']:.1f} %), "
+        f"plain recompute {sums['plain_ms']:.3f} ms")
+    return {"shapes": rows, "totals": sums}
 
 
 def phase_device() -> tuple[str, str]:
@@ -1740,11 +1809,17 @@ def phase_hybrid_train(port: dict, seed: int, tmp: str) -> dict:
         steps["hybrid"](states["hybrid"], batch, 1e-4, 1e-4)
         torch.cuda.synchronize()
     profiled = _device_split(prof)
+    # the last stage's 9 f32 pairs differentiate on the backward kernels
+    # (a split, data and weight gradients and reductions each), the 27 bf16
+    # pairs by recomputation
     want = {"resblock_pair_wgmma": 72, "split_tf32_kernel": 18,
-            "scale_disc_head_wgmma": 12, "split_weights_kernel": 12}
+            "scale_disc_head_wgmma": 12, "split_weights_kernel": 12,
+            "pair_bwd_split_kernel": 9, "pair_bwd_hidden_kernel": 9,
+            "pair_bwd_input_kernel": 9, "pair_bwd_weight_kernel": 18,
+            "pair_bwd_reduce_kernel": 18}
     ranges = {k: n for k, (n, _) in profiled["recompute"].items()}
     if profiled["kernel_counts"] != want or ranges != {
-            "resblock_pair_plain": 36, "scale_disc_head_plain": 9}:
+            "resblock_pair_plain": 27, "scale_disc_head_plain": 9}:
         raise AssertionError(f"[hybrid-train] profiled step: kernels "
                              f"{profiled['kernel_counts']}, recompute "
                              f"ranges {ranges}")
@@ -1753,6 +1828,7 @@ def phase_hybrid_train(port: dict, seed: int, tmp: str) -> dict:
         f"{profiled['busy_ms']:.3f} ms of a {profiled['span_ms']:.3f} ms "
         f"span ({100 * profiled['busy_share']:.1f} %); kernels "
         f"{profiled['kernel_ms']:.3f} ms: pair kernels {split['pair']:.3f}, "
+        f"pair backward kernels {split['pair_backward']:.3f}, "
         f"head kernels {split['head']:.3f}, convolutions "
         f"{split['conv']:.3f}, rest {split['rest']:.3f}; under the "
         f"recompute ranges: " + ", ".join(
@@ -3052,6 +3128,12 @@ def phase_mult(port: dict, seed: int, device_name: str) -> dict:
             "chunk_max_abs_err": worst}
 
 
+# the f32 pair's backward (csrc/resblock_pair_backward.cu): the weight
+# splits, the data gradient (h and dh, then dx), the weight gradient and the
+# reduction of its partial sums
+PAIR_BACKWARD_KERNELS = ("pair_bwd_split_kernel", "pair_bwd_hidden_kernel",
+                         "pair_bwd_input_kernel", "pair_bwd_weight_kernel",
+                         "pair_bwd_reduce_kernel")
 # the recipe run end to end on the port alone (phase 19): a synthetic
 # corpus in the EMA recipe's layout (data/<set>/wav.scp, feats.scp of 13-d
 # EMA at 200 Hz); RECIPE_TRAIN utterances of 2-5 s and RECIPE_SHORT shorter
@@ -3066,10 +3148,11 @@ RECIPE_TURN_STEPS = 2
 RECIPE_SAMPLER_STEPS = 3
 RECIPE_SCRIPT_JOBS = 4  # recipe/run.sh's preprocess jobs a set
 # the device split of the profiled step: the hand kernels by name; cuDNN's
-# convolutions (the pairs' recompute backward among them) by the op that
-# launched them
+# convolutions (the heads' and bf16 pairs' recompute backward among them)
+# by the op that launched them
 KERNEL_CLASSES = {"pair": ("resblock_pair_wgmma", "split_tf32_kernel"),
-                  "head": ("scale_disc_head_wgmma", "split_weights_kernel")}
+                  "head": ("scale_disc_head_wgmma", "split_weights_kernel"),
+                  "pair_backward": PAIR_BACKWARD_KERNELS}
 # the profiler ranges of the kernels' recompute backward (ops/_recompute.py)
 RECOMPUTE_RANGE = "recompute_grads:"
 
@@ -3120,8 +3203,9 @@ def _endless(loader):
 
 
 def _device_split(prof) -> dict:
-    """A profiler window's device kernels: their time split into the pair
-    and head kernels (KERNEL_CLASSES), those a convolution op launched (its
+    """A profiler window's device kernels: their time split into the pair,
+    pair backward and head kernels (KERNEL_CLASSES), those a convolution op
+    launched (its
     name holds "conv"; the profiler lists each op's kernels), and the rest;
     the busy share (the union of their intervals over their span); the
     device time under each kernel's recompute backward (``ops/_recompute.py``'s
@@ -3236,6 +3320,7 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
 
     train_cli, pair, head = port["train"], port["resblock_pair"], \
         port["scale_disc_head"]
+    pair_backward = port["resblock_pair_backward"]
     start_all = time.perf_counter()
     stage_s = {}
     wav_dirs = _recipe_corpus(tmp, seed, port["write_wav"])
@@ -3297,15 +3382,19 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
     dirs = dict(train_dumpdir=f"{dump}/tr/norm", dev_dumpdir=f"{dump}/dev/norm",
                 data_root=os.path.join(tmp, "data"))
     outdir = os.path.join(tmp, "exp")
-    pair.launches = head.launches = 0
+    pair.launches = head.launches = pair_backward.launches = 0
     start = time.perf_counter()
     trainer = train_cli.train(config, outdir=outdir, seed=seed,
                               device="cuda", **dirs)
     torch.cuda.synchronize()
     stage_s["train"] = time.perf_counter() - start
     launches = {"resblock_pair": pair.launches,
+                "resblock_pair_backward": pair_backward.launches,
                 "scale_disc_head": head.launches}
+    # the generator's backward runs once its training has started
+    gen_steps = RECIPE_STEPS - 1 - config["generator_train_start_steps"]
     expected = {"resblock_pair": 72 * RECIPE_STEPS,
+                "resblock_pair_backward": 36 * gen_steps,
                 "scale_disc_head": 12 * RECIPE_STEPS}
     if launches != expected:
         raise AssertionError(f"[recipe] launches {launches}, expected "
@@ -3321,8 +3410,8 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
         raise AssertionError(f"[recipe] losses not finite: {losses}")
     profiled = _device_split(trainer.profiler)
     counted = profiled["kernel_counts"]
-    if (counted["resblock_pair_wgmma"], counted["scale_disc_head_wgmma"]) \
-            != (72, 12):
+    if (counted["resblock_pair_wgmma"], counted["pair_bwd_hidden_kernel"],
+            counted["scale_disc_head_wgmma"]) != (72, 36, 12):
         raise AssertionError(f"[recipe] profiled step counted {counted}")
     split = profiled["split_ms"]
     log(f"[recipe] corpus cache: {cache.n_utts} utterances, "
@@ -3334,19 +3423,21 @@ def phase_recipe(port: dict, seed: int, device_name: str, tmp: str) -> dict:
         f"({100 * profiled['busy_share']:.1f} %, the profiler's host "
         f"overhead in it); pair kernels {split['pair']:.3f} ms, head "
         f"kernels {split['head']:.3f} ms, convolutions {split['conv']:.3f} "
-        f"ms, rest {split['rest']:.3f} ms; "
-        f"{counted['resblock_pair_wgmma']} pairs, "
+        f"ms, pair backward kernels {split['pair_backward']:.3f} ms, rest "
+        f"{split['rest']:.3f} ms; {counted['resblock_pair_wgmma']} pairs, "
+        f"{counted['pair_bwd_hidden_kernel']} pair backwards, "
         f"{counted['scale_disc_head_wgmma']} heads; (kernels, ms) a stream "
         + ", ".join(f"{k}: {n} {ms:.3f}"
                     for k, (n, ms) in profiled["streams"].items()))
     for op in profiled["top_ops"]:
         log(f"[recipe]   {op['ms']:9.3f} ms {op['calls']:5d} x {op['name']}")
-    # one backward for each pass with grad: 36 generator pairs; 3 scales'
-    # heads in the generator loss's fake pass and in the discriminator's
-    # real and fake passes (the feature-matching real pass has no grad)
+    # one backward for each pass with grad: the 36 generator pairs on their
+    # backward kernels, nothing recomputed; 3 scales' heads recomputed in
+    # the generator loss's fake pass and in the discriminator's real and
+    # fake passes (the feature-matching real pass has no grad)
     recompute = profiled["recompute"]
     if {k: n for k, (n, _) in recompute.items()} != {
-            "resblock_pair_plain": 36, "scale_disc_head_plain": 9}:
+            "scale_disc_head_plain": 9}:
         raise AssertionError(f"[recipe] recompute ranges {recompute}")
     log("[recipe] recompute backward in the profiled step (device ms of "
         "the kernels under its ranges): " + ", ".join(
@@ -5104,6 +5195,7 @@ def training_port() -> dict:
         train=train, gan=gan, inference=inference, residual=residual,
         hifigan=hifigan, build_model=build_model, to_device=to_device,
         resblock_pair=pair.resblock_pair,
+        resblock_pair_backward=pair.resblock_pair_backward,
         resblock_pair_plain=pair.resblock_pair_plain,
         split_tf32=pair.split_tf32, scale_disc_head=head.scale_disc_head,
         split_weights=head.split_weights,
@@ -5209,6 +5301,8 @@ def main() -> int:
         log(f"[kernel] {dtype}: 36 training shapes at B={batch}: "
             f"{sum_line(dtype, sums)}")
     log_stage_sums(train_stages, batch)
+    train_backward = phase_pair_backward("pair-backward", args.seed, batch,
+                                         train_frames)
     port = dict(inference=inference, residual=residual,
                 resblock_pair=resblock_pair, plain=resblock_pair_plain,
                 split=split_tf32, weights=weights, decode=decode,
@@ -5232,6 +5326,8 @@ def main() -> int:
         log(f"[mri-kernel] {dtype}: 36 MRI shapes at B={MRI_UTTS}, "
             f"{mri_frames} frames: {sum_line(dtype, sums)}")
     log_stage_sums(mri_stages, MRI_UTTS)
+    mri_backward = phase_pair_backward("mri-pair-backward", args.seed,
+                                       MRI_UTTS, mri_frames, gp=mri_gp)
     mri_head_rows = phase_head_kernel(scale_disc_head, scale_disc_head_plain,
                                       (split_weights, split_weights_plain),
                                       args.seed, shapes=MRI_HEAD_SHAPES)
@@ -5622,6 +5718,8 @@ def main() -> int:
                    "kernel_train_shapes": train_rows,
                    "kernel_train_totals": train_sums,
                    "kernel_train_stages": train_stages,
+                   "pair_backward_train": train_backward,
+                   "pair_backward_mri": mri_backward,
                    "head_shapes": head_rows, "slice": slice_results,
                    "train": train_results, "hybrid_train": hybrid,
                    "mri_kernel_shapes": mri_rows,

@@ -10,10 +10,15 @@ pair's gradients are held against ``jax.grad`` of the reference in float64
 (1e-10), and the ``autograd.Function`` the card runs, driven with the plain
 version standing in for the kernel, against plain autograd: before it the
 kernel's output had no ``grad_fn`` and training stopped at the MRF.
+``resblock_pair_backward_plain`` (the backward kernels' yardstick, and the
+Function's backward on a CPU tensor) is held against autograd and
+``jax.grad`` in float64 (1e-10) and gives just the gradients asked for.
 The bf16 kernel's channel padding (``pad_channels``) is held exactly against
 the unpadded pair and against the JAX reference, and ``_forward`` is shown
 to take the bare launch where no gradient is wanted (the decode) and the
 Function where one is."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -143,6 +148,86 @@ def test_plain_grads_match_jax_grad_f64(k, dilation):
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=1e-10,
                                    atol=1e-10)
+
+
+# the recipe's (C, K, d) at small B and T; a T shorter than the halo; C not a
+# multiple of 8 (the kernel's wrapper pads it)
+BACKWARD_SHAPES = [(2, 23, 16, k, d) for k, d in ((3, 1), (7, 3), (11, 5))] + [
+    (1, 5, 8, 11, 5), (2, 19, 12, 7, 3)]
+
+
+@pytest.mark.parametrize("b,t,c,k,dilation", BACKWARD_SHAPES)
+def test_backward_plain_matches_autograd_and_jax_grad(b, t, c, k, dilation):
+    """``resblock_pair_backward_plain``'s formulas against autograd of the
+    plain pair and ``jax.grad`` of the JAX reference, float64 (1e-10)."""
+    rng = np.random.default_rng(100 * k + t)
+    args = [a.astype(np.float64) for a in _pair_inputs(rng, t, c, k)]
+    args[0] = args[0][:b]
+    cot = rng.standard_normal(args[0].shape)
+    with jax.enable_x64(True):
+        want_jax = jax.grad(lambda *a: jnp.sum(resblock_pair_reference(
+            *a, dilation=dilation) * cot), argnums=tuple(range(5)))(
+            *map(jnp.asarray, args))
+        want_jax = [np.asarray(w) for w in want_jax]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    want = torch.autograd.grad(resblock_pair_plain(*leaves, dilation=dilation),
+                               leaves, torch.from_numpy(cot))
+    got = port.resblock_pair_backward_plain(
+        *map(torch.from_numpy, args), torch.from_numpy(cot),
+        dilation=dilation)
+    for g, w, wj in zip(got, want, want_jax):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
+        np.testing.assert_allclose(g.numpy(), wj, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("needs", list(itertools.product([False, True],
+                                                         repeat=5)))
+def test_backward_plain_gives_only_what_is_needed(needs, with_bias):
+    """Each subset of ``needs`` (frozen weights: x alone) gives exactly
+    those gradients, equal to the full backward's, None for the rest and
+    for a missing bias."""
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).double() for a in
+                         _pair_inputs(np.random.default_rng(5), 17, 8, 7))
+    if not with_bias:
+        b1 = b2 = None
+    gy = torch.randn(2, 17, 8, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(1))
+    full = port.resblock_pair_backward_plain(x, w1, b1, w2, b2, gy,
+                                             dilation=3)
+    got = port.resblock_pair_backward_plain(x, w1, b1, w2, b2, gy,
+                                            dilation=3, needs=needs)
+    for g, f, need, v in zip(got, full, needs, (x, w1, b1, w2, b2)):
+        if need and v is not None:
+            torch.testing.assert_close(g, f, rtol=0, atol=0)
+        else:
+            assert g is None
+
+
+def test_function_backward_on_cpu_runs_the_plain_backward(monkeypatch):
+    """On a CPU tensor the Function's backward is
+    ``resblock_pair_backward_plain``, asked for what autograd needs (x
+    alone when the weights are frozen), and nothing is recomputed."""
+    monkeypatch.setattr(port, "_launch", lambda x, w1, b1, w2, b2, d, sl: (
+        resblock_pair_plain(x, w1, b1, w2, b2, dilation=d,
+                            negative_slope=sl).detach()))
+    calls = []
+    plain = port.resblock_pair_backward_plain
+
+    def spy(*args, **kwargs):
+        calls.append(tuple(kwargs["needs"]))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(port, "resblock_pair_backward_plain", spy)
+    monkeypatch.setattr(port, "recompute_grads", None)  # a call would raise
+    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in
+                         _pair_inputs(np.random.default_rng(4), 13, 8, 3))
+    leaf = x.clone().requires_grad_(True)
+    y = port.ResblockPairFunction.apply(leaf, w1, b1, w2, b2, 1, 0.1)
+    y.sum().backward()
+    assert calls == [(True, False, False, False, False)]
+    want = plain(x, w1, b1, w2, b2, torch.ones_like(x), dilation=1)[0]
+    torch.testing.assert_close(leaf.grad, want)
 
 
 @pytest.mark.parametrize("with_bias", [True, False])

@@ -103,7 +103,9 @@ def test_one_tf32_product_misses_the_f64_limit(k, dilation):
 
 
 def _kernel_fold_steps() -> int:
-    source = (_build.CSRC / "resblock_pair.cu").read_text()
+    """The forward's fold cadence, in the convolution code it shares with
+    the backward (``csrc/pair_conv.cuh``)."""
+    source = (_build.CSRC / "pair_conv.cuh").read_text()
     return int(re.search(r"constexpr int kFoldSteps = (\d+);", source)[1])
 
 
