@@ -6,7 +6,8 @@ the JAX package's registry (``articulatory_tpu/models/__init__.py``), by
 batch), ``RNG_GENERATORS`` an explicit noise ``z``, and
 ``RNG_DISCRIMINATORS`` explicit random-window offsets: the port's training
 step draws them from seeded ``torch.Generator``s where JAX draws from its
-rng streams.
+rng streams. ``DROPOUT_GENERATORS`` take the step's draws for their dropout
+masks.
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ MODEL_CLASSES = tuple(_REGISTRY.values())
 NOISE_DRIVEN_GENERATORS = {"ParallelWaveGANGenerator"}
 # generators that take an explicit noise z
 RNG_GENERATORS = {"StyleMelGANGenerator"}
+# generators that draw their dropout masks from the step's draws by tag
+DROPOUT_GENERATORS = {"Transformer"}
 # discriminators that take explicit random-window offsets
 RNG_DISCRIMINATORS = {"StyleMelGANDiscriminator"}
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,

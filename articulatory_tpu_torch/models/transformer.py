@@ -5,7 +5,10 @@
 3 conv-BatchNorm ``ResBlock``s -> ``w_raw_in`` -> ``elayers`` post-norm
 encoder layers (8 heads, FFN 3072, learned relative positions to distance
 100) -> ``w_out``. BatchNorm and dropout follow the module's ``train()`` /
-``eval()`` mode (JAX's ``train`` argument). ``use_tanh`` is accepted and
+``eval()`` mode (JAX's ``train`` argument); in training, ``forward(...,
+draws=d, tag=t)`` draws layer i's dropout masks from ``d`` tagged
+``<t>/layers.<i>/<site>`` (``layers/transformer.py``), else from torch's
+global generator. ``use_tanh`` is accepted and
 not applied, as in the reference and the JAX package. Keys
 ``conv_blocks.{i}``, ``w_raw_in``, ``transformer.layers.{i}``, ``w_out``,
 ``in_emb_mat``.
@@ -61,19 +64,20 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, ar: torch.Tensor | None = None,
                 spk_id: torch.Tensor | None = None,
-                ph: torch.Tensor | None = None) -> torch.Tensor:
+                ph: torch.Tensor | None = None, draws=None,
+                tag: str = "generator") -> torch.Tensor:
         """x (B, T, in_channels) features, or (B, T) phoneme ids with
         ``num_ph``; ``ar``, ``spk_id`` and ``ph`` are accepted and unused,
-        as in the reference -> (B, T', out_channels), T' = T - 1 with
-        ``extra_art``."""
+        as in the reference; ``draws`` and ``tag`` key the dropout masks
+        -> (B, T', out_channels), T' = T - 1 with ``extra_art``."""
         del ar, spk_id, ph
         if hasattr(self, "in_emb_mat"):
             x = self.in_emb_mat(x)
         for block in self.conv_blocks:
             x = block(x)
         x = self.w_raw_in(x)
-        for layer in self.transformer.layers:
-            x = layer(x)
+        for i, layer in enumerate(self.transformer.layers):
+            x = layer(x, draws=draws, tag=f"{tag}/layers.{i}")
         return self.w_out(x)
 
     def remove_weight_norm(self) -> None:

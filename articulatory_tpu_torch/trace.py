@@ -9,6 +9,8 @@ call into the dispatcher. Spans nest. Their names:
 - ``generator``: a generator forward (``train/gan.py::_forward``);
 - ``discriminator``: a discriminator pass (``train/gan.py::discriminate``);
 - ``aux_loss``: the mel / STFT losses (``train/gan.py::_aux_loss``);
+- ``attention``: a Transformer layer's self-attention, its projections
+  and the banded attention's kernels (``layers/transformer.py``);
 - ``collective``: a collective of ``parallel/mesh.py``;
 - ``recompute_grads:<plain>``: a hand kernel's recompute backward
   (``ops/_recompute.py``).

@@ -13,6 +13,11 @@ Per step, with the JAX package's semantics:
 3. the discriminator loss on (real, fake), updated when
    ``steps > discriminator_train_start_steps``.
 
+Without a discriminator (``state.discriminator`` and ``state.opt_d``
+None; the JAX package always trains one) a step is the generator's aux
+loss and its update alone: no adversarial term, no regeneration and no
+discriminator phases.
+
 A multi-band generator (``out_channels > 1`` and ``pqmf: true``) is
 synthesised by ``ops/pqmf.py`` before the losses and the discriminator;
 the subband loss compares its bands with the PQMF analysis of y.
@@ -79,7 +84,9 @@ from articulatory_tpu_torch.losses import (
     MelSpectrogramLoss,
     MultiResolutionSTFTLoss,
 )
+from articulatory_tpu_torch.layers.transformer import keep_mask
 from articulatory_tpu_torch.models import (
+    DROPOUT_GENERATORS,
     NOISE_DRIVEN_GENERATORS,
     RNG_DISCRIMINATORS,
     RNG_GENERATORS,
@@ -94,11 +101,12 @@ INVERSION_MODES = ("art", "a2m", "w2a", "m2a", "ph2a", "ph2m")
 
 class RandomDraws:
     """The step's random numbers: normal noise on the device of ``like``
-    and window offsets on the host (Python ints, so drawing them waits for
-    nothing). ``tag`` names the pass a draw is for (``generator``,
-    ``regeneration``, ``generator_windows``, ``real_windows``,
-    ``fake_windows``, ``eval_*``); a test may replay another framework's
-    draws by tag.
+    and dropout keep masks on the device of ``like``, and window offsets on
+    the host (Python ints, so drawing them waits for nothing). ``tag``
+    names the pass a draw is for (``generator``, ``regeneration``,
+    ``generator_windows``, ``real_windows``, ``fake_windows``, ``eval_*``;
+    a dropout mask ``<pass>/layers.<i>/<site>``); a test may replay
+    another framework's draws by tag, and a reference the masks.
 
     Each draw comes from a generator seeded by a hash of ``(seed, steps,
     index, tag, n)``: ``at(steps, index)`` keys the draws that follow by the
@@ -136,6 +144,16 @@ class RandomDraws:
                         device=like.device, dtype=like.dtype)
         return z[self.rank * rows:(self.rank + 1) * rows]
 
+    def keep(self, shape: Sequence[int], p: float, like: torch.Tensor,
+             tag: str) -> torch.Tensor:
+        """A bool dropout keep mask (True with probability 1 - p) on the
+        device of ``like``, one row an utterance as ``normal``."""
+        shape = tuple(shape)
+        rows = shape[0]
+        keep = keep_mask((rows * self.world,) + shape[1:], p, like.device,
+                         self._generator(tag, like.device))
+        return keep[self.rank * rows:(self.rank + 1) * rows]
+
     def offsets(self, bounds: Sequence[int], tag: str) -> list[int]:
         gen = self._generator(tag, "cpu")
         return [int(torch.randint(0, b, (1,), generator=gen)) for b in bounds]
@@ -144,9 +162,10 @@ class RandomDraws:
 @dataclasses.dataclass
 class GANTrainState:
     generator: nn.Module
-    discriminator: nn.Module
+    # None (with ``opt_d``) for a step of the generator alone
+    discriminator: nn.Module | None
     opt_g: Optimizer
-    opt_d: Optimizer
+    opt_d: Optimizer | None
     steps: int = 0
     draws: RandomDraws = dataclasses.field(default_factory=RandomDraws)
     # a cascade's second stage, frozen (``requires_grad_(False)``)
@@ -242,7 +261,8 @@ def _inputs(generator: nn.Module, batch: dict, draws: RandomDraws | None,
             tag: str) -> tuple[tuple, dict]:
     """The generator's arguments on ``batch``: noise for a Parallel
     WaveGAN without the legacy noise input and StyleMelGAN's ``z`` come
-    from ``draws``; a conditioned generator reads ``spk_id`` and ``ph``."""
+    from ``draws``, and so do the Transformer's dropout masks; a
+    conditioned generator reads ``spk_id`` and ``ph``."""
     x, name = batch["x"], type(generator).__name__
     if name in NOISE_DRIVEN_GENERATORS:
         if len(x) == 2:  # the legacy collater's (noise, aux)
@@ -258,6 +278,8 @@ def _inputs(generator: nn.Module, batch: dict, draws: RandomDraws | None,
         return (c, z), {}
     if name == "MelGANGenerator":
         return x, {}
+    if name in DROPOUT_GENERATORS:
+        return x, dict(_conditioning(batch, "ar"), draws=draws, tag=tag)
     return x, _conditioning(batch, "ar")
 
 
@@ -398,6 +420,9 @@ def generator_loss(state: GANTrainState, criterion: GANCriterion,
         ph_l = ph_cross_entropy(ph_, batch["ph"])
         metrics["train/ph_loss"] = ph_l
         gen_loss = gen_loss + criterion.lambda_ph * ph_l
+    if state.discriminator is None:
+        metrics["train/generator_loss"] = gen_loss
+        return gen_loss, metrics
     disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
     # the fake and the feature-matching real pass share their windows
     offsets = _offsets(state, disc_y_, "generator_windows")
@@ -469,6 +494,8 @@ def make_train_step(criterion: GANCriterion, config: dict):
             with account.phase("generator_update"):
                 state.opt_g.step(lr_g)
                 state.opt_g.zero_grad()
+        if state.discriminator is None:
+            return _close(state, account, metrics)
 
         # the fake from the updated generator, in training mode, without
         # moving the BatchNorm statistics
@@ -493,12 +520,19 @@ def make_train_step(criterion: GANCriterion, config: dict):
             with account.phase("discriminator_update"):
                 state.opt_d.step(lr_d)
                 state.opt_d.zero_grad()
-        state.steps += 1
-        account.close()
-        return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
-                for k, v in metrics.items()}
+        return _close(state, account, metrics)
 
     return train_step
+
+
+def _close(state: GANTrainState, account: trace.StepAccount,
+           metrics: dict) -> dict:
+    """The end of a step: the step count advanced, the account closed, the
+    metrics detached."""
+    state.steps += 1
+    account.close()
+    return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
+            for k, v in metrics.items()}
 
 
 def make_eval_step(criterion: GANCriterion, config: dict):
@@ -529,6 +563,9 @@ def make_eval_step(criterion: GANCriterion, config: dict):
             ph_l = ph_cross_entropy(ph_, batch["ph"])
             metrics["eval/ph_loss"] = ph_l
             gen_loss = gen_loss + criterion.lambda_ph * ph_l
+        if state.discriminator is None:
+            metrics["eval/generator_loss"] = gen_loss
+            return metrics, y_
         disc_y, disc_y_ = _disc_inputs(config, batch, y, y_)
         p_ = discriminate(state.discriminator, disc_y_,
                           _offsets(state, disc_y_, "eval_fake_windows"))

@@ -76,6 +76,10 @@ Phases, each raising on failure:
    at the training path's 36 shapes (B 64, 25 frames); [pair-backward]:
    the f32 pair's backward kernels at the same shapes against their bound
    and the backward by recomputation ([mri-pair-backward] at MRI's);
+   [banded-attention]: the banded attention's kernels at the inversion
+   cell's layer (B 32, 8 heads, L 2000, d 96, m 100, dropout 0.2) against
+   the plain version in float64 on the card (o, dq, dk, dv, dE within
+   BANDED_TOL), timed beside their bound and the plain version;
 6. train: ``train(config)`` for TRAIN_STEPS steps on TRAIN_UTTS
    utterances of TRAIN_SECONDS s (13 features at 200 Hz), holding (a)
    every loss finite, (b) every generator and discriminator parameter
@@ -286,6 +290,7 @@ import copy
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -551,6 +556,109 @@ def phase_pair_backward(tag: str, seed: int, batch: int, frames: int,
         f"operations; {100 * sums['bound_ms'] / sums['kernel_ms']:.1f} %), "
         f"plain recompute {sums['plain_ms']:.3f} ms")
     return {"shapes": rows, "totals": sums}
+
+
+# the banded relative-position attention (ops/banded_attention.py) at the
+# inversion cell's layer: B 32, 8 heads, L 2000 (10 s at 200 Hz), d 96,
+# m 100, dropout 0.2 on the probabilities
+BANDED_SHAPE, BANDED_P = (32, 8, 2000, 96, 100), 0.2
+BANDED_TOL = 1e-5  # f32 kernels against float64, of each output's max
+BANDED_CALLS = 10
+
+
+def banded_bound_ms(b, h, length, d, m) -> float:
+    """Least time of one banded attention's forward and backward: 18 b h d
+    operations an in-band (query, key) pair (q k^T, q E^T and P V forward,
+    their six gradient products backward), three tf32 products each over
+    the TF32 peak; or the bytes (q, k, v, o in and their gradients out,
+    the table and its gradient, the uint8 mask), whichever is larger."""
+    pairs = sum(min(i + m - 1, length - 1) - max(i - m + 1, 0) + 1
+                for i in range(length))
+    ops_ms = TF32_PRODUCTS * 18.0 * b * h * pairs * d / PEAK_TF32 * 1e3
+    nbytes = (8.0 * b * h * length * d * 4 + 2.0 * h * (2 * m - 1) * d * 4
+              + b * h * length * (2 * m - 1))
+    return max(ops_ms, nbytes / PEAK_BYTES * 1e3)
+
+
+def phase_banded_attention(seed: int) -> dict:
+    """[banded-attention] the banded attention's kernels at BANDED_SHAPE on
+    the card: o and the gradients of q, k, v and the table against the
+    plain version in float64 on the same card inputs and keep mask (each
+    within BANDED_TOL of its largest magnitude), one forward and one
+    backward launch counted, the same bits from a second call; then device
+    ms by CUDA events over BANDED_CALLS calls of the forward and of forward
+    and backward, beside the bound and the plain version in float32 (no
+    PyTorch call computes this attention: SDPA takes no relative table)."""
+    from articulatory_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_backward,
+        banded_attention_plain,
+    )
+
+    b, h, length, d, m = BANDED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, length, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    table = torch.randn(h, 2 * m - 1, d, device="cuda",
+                        generator=gen) * d ** -0.5
+    keep = torch.rand(b, h, length, 2 * m - 1, device="cuda",
+                      generator=gen) >= BANDED_P
+
+    def leaves(dtype):
+        return [t.to(dtype).requires_grad_(True) for t in (q, k, v, table)]
+
+    def grads(fn, args):
+        o = fn(*args, keep, BANDED_P)
+        return [o.detach(), *torch.autograd.grad(o, args, do.to(o.dtype))]
+
+    before = banded_attention.launches, banded_attention_backward.launches
+    got = grads(banded_attention, leaves(torch.float32))
+    launches = (banded_attention.launches - before[0],
+                banded_attention_backward.launches - before[1])
+    again = grads(banded_attention, leaves(torch.float32))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = grads(banded_attention_plain, leaves(torch.float64))
+    names = ("o", "dq", "dk", "dv", "dE")
+    errs = {n: float((g.double() - w).abs().max() / w.abs().max())
+            for n, g, w in zip(names, got, want)}
+    del got, want
+    if launches != (1, 1) or not same or max(errs.values()) > BANDED_TOL:
+        raise AssertionError(f"[banded-attention] launches {launches} (want "
+                             f"(1, 1)), bit-equal repeat {same}, errors "
+                             f"against float64 {errs} (limit {BANDED_TOL})")
+    args = leaves(torch.float32)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: banded_attention(*args, keep, BANDED_P),
+                         BANDED_CALLS)
+    total_ms = time_ms(lambda: grads(banded_attention, args), BANDED_CALLS)
+    plain_ms = time_ms(lambda: grads(banded_attention_plain, args), 3)
+    bound = banded_bound_ms(b, h, length, d, m)
+    # device ms of each kernel in one forward and backward
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        grads(banded_attention, args)
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for e in prof.key_averages():
+        name = re.search(r"banded_attn_\w+", e.key)
+        if name:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            kernels[name.group(0)] = kernels.get(name.group(0), 0.0) + us / 1e3
+    log(f"[banded-attention] B {b}, H {h}, L {length}, d {d}, m {m}, dropout "
+        f"{BANDED_P}, f32 (3xTF32): forward and backward {total_ms:.3f} ms "
+        f"(forward {fwd_ms:.3f}), bound {bound:.3f} ms "
+        f"({100 * bound / total_ms:.1f} %), plain {plain_ms:.3f} ms; against "
+        f"float64 " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" of max (limit {BANDED_TOL}); launches {launches}, a repeat "
+        f"bit-equal; profiled ms a kernel: "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in kernels.items()))
+    return {"kernel_ms": total_ms, "forward_ms": fwd_ms, "bound_ms": bound,
+            "plain_ms": plain_ms, "f64_rel_err": errs,
+            "profiled_ms": kernels}
 
 
 def phase_device() -> tuple[str, str]:
@@ -1434,7 +1542,13 @@ def expected_launches(config: dict, steps: int, remat_steps: int = 0
     the MSMPD's scale heads, a head a scale in each of the generator
     loss's fake pass, its feature-matching real pass and the
     discriminator's two passes, in the discriminator's dtype, each
-    splitting its weights once."""
+    splitting its weights once. A Transformer generator runs neither: a
+    banded attention a layer in each of its two forwards, and its backward
+    once a step."""
+    if config.get("generator_type") == "Transformer":
+        layers = config["generator_params"].get("elayers", 6)
+        return {"banded_attention": {str(torch.float32): 2 * steps * layers},
+                "banded_attention_backward": steps * layers}
     gp, dp = config["generator_params"], config["discriminator_params"]
     pairs = sum(len(d) for d in gp["resblock_dilations"])
     stages = len(gp["upsample_scales"])
@@ -1811,12 +1925,12 @@ def phase_hybrid_train(port: dict, seed: int, tmp: str) -> dict:
     profiled = _device_split(prof)
     # the last stage's 9 f32 pairs differentiate on the backward kernels
     # (a split, data and weight gradients and reductions each), the 27 bf16
-    # pairs by recomputation
+    # pairs by recomputation; the HiFi-CAR step runs no banded attention
     want = {"resblock_pair_wgmma": 72, "split_tf32_kernel": 18,
             "scale_disc_head_wgmma": 12, "split_weights_kernel": 12,
             "pair_bwd_split_kernel": 9, "pair_bwd_hidden_kernel": 9,
             "pair_bwd_input_kernel": 9, "pair_bwd_weight_kernel": 18,
-            "pair_bwd_reduce_kernel": 18}
+            "pair_bwd_reduce_kernel": 18, "banded_attn_": 0}
     ranges = {k: n for k, (n, _) in profiled["recompute"].items()}
     if profiled["kernel_counts"] != want or ranges != {
             "resblock_pair_plain": 27, "scale_disc_head_plain": 9}:
@@ -2333,7 +2447,7 @@ E2W_RECIPE = os.path.join(ROOT, "egs", "ema", "voc1", "conf",
 ZOO_TRAIN_UTTS, ZOO_TRAIN_SECONDS = 32, 3
 ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS = 2, 3  # the run's steps, then timed ones
 ZOO_DECODE_UTTS, ZOO_DECODE_SECONDS = 16, 10
-ZOO_W2A_ROWS = 400  # 2 s: a (32, 8, 400, 400) f32 logits tensor is 164 MB
+ZOO_W2A_ROWS = 400  # 2 s (the banded attention holds no L x L logits)
 ZOO_F64_TOL = 1e-4  # f32 generator against float64 on the card, of max |y|
 ZOO_PROFILE_FORWARDS = 5
 # the pair's and the head's shapes on the multi-band path: B 32, 100 frames
@@ -2469,6 +2583,24 @@ def _zoo_noise(model, x):
     return None
 
 
+def _banded_counts(since: dict | None = None) -> dict:
+    """The banded attention's launch counts in ``expected_launches``'s
+    form, less ``since``'s."""
+    from articulatory_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_backward,
+    )
+    now = {"banded_attention": dict(banded_attention.launches_by_dtype),
+           "banded_attention_backward": banded_attention_backward.launches}
+    if since is None:
+        return now
+    by_dtype = {k: n - since["banded_attention"].get(k, 0)
+                for k, n in now["banded_attention"].items()}
+    return {"banded_attention": {k: n for k, n in by_dtype.items() if n},
+            "banded_attention_backward": now["banded_attention_backward"]
+            - since["banded_attention_backward"]}
+
+
 def phase_zoo(port: dict, family: str, config: dict, seed: int,
               device_name: str, tmp: str, tag: str | None = None) -> dict:
     """[zoo-<family>] ``bin/train.py::train`` for ZOO_WARMUP_STEPS steps on
@@ -2519,6 +2651,7 @@ def phase_zoo(port: dict, family: str, config: dict, seed: int,
                               trainer.device)
     # one untimed step with both models on (the generator's optimizer
     # state is made in its first update), then the timed ones
+    banded = _banded_counts()
     trainer.train_step(state, batch, lr, lr)
     step_s, metrics = [], {}
     for _ in range(ZOO_TIMED_STEPS):
@@ -2527,6 +2660,14 @@ def phase_zoo(port: dict, family: str, config: dict, seed: int,
         metrics = trainer.train_step(state, batch, lr, lr)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - begin)
+    banded = _banded_counts(banded)
+    if config["generator_type"] == "Transformer":
+        want = expected_launches(config, 1 + ZOO_TIMED_STEPS)
+        if banded != want:
+            raise AssertionError(f"[{tag}] banded attention launches "
+                                 f"{banded} in {1 + ZOO_TIMED_STEPS} steps, "
+                                 f"expected {want}")
+        launches["banded_attention_timed_steps"] = banded
     losses = {k: float(v) for k, v in metrics.items()}
     if not losses or not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"[{tag}] losses not finite: {losses}")
@@ -3027,8 +3168,16 @@ def phase_ph2a(port: dict, seed: int, device_name: str, tmp: str) -> dict:
         np.save(os.path.join(dump, f"e{i}-feats.npy"),
                 rng.integers(0, COND_PHONEMES, frames).astype(np.int32))
     ckpt = os.path.join(tmp, "exp", f"checkpoint-{ZOO_WARMUP_STEPS}steps.ckpt")
+    before = _banded_counts()
     r = decode.decode(config, ckpt, os.path.join(tmp, "out"), dumpdir=dump,
                       device="cuda")
+    launches = _banded_counts(before)
+    layers = config["generator_params"]["elayers"]
+    forwards = sum(launches["banded_attention"].values())
+    if (launches["banded_attention_backward"] or not forwards
+            or forwards % layers):
+        raise AssertionError(f"[ph2a] banded attention launches {launches} "
+                             f"in the decode: not a forward a layer")
     for i in range(ZOO_DECODE_UTTS):
         y = np.load(os.path.join(tmp, "out", f"e{i}_gen.npy"))
         if y.shape != (frames, 12) or not np.isfinite(y).all():
@@ -3040,8 +3189,9 @@ def phase_ph2a(port: dict, seed: int, device_name: str, tmp: str) -> dict:
         + ", ".join(f"{k.split('/')[-1]} {v:.4f}" for k, v in losses.items())
         + f"; bin/decode.py on integer ids: {ZOO_DECODE_UTTS} x "
         f"{ZOO_DECODE_SECONDS} s in {r['seconds_elapsed']:.3f} s, RTF "
-        f"{r['rtf']:.6f}")
-    return {"run_seconds": run_seconds, "losses": losses, "decode": r}
+        f"{r['rtf']:.6f}, banded attention launches {launches}")
+    return {"run_seconds": run_seconds, "losses": losses, "decode": r,
+            "decode_launches": launches}
 
 
 def phase_mult(port: dict, seed: int, device_name: str) -> dict:
@@ -3152,7 +3302,8 @@ RECIPE_SCRIPT_JOBS = 4  # recipe/run.sh's preprocess jobs a set
 # by the op that launched them
 KERNEL_CLASSES = {"pair": ("resblock_pair_wgmma", "split_tf32_kernel"),
                   "head": ("scale_disc_head_wgmma", "split_weights_kernel"),
-                  "pair_backward": PAIR_BACKWARD_KERNELS}
+                  "pair_backward": PAIR_BACKWARD_KERNELS,
+                  "banded_attention": ("banded_attn_",)}
 # the profiler ranges of the kernels' recompute backward (ops/_recompute.py)
 RECOMPUTE_RANGE = "recompute_grads:"
 
@@ -4686,7 +4837,9 @@ def phase_past_seq(seed: int, device_name: str) -> dict:
     with torch.no_grad():
         ref = copy.deepcopy(enc).double()(x.double())
         cpu32 = enc(x)
+        before = _banded_counts()
         got = card(xc)
+        launches = _banded_counts(before)
         got64 = copy.deepcopy(card).double()(xc.double())
         ms = time_ms(lambda: card(xc), 20)
     shape = (PAST_SEQ_B, PAST_SEQ_P, 128)
@@ -4698,6 +4851,12 @@ def phase_past_seq(seed: int, device_name: str) -> dict:
     err = float((got.cpu().double() - ref).abs().max()) / scale
     cpu_err = float((cpu32.double() - ref).abs().max()) / scale
     limit = max(PAST_SEQ_TOL, 2 * cpu_err)
+    layers = len(card.transformer.layers)
+    want = {"banded_attention": {str(torch.float32): layers},
+            "banded_attention_backward": 0}
+    if launches != want:
+        raise AssertionError(f"[past-seq] banded attention launches "
+                             f"{launches} in one forward, expected {want}")
     if err64 > PAST_SEQ_F64_TOL or err > limit:
         raise AssertionError(
             f"[past-seq] the card's float64 forward is {err64:.3e} of max "
@@ -4719,7 +4878,8 @@ def phase_past_seq(seed: int, device_name: str) -> dict:
         f"{PAST_SEQ_F64_TOL}); float32 {err:.3e} from the CPU's float64 "
         f"(limit {limit:.3e}), the CPU's float32 {cpu_err:.3e}; training "
         f"dropout from a card generator: one seed's forwards {same:.3e} "
-        f"apart, another seed's {other:.3e}")
+        f"apart, another seed's {other:.3e}; banded attention launches a "
+        f"forward {launches['banded_attention']}")
     return {"ms": ms, "f64_rel_err": err64, "f32_rel_err": err,
             "cpu_f32_rel_err": cpu_err, "dropout_same_seed": same,
             "dropout_other_seed": other}
@@ -5303,6 +5463,7 @@ def main() -> int:
     log_stage_sums(train_stages, batch)
     train_backward = phase_pair_backward("pair-backward", args.seed, batch,
                                          train_frames)
+    banded = phase_banded_attention(args.seed)
     port = dict(inference=inference, residual=residual,
                 resblock_pair=resblock_pair, plain=resblock_pair_plain,
                 split=split_tf32, weights=weights, decode=decode,
@@ -5720,6 +5881,7 @@ def main() -> int:
                    "kernel_train_stages": train_stages,
                    "pair_backward_train": train_backward,
                    "pair_backward_mri": mri_backward,
+                   "banded_attention": banded,
                    "head_shapes": head_rows, "slice": slice_results,
                    "train": train_results, "hybrid_train": hybrid,
                    "mri_kernel_shapes": mri_rows,

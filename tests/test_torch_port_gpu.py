@@ -1221,3 +1221,138 @@ def test_cotrain_against_artifact_on_card(cuda):
                                          saved["disc_cfg"])
     assert report["port"]["launches"]["train"] == \
         chip_smoke.expected_launches(config, COTRAIN_STEPS)
+
+
+# --- the banded relative-position attention ----------------------------------
+
+def _banded_args(device, b, h, length, d, m, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, length, d, generator=gen)
+                   for _ in range(4))
+    table = torch.randn(h, 2 * m - 1, d, generator=gen) * d ** -0.5
+    keep = torch.rand(b, h, length, 2 * m - 1, generator=gen) >= 0.2
+    return [t.to(device) for t in (q, k, v, table, keep, do)]
+
+
+def _banded_grads(q, k, v, table, keep, p, do):
+    """o and the gradients of q, k, v and the table: the plain version for
+    float64, the kernels otherwise."""
+    from articulatory_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_plain,
+    )
+    attend = (banded_attention_plain if q.dtype == torch.float64
+              else banded_attention)
+    args = [t.detach().requires_grad_(True) for t in (q, k, v, table)]
+    o = attend(*args, keep if p else None, p)
+    return [o.detach(), *torch.autograd.grad(o, args, do)]
+
+
+@pytest.mark.parametrize("b,h,length,d,m,p", [
+    (32, 8, 2000, 96, 100, 0.2),  # the inversion cell's layer
+    (32, 8, 2000, 96, 100, 0.0),
+    (2, 8, 300, 96, 100, 0.2),    # L not a multiple of the tiles
+    (1, 8, 150, 96, 100, 0.2),    # L below 2m - 1
+    (2, 3, 37, 16, 100, 0.2),     # L below m
+    (2, 4, 130, 16, 5, 0.1),      # a narrow band
+    (2, 8, 257, 8, 100, 0.2),     # d below the smallest tile
+])
+def test_banded_attention_kernels_match_float64(cuda, b, h, length, d, m, p):
+    """The f32 kernels (3xTF32) against the plain version in float64 on the
+    card: o and the gradients of q, k, v and the table within 1e-5 of each
+    one's largest magnitude; one launch forward and one backward, counted
+    per dtype; the same numbers, bit for bit, from call to call."""
+    from articulatory_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_backward,
+    )
+    q, k, v, table, keep, do = _banded_args(cuda, b, h, length, d, m)
+    want = _banded_grads(*(t.double() for t in (q, k, v, table)), keep, p,
+                         do.double())
+    before = (banded_attention.launches, banded_attention_backward.launches,
+              banded_attention.launches_by_dtype["torch.float32"])
+    got = _banded_grads(q, k, v, table, keep, p, do)
+    assert (banded_attention.launches, banded_attention_backward.launches,
+            banded_attention.launches_by_dtype["torch.float32"]) == tuple(
+                n + 1 for n in before)
+    for name, a, w in zip(("o", "dq", "dk", "dv", "dE"), got, want):
+        err = float((a.double() - w).abs().max() / w.abs().max())
+        assert err < 1e-5, (name, err)
+    again = _banded_grads(q, k, v, table, keep, p, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_banded_attention_refuses_other_types_on_the_card(cuda):
+    """A CUDA tensor of a type the kernels do not take raises; nothing runs
+    the plain version in its place."""
+    from articulatory_tpu_torch.ops.banded_attention import banded_attention
+    q, k, v, table, keep, _ = _banded_args(cuda, 1, 2, 40, 16, 5)
+    before = banded_attention.launches
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="banded_attention_plain"):
+            banded_attention(*(t.to(dtype) for t in (q, k, v, table)), keep,
+                             0.2)
+    assert banded_attention.launches == before
+
+
+def test_banded_attention_bf16_kernels_match_plain(cuda):
+    """bfloat16 storage, float32 sums: within bf16's rounding of the plain
+    version in float32."""
+    args = _banded_args(cuda, 2, 8, 300, 96, 100)
+    want = _banded_grads(*args[:4], args[4], 0.2, args[5])
+    got = _banded_grads(*(t.bfloat16() for t in args[:4]), args[4], 0.2,
+                        args[5].bfloat16())
+    for name, a, w in zip(("o", "dq", "dk", "dv", "dE"), got, want):
+        err = float((a.float() - w).abs().max() / w.abs().max())
+        assert err < 3e-2, (name, err)
+
+
+def test_transformer_step_runs_the_banded_kernels(cuda):
+    """A Transformer's training step on the card with dropout 0.2 launches
+    one banded forward and one backward a layer, and its loss and
+    gradients agree with the same model in float64 on the card (the plain
+    version), the same masks drawn by tag."""
+    from articulatory_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_backward,
+    )
+    from articulatory_tpu_torch.train import gan
+    from articulatory_tpu_torch.train.optimizers import build_optimizer
+
+    gp = dict(in_channels=16, out_channels=4, hidden_dim=64, elayers=2,
+              dropout=0.2)
+    torch.manual_seed(0)
+    model = build_model("Transformer", gp)
+    x = torch.randn(2, 300, 16, device=cuda)
+    y = torch.randn(2, 300, 4, device=cuda)
+
+    def grads(dtype):
+        gen = build_model("Transformer", gp).to(cuda, dtype).train()
+        gen.load_state_dict(model.state_dict())
+        draws = gan.RandomDraws(9)
+        draws.at(1)
+        loss = torch.mean(torch.abs(gen(x.to(dtype), draws=draws)
+                                    - y.to(dtype)))
+        return loss, torch.autograd.grad(loss, list(gen.parameters()))
+
+    loss, got = grads(torch.float32)
+    want_loss, want = grads(torch.float64)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    # against the median leaf's norm where a leaf's is smaller: the conv
+    # biases under BatchNorm take gradients of round-off alone
+    median = sorted(float(w.norm()) for w in want)[len(want) // 2]
+    for a, w in zip(got, want):
+        assert float((a.double() - w).norm()) < 1e-4 * max(
+            float(w.norm()), median)
+    config = dict(dataset_mode="w2a", use_stft_loss=False, use_mel_loss=True,
+                  lambda_aux=1.0, generator_train_start_steps=0)
+    gen = build_model("Transformer", gp).to(cuda)
+    state = gan.GANTrainState(
+        generator=gen, discriminator=None, opt_d=None, steps=1,
+        opt_g=build_optimizer("Adam", {"lr": 1e-4}, -1, gen.parameters()))
+    step = gan.make_train_step(gan.GANCriterion(config), config)
+    before = banded_attention.launches, banded_attention_backward.launches
+    step(state, {"x": (x,), "y": y}, 1e-4, None)
+    torch.cuda.synchronize()
+    assert (banded_attention.launches - before[0],
+            banded_attention_backward.launches - before[1]) == (2, 2)
